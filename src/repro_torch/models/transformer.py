@@ -1,0 +1,317 @@
+"""Period-grouped decoder stack (port of ``repro/models/transformer.py``) for
+attention-only configs with dense MLPs: qwen2, internlm2, minitron, gemma2.
+
+Parameters keep the JAX names and shapes: ``embed (V, D)``, ``final_norm``,
+``lm_head (D, V)`` when untied, and per group ``g{i}.{j}.<leaf>`` stacked
+with a leading layer dim (e.g. ``g0.0.mixer.wq (L, D, H, Dh)``), where ``j``
+is the position in the group's period. A JAX params pytree therefore
+converts leaf for leaf (``from_jax_params``).
+
+PyTorch runs eagerly, so where the JAX stack scans over layers this one
+loops over views of the stacked tensors, and decode writes each layer's new
+K/V into the cache in place (committed mode).
+
+Caches mirror the JAX structure: ``{"g{i}": ({"mixer": {"k", "v"}}, ...)}``
+with leaves (L, B, S, KVH, Dh).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.models import layers as L
+
+
+def resolve_device(device) -> torch.device:
+    """Entry points default to CUDA and never fall back to the CPU: asking
+    for CUDA where it is missing raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    if cfg.n_codebooks or cfg.n_vision_tokens:
+        raise NotImplementedError(f"{cfg.name}: codebook / vision frontends "
+                                  "are not ported")
+    for spec in cfg.layer_specs():
+        if spec.kind != "attn":
+            raise NotImplementedError(f"{cfg.name}: {spec.kind} layers are "
+                                      "not ported")
+        if spec.attn_type == "cross":
+            raise NotImplementedError(f"{cfg.name}: cross-attention is not "
+                                      "ported")
+        if spec.mlp != "dense":
+            raise NotImplementedError(f"{cfg.name}: {spec.mlp} MLP layers "
+                                      "are not ported")
+
+
+def _padded_vocab(cfg: ModelConfig) -> int:
+    if cfg.vocab_pad_to:
+        return -(-cfg.vocab_size // cfg.vocab_pad_to) * cfg.vocab_pad_to
+    return cfg.vocab_size
+
+
+def _params(tensors: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
+                             for k, t in tensors.items()})
+
+
+class _LayerStack(nn.Module):
+    """One period position of a group: its parameters stacked over the
+    group's ``rep`` repeats."""
+
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec, rep: int, init):
+        super().__init__()
+        D = cfg.d_model
+
+        def norm():
+            return nn.Parameter(init((rep, D), None), requires_grad=False)
+
+        self.rep = rep
+        self.norm1 = norm()
+        self.mixer = _params(L.init_attention(cfg, spec, rep, init))
+        self.norm2 = norm()
+        self.mlp = _params(L.init_mlp(cfg, rep, init))
+        if cfg.use_post_norms:
+            self.post_norm1 = norm()
+            self.post_norm2 = norm()
+
+    def per_layer(self) -> list[dict]:
+        """One dict of views per repeat: {"norm1": t, "mixer": {...}, ...}."""
+        views = {name: p.unbind(0) for name, p in self.named_parameters()}
+        out = []
+        for r in range(self.rep):
+            d: dict = {"mixer": {}, "mlp": {}}
+            for name, vs in views.items():
+                head, _, leaf = name.partition(".")
+                if leaf:
+                    d[head][leaf] = vs[r]
+                else:
+                    d[head] = vs[r]
+            out.append(d)
+        return out
+
+
+class Transformer(nn.Module):
+    """Decoder stack with JAX-named parameters.
+
+    ``generator`` seeds the normal init (a fresh one seeded 0 when omitted);
+    norms start at one and biases at zero, as in the JAX init. The model is
+    built on ``device`` (CUDA by default; raises when CUDA is missing).
+    """
+
+    def __init__(self, cfg: ModelConfig, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        check_supported(cfg)
+        dev = resolve_device(device)
+        pd = getattr(torch, cfg.param_dtype)
+        if generator is None and dev.type != "meta":
+            generator = torch.Generator(device=dev).manual_seed(0)
+
+        def init(shape, std):
+            """std None: ones in fp32 (norm scales); 0.0: zeros; else normal
+            weights in the param dtype."""
+            if std is None:
+                return torch.ones(shape, dtype=torch.float32, device=dev)
+            if dev.type == "meta" or std == 0.0:
+                return torch.zeros(shape, dtype=pd, device=dev)
+            w = torch.randn(shape, generator=generator, device=dev,
+                            dtype=torch.float32)
+            return (w * std).to(pd)
+
+        self.cfg = cfg
+        D, V = cfg.d_model, _padded_vocab(cfg)
+        self.embed = nn.Parameter(init((V, D), 0.02), requires_grad=False)
+        self.final_norm = nn.Parameter(init((D,), None), requires_grad=False)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(init((D, V), 0.02),
+                                        requires_grad=False)
+        for gi, (period, rep) in enumerate(cfg.groups):
+            self.add_module(f"g{gi}", nn.ModuleList(
+                [_LayerStack(cfg, spec, rep, init) for spec in period]))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # -- pieces ----------------------------------------------------------------
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embed.to(getattr(torch, self.cfg.dtype))[tokens]
+
+    def _unembed(self, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            logits = h @ self.embed.to(h.dtype).T
+        else:
+            logits = h @ self.lm_head.to(h.dtype)
+        if cfg.final_softcap is not None:
+            logits = cfg.final_softcap * torch.tanh(
+                logits.float() / cfg.final_softcap).to(logits.dtype)
+        if logits.shape[-1] != cfg.vocab_size:
+            # mask padded vocab rows out of the softmax (and argmax sampling)
+            pad = torch.arange(logits.shape[-1], device=logits.device) \
+                >= cfg.vocab_size
+            logits = logits.masked_fill(pad, -1e30)
+        return logits
+
+    def _layer(self, spec: LayerSpec, p: dict, x: torch.Tensor, *,
+               positions=None, cache=None, lengths=None, impl=None):
+        cfg = self.cfg
+        h_in = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+        if cache is None:
+            mix_out, kv = L.attention_forward(cfg, spec, p["mixer"], h_in,
+                                              positions=positions, impl=impl)
+        else:
+            mix_out, kv = L.attention_decode(cfg, spec, p["mixer"], h_in,
+                                             cache, lengths, impl=impl)
+        if cfg.use_post_norms:
+            mix_out = L.rms_norm(mix_out, p["post_norm1"], cfg.norm_eps)
+        x = x + mix_out
+        h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+        mlp_out = L.mlp_forward(cfg, p["mlp"], h2)
+        if cfg.use_post_norms:
+            mlp_out = L.rms_norm(mlp_out, p["post_norm2"], cfg.norm_eps)
+        return x + mlp_out, kv
+
+    def _groups(self):
+        for gi, (period, rep) in enumerate(self.cfg.groups):
+            stacks = getattr(self, f"g{gi}")
+            yield gi, period, rep, [s.per_layer() for s in stacks]
+
+    # -- entry points ------------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, *, impl: Optional[str] = None):
+        """Full-sequence pass over tokens (B, S). Returns (logits (B, S, V),
+        cache) with cache capacity == S."""
+        h = self._embed(tokens)
+        B, S = tokens.shape
+        positions = torch.arange(S, device=h.device).expand(B, S)
+        caches = {}
+        for gi, period, rep, views in self._groups():
+            per_pos = [([], []) for _ in period]
+            for r in range(rep):
+                for li, spec in enumerate(period):
+                    h, kv = self._layer(spec, views[li][r], h,
+                                        positions=positions, impl=impl)
+                    per_pos[li][0].append(kv["k"])
+                    per_pos[li][1].append(kv["v"])
+            caches[f"g{gi}"] = tuple(
+                {"mixer": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+                for ks, vs in per_pos)
+        h = L.rms_norm(h, self.final_norm, self.cfg.norm_eps)
+        return self._unembed(h), caches
+
+    def forward(self, tokens: torch.Tensor, *,
+                impl: Optional[str] = None) -> torch.Tensor:
+        """Logits (B, S, V) of a full-sequence pass."""
+        return self.prefill(tokens, impl=impl)[0]
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens: torch.Tensor,
+                    lengths: torch.Tensor, *, append: bool = False,
+                    impl: Optional[str] = None):
+        """One decode step. tokens (B,); lengths (B,) tokens already in the
+        cache (the position of the new token). Writes each layer's new K/V
+        into ``cache`` IN PLACE and returns (logits (B, V), cache).
+
+        Lengths given on the CPU are bounds-checked against the cache
+        before anything is written (on the device an out-of-range write
+        would be a device-side fault)."""
+        if append:
+            raise NotImplementedError(
+                "append-mode decode is not ported; use append=False")
+        if lengths.device.type == "cpu":
+            max_seq = cache["g0"][0]["mixer"]["k"].shape[2]
+            if bool(((lengths < 0) | (lengths >= max_seq)).any()):
+                raise ValueError(f"lengths {lengths.tolist()} outside the "
+                                 f"cache's [0, {max_seq})")
+        h = self._embed(tokens[:, None])
+        lengths = lengths.to(device=h.device, dtype=torch.int64)
+        for gi, period, rep, views in self._groups():
+            for r in range(rep):
+                for li, spec in enumerate(period):
+                    leaves = cache[f"g{gi}"][li]["mixer"]
+                    layer_cache = {"k": leaves["k"][r], "v": leaves["v"][r]}
+                    h, _ = self._layer(spec, views[li][r], h,
+                                       cache=layer_cache, lengths=lengths,
+                                       impl=impl)
+        h = L.rms_norm(h, self.final_norm, self.cfg.norm_eps)
+        return self._unembed(h)[:, 0], cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+               device="cuda") -> dict:
+    """Zeroed decode cache in the model dtype."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    cdt = getattr(torch, cfg.dtype)
+    return {f"g{gi}": tuple(
+        {"mixer": L.init_attention_cache(cfg, spec, rep, batch, max_seq, cdt,
+                                         dev)} for spec in period)
+        for gi, (period, rep) in enumerate(cfg.groups)}
+
+
+def cache_insert(cfg: ModelConfig, cache: dict, prefill_cache: dict,
+                 slot: int, length: int) -> dict:
+    """Write a single-sequence prefill cache (batch == 1) into batch slot
+    ``slot`` of a decode cache, IN PLACE: the first ``length`` positions of
+    every layer's K/V. Returns ``cache``."""
+    for gi, (period, _) in enumerate(cfg.groups):
+        for li in range(len(period)):
+            dst = cache[f"g{gi}"][li]["mixer"]
+            src = prefill_cache[f"g{gi}"][li]["mixer"]
+            for name in ("k", "v"):
+                dst[name][:, slot, :length] = src[name][:, 0, :length].to(
+                    dst[name].dtype)
+    return cache
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Exact parameter count, from a model built on the meta device."""
+    model = Transformer(cfg, device="meta")
+    return sum(p.numel() for p in model.parameters())
+
+
+def _flatten(tree, prefix: str = ""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, f"{prefix}{k}.")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def from_jax_params(cfg: ModelConfig, params, *, device="cuda") -> Transformer:
+    """Build a Transformer from a JAX params pytree whose leaves are numpy
+    arrays (``jax.tree.map(np.asarray, params)``). Names, shapes and dtypes
+    must match leaf for leaf."""
+    model = Transformer(cfg, device="meta")
+    own = dict(model.named_parameters())
+    given = dict(_flatten(params))
+    if set(own) != set(given):
+        raise ValueError(
+            f"parameter names differ: missing {sorted(set(own) - set(given))}"
+            f", unexpected {sorted(set(given) - set(own))}")
+    dev = resolve_device(device)
+    model = model.to_empty(device=dev)
+    for name, p in model.named_parameters():
+        arr = np.asarray(given[name])
+        if arr.dtype.name == "bfloat16":      # numpy has no bf16 for torch
+            arr = arr.astype(np.float32)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
+        p.data.copy_(torch.from_numpy(np.ascontiguousarray(arr)).to(p.dtype))
+    return model

@@ -1,0 +1,155 @@
+"""Port serving (repro_torch.serving) vs the JAX package's engine and block
+manager, on the CPU; and the port's import and device boundaries."""
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.models import transformer as JT
+from repro.serving import EngineConfig as JEngineConfig
+from repro.serving import Request as JRequest
+from repro.serving import ServingEngine as JServingEngine
+from repro.serving.kv_cache import BlockManager as JBlockManager
+from repro.serving.kv_cache import OutOfBlocks as JOutOfBlocks
+from repro_torch.configs import get_config
+from repro_torch.models import transformer as T
+from repro_torch.serving import (BlockManager, EngineConfig, OutOfBlocks,
+                                 Request, ServingEngine)
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+@pytest.fixture(scope="module")
+def models():
+    """Reduced internlm2 with numpy-drawn weights, in both packages."""
+    cfg_j = jax_get_config("internlm2-1.8b").reduced()
+    rng = np.random.default_rng(7)
+    shapes = jax.eval_shape(lambda: JT.init_params(cfg_j,
+                                                   jax.random.PRNGKey(0)))
+
+    def draw(path, leaf):
+        x = rng.standard_normal(leaf.shape).astype(np.float32)
+        if "norm" in jax.tree_util.keystr(path):
+            return 1.0 + 0.1 * x
+        return 0.3 * x
+
+    np_params = jax.tree_util.tree_map_with_path(draw, shapes)
+    cfg_t = get_config("internlm2-1.8b").reduced()
+    model = T.from_jax_params(cfg_t, np_params, device="cpu")
+    return cfg_j, jax.tree.map(jnp.asarray, np_params), cfg_t, model
+
+
+def _prompts(vocab):
+    rng = np.random.default_rng(0)
+    return [list(map(int, rng.integers(1, vocab, size=L)))
+            for L in (5, 9, 13, 7)]
+
+
+def test_engine_greedy_matches_jax_engine(models):
+    """Prompts of tests/test_serving.py::test_engine_matches_reference; the
+    JAX engine decodes in append mode, the port in committed mode."""
+    cfg_j, params_j, cfg_t, model = models
+    prompts = _prompts(cfg_j.vocab_size)
+    eng_j = JServingEngine(cfg_j, params_j,
+                           JEngineConfig(max_batch=4, max_seq=64))
+    eng_t = ServingEngine(cfg_t, model, EngineConfig(max_batch=4, max_seq=64),
+                          device="cpu")
+    for i, p in enumerate(prompts):
+        eng_j.submit(JRequest(rid=i, prompt=p, max_new_tokens=6))
+        eng_t.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+    done_j = {r.rid: r.generated for r in eng_j.run()}
+    done_t = eng_t.run()
+    assert len(done_t) == 4
+    for r in done_t:
+        assert r.generated == done_j[r.rid], r.rid
+        assert len(r.generated) == 6 and r.ttft >= 0 and r.tpot >= 0
+    assert eng_t.blocks.n_used == 0
+    eng_t.blocks.check_invariants()
+    assert eng_t.prefills == 4
+
+
+def test_engine_rejects_too_long_and_batches_continuously(models):
+    _, _, cfg, model = models
+    eng = ServingEngine(cfg, model, EngineConfig(max_batch=2, max_seq=32),
+                        device="cpu")
+    eng.submit(Request(rid=0, prompt=list(range(1, 30)), max_new_tokens=20))
+    assert [r.generated for r in eng.run()] == [[]]
+    eng = ServingEngine(cfg, model, EngineConfig(max_batch=2, max_seq=64),
+                        device="cpu")
+    for i in range(5):                      # more requests than slots
+        eng.submit(Request(rid=i, prompt=[3 + i, 5, 7], max_new_tokens=4))
+    done = eng.run()
+    assert len(done) == 5 and all(len(r.generated) == 4 for r in done)
+    assert eng.n_active == 0 and not eng.queue and eng.blocks.n_used == 0
+
+
+def test_temperature_sampling_is_seeded(models):
+    _, _, cfg, model = models
+    streams = []
+    for _ in range(2):
+        eng = ServingEngine(cfg, model,
+                            EngineConfig(max_batch=2, max_seq=32, seed=5),
+                            device="cpu")
+        eng.submit(Request(rid=0, prompt=[4, 8, 15], max_new_tokens=5,
+                           temperature=1.0))
+        streams.append(eng.run()[0].generated)
+    assert streams[0] == streams[1] and len(streams[0]) == 5
+
+
+def test_engine_defaults_to_cuda(models, monkeypatch):
+    _, _, cfg, model = models
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        ServingEngine(cfg, model, EngineConfig(max_batch=2, max_seq=32))
+
+
+def _apply(bm, op, args, out_of_blocks):
+    try:
+        result = getattr(bm, op)(*args)
+    except (out_of_blocks, ValueError, KeyError) as e:
+        return type(e).__name__
+    return getattr(result, "blocks", result)
+
+
+def _state(bm):
+    return (list(bm.free), list(bm.ref),
+            {s: (list(a.blocks), a.tokens) for s, a in bm.seqs.items()})
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_block_manager_matches_jax_copy(seed):
+    rng = np.random.default_rng(seed)
+    ours, theirs = BlockManager(24, 4), JBlockManager(24, 4)
+    for _ in range(400):
+        op = rng.choice(["allocate", "append_token", "fork", "free_seq"],
+                        p=[0.3, 0.45, 0.1, 0.15])
+        seq = int(rng.integers(0, 8))
+        args = {"allocate": (seq, int(rng.integers(0, 20))),
+                "fork": (seq, int(rng.integers(0, 8)))}.get(op, (seq,))
+        assert _apply(ours, op, args, OutOfBlocks) == \
+            _apply(theirs, op, args, JOutOfBlocks), (op, args)
+        assert _state(ours) == _state(theirs)
+        ours.check_invariants()
+        theirs.check_invariants()
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    code = (
+        "import pkgutil, sys, importlib, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env={"PYTHONPATH": str(SRC),
+                                          "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout) >= 14      # every module was imported
