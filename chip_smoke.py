@@ -8,19 +8,26 @@ Run from the repository root, with no arguments:
 Phases, each of which raises on failure (nothing is caught):
   1. build   — compiles src/repro_torch/kernels/csrc/*.cu for sm_90a.
   2. kernels — each CUDA kernel against its plain PyTorch version on the
-               card: the tests/test_kernels.py shape sweep in fp32 and bf16,
-               window/softcap and ragged cases, and the serving path's
-               shapes (qwen2-1.5b: H=12, KVH=2, Dh=128, bf16; prefill
-               Sq=Skv=1024; decode B=8, S=2048). Times with CUDA events.
-  3. serving — qwen2-1.5b at full width and depth (28 layers, bf16, seeded
-               random weights) behind ServingEngine(max_batch=8,
-               max_seq=2048): 8 requests, 32 new tokens each. The launch
-               counters must show every prefill and decode step going
-               through the kernels.
+               card. Attention: the tests/test_kernels.py shape sweep in
+               fp32 and bf16, window/softcap and ragged cases, and both
+               served models' shapes (qwen2-1.5b: H=12, KVH=2, Dh=128;
+               granite-moe: H=16, KVH=8, Dh=64; bf16, prefill
+               Sq=Skv=1024, decode B=8, S=2048). MoE gating: the
+               tests/test_kernels.py shapes, granite's decode and prefill
+               and jamba's shapes, and an exp-underflow case; ids exactly
+               equal. Times with CUDA events.
+  3. serving — qwen2-1.5b, then granite-moe-1b-a400m, at full width and
+               depth (bf16, seeded random weights) behind
+               ServingEngine(max_batch=8, max_seq=2048): 8 requests, 32 new
+               tokens each. The launch counters, zeroed just before each
+               run, must show every prefill and decode step of every layer
+               going through the kernels.
   4. path    — one prompt through prefill and 8 teacher-forced decode steps,
-               once through the kernels and once with impl="plain".
-  5. trace   — torch.profiler over 5 serving-shaped decode steps (B=8):
-               step wall time, device busy time and the top kernels.
+               once through the kernels and once with impl="plain": qwen2
+               in bf16; granite in fp32 (gated, with no differing expert
+               choice) and in bf16 (reported).
+  5. trace   — torch.profiler over 5 serving-shaped decode steps (B=8) of
+               each model: step wall time, device busy time, top kernels.
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -28,6 +35,7 @@ repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -39,16 +47,28 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# NVIDIA H100 SXM published peaks (dense): bf16 tensor-core rate, HBM rate
+# NVIDIA H100 SXM published peaks (dense): bf16 tensor-core rate, fp32 rate
+# outside the tensor cores, HBM rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py::_tol
+GATING_TOL = 1e-6           # tests/test_kernels.py::test_moe_gating_kernel
 # Logits of the kernel path vs the plain path, bf16, full-width qwen2 with
 # random weights (logit std ~0.78): both paths attend in fp32 and round to
 # bf16, so they differ only where a rounding flips and the flip propagates
 # through 28 layers; 0.1 is ~13 bf16 ulps at |logit| in [1, 2).
 PATH_TOL = 0.1
+# The same for granite-moe in fp32, where a route is gated, not rounded:
+# both paths run the same cuBLAS fp32 products and differ only in the order
+# the attention kernels sum in (<= 5e-7 per call at O(1) inputs, PERF.md)
+# and in the gating weights (<= 1e-7). With every expert choice equal, that
+# is ~1e-6 per layer, a few 1e-5 after 24 residual layers; 1e-3 leaves
+# room for growth with depth and is still far below what one flipped route
+# moves (a whole expert's output, weighted ~1/8, at O(1) hidden values).
+PATH_TOL_FP32 = 1e-3
 N_REQUESTS, NEW_TOKENS = 8, 32
+B_D, S_D = 8, 2048          # serving decode batch and cache length
 
 
 def smi() -> str:
@@ -58,18 +78,31 @@ def smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def underflow_logits() -> np.ndarray:
+    """Rows whose logits sit > 104 apart, so fewer than k = 8 experts keep
+    a non-zero fp32 probability (ROADMAP C-ref-2)."""
+    lg = np.full((3, 16), -120.0, np.float32)
+    lg[0] = -110.0 * np.arange(16)                    # one survivor
+    lg[1, [3, 8, 13]] = 0.0                           # three, tied
+    lg[2, 9], lg[2, 2] = 1.0, 0.5                     # two
+    return lg
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gating as mg
     from repro_torch.models import transformer as T
     from repro_torch.serving import (EngineConfig, LatencyStats, Request,
                                      ServingEngine)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -77,6 +110,8 @@ def main() -> int:
     print(f"card: {smi()}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    kernel_mods = {"flash_attention": fa, "decode_attention": da,
+                   "moe_gating": mg}
 
     # -- 1. build ---------------------------------------------------------
     _, build_s, log = _build.timed_load()
@@ -109,6 +144,25 @@ def main() -> int:
         torch.cuda.synchronize()
         return t0.elapsed_time(t1) / iters
 
+    def device_ms(fn, args_sets, iters=30):
+        """Device time per call: the self time of every CUDA kernel the
+        calls launch, under torch.profiler. Where the host takes longer to
+        issue a call than the device to run it, time_ms measures the host
+        and this the device."""
+        for i in range(3):
+            fn(*args_sets[i % len(args_sets)])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*args_sets[i % len(args_sets)])
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if not total > 0:
+            raise AssertionError("torch.profiler saw no device time")
+        return total / 1e3 / iters
+
     # -- 2. kernels vs plain ----------------------------------------------
     sweep = {"flash_attention": {}, "decode_attention": {}}
 
@@ -133,7 +187,9 @@ def main() -> int:
         (2, 100, 160, 4, 2, 128, True, 48, 50.0),
         (1, 96, 136, 4, 2, 64, False, None, None),
         (1, 8, 8, 12, 2, 128, True, None, None),       # smallest padded
-        (1, 1024, 1024, 12, 2, 128, True, None, None),  # serving path
+        (1, 1024, 1024, 12, 2, 128, True, None, None),  # qwen2 serving
+        (1, 1024, 1024, 16, 8, 64, True, None, None),   # granite serving
+        (1, 1000, 1000, 16, 8, 64, True, None, None),   # granite path
     ]
     n_flash = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -153,7 +209,8 @@ def main() -> int:
         (2, 512, 4, 2, 64, 128, None),
         (3, 256, 16, 2, 64, None, None),
         (8, 2048, 12, 2, 128, 256, 50.0),
-        (8, 2048, 12, 2, 128, None, None),              # serving path
+        (8, 2048, 12, 2, 128, None, None),              # qwen2 serving
+        (8, 2048, 16, 8, 64, None, None),               # granite serving
     ]
     n_decode = 0
     lrng = np.random.default_rng(1)
@@ -170,8 +227,37 @@ def main() -> int:
                   ops.decode_attention(q, kc, vc, lens, impl="plain", **kw),
                   (B, S, H, KVH, Dh, window, cap))
             n_decode += 1
-    print(f"kernels: {n_flash} flash and {n_decode} decode cases within "
-          f"tolerance; max abs err {json.dumps(sweep)}")
+
+    gating_cases = [  # T, E, k
+        (100, 32, 4), (64, 8, 3), (257, 384, 8),        # tests/test_kernels
+        (8, 32, 8), (1024, 32, 8),                      # granite serving
+        (256, 16, 2),                                   # jamba
+    ]
+    gating_err = 0.0
+    for case in gating_cases + ["underflow"]:
+        if case == "underflow":
+            lg, k = underflow_logits(), 8
+        else:
+            Tg, Eg, k = case
+            lg = (np.random.default_rng(Tg).standard_normal((Tg, Eg))
+                  * 2).astype(np.float32)
+        lg = torch.from_numpy(lg).to(dev)
+        w, ids, _ = ops.moe_gating(lg, k, impl="cuda")
+        w_ref, ids_ref, _ = ops.moe_gating(lg, k, impl="plain")
+        if not torch.equal(ids, ids_ref):
+            raise AssertionError(f"moe_gating {case}: ids differ from the "
+                                 "plain version")
+        if any(len(set(row)) != k for row in ids.tolist()):
+            raise AssertionError(f"moe_gating {case}: repeated ids")
+        e = err(w, w_ref)
+        if not e < GATING_TOL:
+            raise AssertionError(f"moe_gating {case}: weights max abs err "
+                                 f"{e} >= {GATING_TOL}")
+        gating_err = max(gating_err, e)
+    sweep["moe_gating"] = {"float32": gating_err}
+    print(f"kernels: {n_flash} flash, {n_decode} decode and "
+          f"{len(gating_cases) + 1} moe_gating cases within tolerance (ids "
+          f"equal); max abs err {json.dumps(sweep)}")
 
     # timing at the serving path's shapes (bf16)
     bf16 = torch.bfloat16
@@ -213,16 +299,15 @@ def main() -> int:
         "flops": pf_flops, "bytes": pf_bytes,
     }
 
-    B_d, S_d = 8, 2048
     d_lens = torch.from_numpy(
-        np.random.default_rng(0).integers(64, 2048, size=B_d)).to(dev)
-    d_sets = [(rnd((B_d, H, Dh), bf16), rnd((B_d, S_d, KVH, Dh), bf16),
-               rnd((B_d, S_d, KVH, Dh), bf16), d_lens) for _ in range(8)]
+        np.random.default_rng(0).integers(64, 2048, size=B_D)).to(dev)
+    d_sets = [(rnd((B_D, H, Dh), bf16), rnd((B_D, S_D, KVH, Dh), bf16),
+               rnd((B_D, S_D, KVH, Dh), bf16), d_lens) for _ in range(8)]
     q, kc, vc, lens = d_sets[0]
     o_kernel = ops.decode_attention(q, kc, vc, lens, impl="cuda")
     decode_err = err(o_kernel, ops.decode_attention(q, kc, vc, lens,
                                                     impl="plain"))
-    pos = torch.arange(S_d, device=dev)
+    pos = torch.arange(S_D, device=dev)
 
     def lib_args(a, b, c, ln):
         return (a[:, :, None], b.repeat_interleave(G, dim=2).transpose(1, 2)
@@ -233,7 +318,7 @@ def main() -> int:
     lib_err = err(sdpa(dlib_sets[0][0], dlib_sets[0][1], dlib_sets[0][2],
                        attn_mask=dlib_sets[0][3])[:, :, 0], o_kernel)
     live = int(d_lens.sum())
-    d_bytes = 2 * live * KVH * Dh * 2 + 2 * B_d * H * Dh * 2 + 4 * B_d
+    d_bytes = 2 * live * KVH * Dh * 2 + 2 * B_D * H * Dh * 2 + 4 * B_D
     d_flops = 4 * live * H * Dh
     d_bound = {"bytes": d_bytes / PEAK_BYTES * 1e3,
                "operations": d_flops / PEAK_BF16_FLOPS * 1e3}
@@ -254,152 +339,280 @@ def main() -> int:
         "library_max_abs_err": lib_err,
         "bound_ms": max(d_bound.values()),
         "bound_by": max(d_bound, key=d_bound.get),
-        "flops": d_flops, "bytes": d_bytes, "blocks": B_d * KVH,
+        "flops": d_flops, "bytes": d_bytes, "blocks": B_D * KVH,
     }
-    for row in (flash_row, decode_row):
+    del pf_sets, lib_sets, d_sets, dlib_sets
+
+    def library_gating(lg, k):
+        """One PyTorch composition of the same function (never called by
+        the port): softmax, topk, renormalise."""
+        vals, ids = torch.topk(torch.softmax(lg, dim=-1), k)
+        return vals / vals.sum(-1, keepdim=True).clamp_min(1e-9), ids
+
+    def gating_timing(Tg, Eg, k):
+        sets = [(torch.randn((Tg, Eg), generator=gen, device=dev) * 2,)
+                for _ in range(8)]
+        w, ids = mg.moe_gating_topk(sets[0][0], k)
+        w_ref, ids_ref, _ = ref.topk_gating(sets[0][0], k)
+        if not torch.equal(ids, ids_ref):
+            raise AssertionError(f"moe_gating T={Tg} E={Eg} k={k}: ids "
+                                 "differ from the plain version")
+        nbytes = Tg * Eg * 4 + Tg * k * 8
+        n_ops = Tg * Eg * (5 + k)      # softmax ~5 per logit, k argmax rounds
+        bound = {"bytes": nbytes / PEAK_BYTES * 1e3,
+                 "operations": n_ops / PEAK_FP32_FLOPS * 1e3}
+        fns = {"": lambda x: mg.moe_gating_topk(x, k),
+               "plain_": lambda x: ref.topk_gating(x, k),
+               "ops_cuda_": lambda x: ops.moe_gating(x, k),
+               "library_": lambda x: library_gating(x, k)}
+        # ms / plain_ms / ...: device time per call; *call_ms: per call as
+        # CUDA events see it back to back, the host's issue time included
+        times = {}
+        for key, fn in fns.items():
+            times[f"{key}ms"] = device_ms(fn, sets)
+            times[f"{key}call_ms"] = time_ms(fn, sets)
+        return {
+            "shape": f"T={Tg} E={Eg} k={k} fp32",
+            "max_abs_err": err(w, w_ref), **times,
+            "library_max_abs_err": err(library_gating(sets[0][0], k)[0], w),
+            "bound_ms": max(bound.values()),
+            "bound_by": max(bound, key=bound.get),
+            "bytes": nbytes, "operations": n_ops,
+        }
+
+    moe_row = {
+        "name": "moe_gating", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gating.cu",
+        "replaces": "src/repro/kernels/moe_gating.py:43",
+        "tpu_kernel": "src/repro/kernels/moe_gating.py:43",
+        **gating_timing(1024, 32, 8), "tol": GATING_TOL,
+        "decode_shape": gating_timing(B_D, 32, 8),
+    }
+    for row in (flash_row, decode_row, moe_row):
         row["kernel_ms"] = row["ms"]
         if not row["max_abs_err"] < row["tol"]:
             raise AssertionError(f"{row['name']} at the serving shape: "
                                  f"{row['max_abs_err']} >= {row['tol']}")
-    del pf_sets, lib_sets, d_sets, dlib_sets
 
-    # -- 3. serving: qwen2-1.5b at full width ------------------------------
-    cfg = get_config("qwen2-1.5b")
-    t0 = time.perf_counter()
-    model = T.Transformer(cfg, device="cuda",
-                          generator=torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"model: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
-          f"{n_params} params {cfg.param_dtype}, init "
-          f"{time.perf_counter() - t0:.3f} s")
-    eng = ServingEngine(cfg, model, EngineConfig(max_batch=8, max_seq=2048))
-    eng.submit(Request(rid=-1, prompt=list(range(1, 65)), max_new_tokens=2))
-    eng.run()                                    # warm-up: cuBLAS, allocator
-    eng.finished.clear()
-    eng.prefills = eng.decodes = 0
-    rng = np.random.default_rng(0)
-    prompt_lens = rng.integers(64, 1025, size=N_REQUESTS)
-    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, size=L)))
-               for L in prompt_lens]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
-    da.launches = 0
-    t0 = time.perf_counter()
-    for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
-    done = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    flash_launches, decode_launches = fa.launches, da.launches
-    if len(done) != N_REQUESTS or any(len(r.generated) != NEW_TOKENS
-                                      for r in done):
-        raise AssertionError(f"serving: {len(done)} finished, tokens "
-                             f"{[len(r.generated) for r in done]}")
-    if eng.prefills != N_REQUESTS:
-        raise AssertionError(f"serving: {eng.prefills} prefills")
-    if flash_launches != cfg.n_layers * eng.prefills or \
-            decode_launches != cfg.n_layers * eng.decodes:
-        raise AssertionError(
-            f"launch counts: flash {flash_launches} for {eng.prefills} "
-            f"prefills, decode {decode_launches} for {eng.decodes} steps")
-    for r in done:
-        if not all(0 <= t < cfg.vocab_size for t in r.generated):
-            raise AssertionError(f"request {r.rid}: token out of range")
-    stats = LatencyStats()
-    for r in done:
-        stats.observe(r.ttft, r.tpot)
-    serving = {
-        "requests": len(done), "new_tokens": NEW_TOKENS,
-        "prompt_lens": prompt_lens.tolist(),
-        "prefills": eng.prefills, "decode_steps": eng.decodes,
-        "flash_launches": flash_launches, "decode_launches": decode_launches,
-        "wall_s": wall,
-        "output_tok_per_s": N_REQUESTS * NEW_TOKENS / wall,
-        "ttft_p50_s": stats.percentile("ttfts", 50),
-        "ttft_p99_s": stats.percentile("ttfts", 99),
-        "tpot_p50_s": stats.percentile("tpots", 50),
-        "tpot_p99_s": stats.percentile("tpots", 99),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-    }
-    print(f"serving: {json.dumps(serving)}")
-    flash_row["launches"] = flash_launches
-    decode_row["launches"] = decode_launches
+    # -- helpers of phases 3-5 ----------------------------------------------
+    def build(cfg):
+        t0 = time.perf_counter()
+        model = T.Transformer(
+            cfg, device="cuda",
+            generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"model: {cfg.name} {cfg.n_layers} layers d_model "
+              f"{cfg.d_model} {n_params} params {cfg.param_dtype}, init "
+              f"{time.perf_counter() - t0:.3f} s")
+        return model
 
-    # -- 4. kernel path vs plain path -------------------------------------
-    P, steps = 1000, 8
-    prng = np.random.default_rng(2)
-    prompt = torch.from_numpy(prng.integers(0, cfg.vocab_size, size=(1, P)))
-    forced = torch.from_numpy(prng.integers(0, cfg.vocab_size,
-                                            size=(steps, 1)))
-    outs, times = {}, {}
-    for impl in ("cuda", "plain"):
-        cache = T.init_cache(cfg, 1, 2048)
+    def serve(cfg, model):
+        """8 requests x 32 new tokens; every kernel's launches are counted
+        from 0 over exactly this run and must match the layer counts."""
+        eng = ServingEngine(cfg, model, EngineConfig(max_batch=8,
+                                                     max_seq=S_D))
+        eng.submit(Request(rid=-1, prompt=list(range(1, 65)),
+                           max_new_tokens=2))
+        eng.run()                                # warm-up: cuBLAS, allocator
+        eng.finished.clear()
+        eng.prefills = eng.decodes = 0
+        rng = np.random.default_rng(0)
+        prompt_lens = rng.integers(64, 1025, size=N_REQUESTS)
+        prompts = [list(map(int, rng.integers(0, cfg.vocab_size, size=L)))
+                   for L in prompt_lens]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in kernel_mods.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: mod.launches for name, mod in kernel_mods.items()}
+        if len(done) != N_REQUESTS or any(len(r.generated) != NEW_TOKENS
+                                          for r in done):
+            raise AssertionError(f"serving {cfg.name}: {len(done)} finished,"
+                                 f" tokens {[len(r.generated) for r in done]}")
+        if eng.prefills != N_REQUESTS:
+            raise AssertionError(f"serving {cfg.name}: {eng.prefills} "
+                                 "prefills")
+        n_moe = sum(spec.mlp == "moe" for spec in cfg.layer_specs())
+        expected = {"flash_attention": cfg.n_layers * eng.prefills,
+                    "decode_attention": cfg.n_layers * eng.decodes,
+                    "moe_gating": n_moe * (eng.prefills + eng.decodes)}
+        if launches != expected:
+            raise AssertionError(
+                f"serving {cfg.name}: launches {launches} for "
+                f"{eng.prefills} prefills and {eng.decodes} decode steps, "
+                f"expected {expected}")
+        for r in done:
+            if not all(0 <= t < cfg.vocab_size for t in r.generated):
+                raise AssertionError(f"request {r.rid}: token out of range")
+        stats = LatencyStats()
+        for r in done:
+            stats.observe(r.ttft, r.tpot)
+        serving = {
+            "model": cfg.name, "requests": len(done),
+            "new_tokens": NEW_TOKENS, "prompt_lens": prompt_lens.tolist(),
+            "prefills": eng.prefills, "decode_steps": eng.decodes,
+            "flash_launches": launches["flash_attention"],
+            "decode_launches": launches["decode_attention"],
+            "moe_gating_launches": launches["moe_gating"],
+            "wall_s": wall,
+            "output_tok_per_s": N_REQUESTS * NEW_TOKENS / wall,
+            "ttft_p50_s": stats.percentile("ttfts", 50),
+            "ttft_p99_s": stats.percentile("ttfts", 99),
+            "tpot_p50_s": stats.percentile("tpots", 50),
+            "tpot_p99_s": stats.percentile("tpots", 99),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+        print(f"serving: {json.dumps(serving)}")
+        return launches
+
+    P, STEPS = 1000, 8
+    gating = ops.moe_gating
+
+    def drive(cfg, model, impl, prompt, forced):
+        """Prefill + teacher-forced decode steps; returns the logits rows,
+        times and the expert ids of every gating call (recorded by wrapping
+        ops.moe_gating for this run only)."""
+        routes = []
+
+        def recording_gating(logits, top_k, *, impl=None):
+            out = gating(logits, top_k, impl=impl)
+            routes.append(out[1])
+            return out
+
+        ops.moe_gating = recording_gating
+        cache = T.init_cache(cfg, 1, S_D)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
-        logits, pf = model.prefill(prompt.to(dev), impl=impl)
+        logits, pf = model.prefill(prompt, impl=impl)
         T.cache_insert(cfg, cache, pf, 0, P)
         ev[1].record()
         rows = [logits[0, P - 1]]
         lengths = torch.tensor([P], device=dev)
-        for t in range(steps):
-            step_logits, cache = model.decode_step(
-                cache, forced[t].to(dev), lengths, impl=impl)
+        for t in range(STEPS):
+            step_logits, cache = model.decode_step(cache, forced[t], lengths,
+                                                   impl=impl)
             rows.append(step_logits[0])
             lengths = lengths + 1
         ev[2].record()
         torch.cuda.synchronize()
-        outs[impl] = torch.stack(rows).float()
-        times[impl] = {"prefill_ms": ev[0].elapsed_time(ev[1]),
-                       "decode_step_ms": ev[1].elapsed_time(ev[2]) / steps}
-        del cache, pf, logits
-    path_err = err(outs["cuda"], outs["plain"])
-    if not bool(torch.isfinite(outs["cuda"]).all()):
-        raise AssertionError("kernel path logits are not finite")
-    if not path_err < PATH_TOL:
-        raise AssertionError(f"kernel path vs plain path logits: {path_err} "
-                             f">= {PATH_TOL}")
-    path = {"prompt": P, "decode_steps": steps, "max_abs_err": path_err,
-            "tol": PATH_TOL,
-            "argmax_agree": int((outs["cuda"].argmax(-1)
-                                 == outs["plain"].argmax(-1)).sum()),
-            "logit_std": float(outs["plain"].std()), "times": times}
-    print(f"path: {json.dumps(path)}")
+        ops.moe_gating = gating
+        return (torch.stack(rows).float(), routes,
+                {"prefill_ms": ev[0].elapsed_time(ev[1]),
+                 "decode_step_ms": ev[1].elapsed_time(ev[2]) / STEPS})
 
-    # -- 5. where a serving decode step's time goes (torch.profiler) -------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    cache = T.init_cache(cfg, B_d, S_d)
-    toks = torch.zeros(B_d, dtype=torch.int64, device=dev)
-    for _ in range(3):
-        model.decode_step(cache, toks, d_lens)
-    torch.cuda.synchronize()
-    n_steps = 5
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_steps):
+    def path(cfg, model, tol):
+        """Kernel path vs plain path on one prompt; gated on ``tol`` and,
+        when given, on zero differing expert choices."""
+        prng = np.random.default_rng(2)
+        prompt = torch.from_numpy(prng.integers(0, cfg.vocab_size,
+                                                size=(1, P))).to(dev)
+        forced = torch.from_numpy(prng.integers(0, cfg.vocab_size,
+                                                size=(STEPS, 1))).to(dev)
+        out_k, routes_k, t_k = drive(cfg, model, "cuda", prompt, forced)
+        out_p, routes_p, t_p = drive(cfg, model, "plain", prompt, forced)
+        if len(routes_k) != len(routes_p):
+            raise AssertionError("kernel and plain paths routed a different "
+                                 "number of times")
+        choices = differing = reordered = 0
+        for a, b in zip(routes_k, routes_p):
+            E = cfg.n_experts
+            oh_a = torch.zeros(a.shape[0], E, device=dev).scatter_(
+                1, a.long(), 1.0)
+            oh_b = torch.zeros(b.shape[0], E, device=dev).scatter_(
+                1, b.long(), 1.0)
+            same_set = (oh_a == oh_b).all(-1)
+            choices += a.numel()
+            differing += int((oh_a != oh_b).sum()) // 2
+            reordered += int((same_set & (a != b).any(-1)).sum())
+        path_err = err(out_k, out_p)
+        if not bool(torch.isfinite(out_k).all()):
+            raise AssertionError(f"{cfg.name} kernel path logits are not "
+                                 "finite")
+        res = {"model": cfg.name, "dtype": cfg.dtype, "prompt": P,
+               "decode_steps": STEPS, "max_abs_err": path_err, "tol": tol,
+               "argmax_agree": int((out_k.argmax(-1)
+                                    == out_p.argmax(-1)).sum()),
+               "positions": STEPS + 1, "logit_std": float(out_p.std()),
+               "gating_calls": len(routes_k), "expert_choices": choices,
+               "differing_routes": differing,
+               "reordered_tokens": reordered,
+               "times": {"cuda": t_k, "plain": t_p}}
+        print(f"path: {json.dumps(res)}")
+        if tol is not None:
+            if not path_err < tol:
+                raise AssertionError(f"{cfg.name} kernel path vs plain path "
+                                     f"logits: {path_err} >= {tol}")
+            if differing:
+                raise AssertionError(f"{cfg.name}: {differing} of {choices} "
+                                     "expert choices differ between the "
+                                     "kernel and plain paths")
+        return res
+
+    def trace(cfg, model, n_steps=5):
+        """Where a serving decode step's time goes (torch.profiler)."""
+        cache = T.init_cache(cfg, B_D, S_D)
+        toks = torch.zeros(B_D, dtype=torch.int64, device=dev)
+        for _ in range(3):
             model.decode_step(cache, toks, d_lens)
         torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0]
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / n_steps)
-                      for e in dev_events), key=lambda kv: -kv[1])
-    busy_ms = sum(ms for _, ms in kernels)
-    trace = {"batch": B_d, "lengths": d_lens.tolist(),
-             "step_wall_ms": step_ms, "traced": True,
-             "kernels_per_step": sum(e.count for e in dev_events) / n_steps,
-             "device_busy_ms": busy_ms if kernels else "not measured",
-             "device_idle_share": 1 - busy_ms / step_ms if kernels
-             else "not measured",
-             "top_kernels_ms": [[k[:60], ms] for k, ms in kernels[:8]]}
-    print(f"trace: {json.dumps(trace)}")
-    del cache
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                model.decode_step(cache, toks, d_lens)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        dev_events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0]
+        kernels = sorted(((e.key, e.self_device_time_total / 1e3 / n_steps)
+                          for e in dev_events), key=lambda kv: -kv[1])
+        busy_ms = sum(ms for _, ms in kernels)
+        res = {"model": cfg.name, "batch": B_D, "lengths": d_lens.tolist(),
+               "step_wall_ms": step_ms, "traced": True,
+               "kernels_per_step": sum(e.count for e in dev_events) / n_steps,
+               "device_busy_ms": busy_ms if kernels else "not measured",
+               "device_idle_share": 1 - busy_ms / step_ms if kernels
+               else "not measured",
+               "top_kernels_ms": [[k[:60], ms] for k, ms in kernels[:8]]}
+        print(f"trace: {json.dumps(res)}")
 
-    print(json.dumps({"kernels": [flash_row, decode_row]}))
+    # -- 3-5. qwen2-1.5b: serving, path (bf16), trace ----------------------
+    launches_by_path = {}
+    cfg = get_config("qwen2-1.5b")
+    model = build(cfg)
+    launches_by_path[cfg.name] = serve(cfg, model)
+    path(cfg, model, PATH_TOL)
+    trace(cfg, model)
+    del model
+    torch.cuda.empty_cache()
+
+    # -- 3-5. granite-moe-1b-a400m: serving, path (fp32 gated, bf16), trace --
+    cfg = get_config("granite-moe-1b-a400m")
+    model = build(cfg)
+    launches_by_path[cfg.name] = serve(cfg, model)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model32 = build(cfg32)
+    path(cfg32, model32, PATH_TOL_FP32)
+    del model32
+    torch.cuda.empty_cache()
+    path(cfg, model, None)          # bf16: reported, not gated
+    trace(cfg, model)
+    del model
+    torch.cuda.empty_cache()
+
+    for row in (flash_row, decode_row, moe_row):
+        row["launches_by_path"] = {m: n[row["name"]]
+                                   for m, n in launches_by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+    print(json.dumps({"kernels": [flash_row, decode_row, moe_row]}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -126,6 +126,12 @@ class ModelConfig:
         from repro_torch.models import transformer
         return transformer.count_params(self)
 
+    def active_param_count(self) -> int:
+        """Parameters a token passes through: expert weights count top_k of
+        n_experts (``transformer.count_params(active_only=True)``)."""
+        from repro_torch.models import transformer
+        return transformer.count_params(self, active_only=True)
+
     def reduced(self, *, repeat_cap: int = 2, d_model: int = 64,
                 vocab: int = 128) -> "ModelConfig":
         """Tiny same-family config for CPU smoke tests."""

@@ -37,6 +37,8 @@ SIGNATURES = {
     # softcap, scale, stream
     "repro_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _F, _F, _P),
+    # logits, weights, ids, T, E, k, stream
+    "repro_moe_gating": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -1,4 +1,5 @@
-"""Dispatch around the attention hot spots (port of ``repro/kernels/ops.py``).
+"""Dispatch around the attention and MoE gating hot spots (port of
+``repro/kernels/ops.py``).
 
 Every model-layer call site goes through this module. The implementation
 follows the tensor: a CUDA tensor goes to the hand-written CUDA kernel, a
@@ -21,6 +22,7 @@ import torch
 
 from . import decode_attention as da
 from . import flash_attention as fa
+from . import moe_gating as mg
 from . import ref
 
 IMPLS = (None, "cuda", "plain", "naive")
@@ -70,3 +72,19 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     fn = (ref.decode_attention_naive if impl == "naive"
           else ref.decode_attention_direct)
     return fn(q, k_cache, v_cache, lengths, window=window, softcap=softcap)
+
+
+def moe_gating(logits, top_k: int, *, impl: Optional[str] = None):
+    """Top-k softmax gating. logits (T, E) -> (weights (T, k) f32,
+    ids (T, k) i32, aux {"lb_loss", "z_loss"}).
+
+    On the kernel path the aux losses come from the kernel's ids and one
+    softmax and logsumexp of the same logits; nothing selects the top k a
+    second time. ``"plain"`` and ``"naive"`` both take ``ref.topk_gating``.
+    """
+    if _kernel_path(impl, logits):
+        lf = logits.float().contiguous()
+        weights, ids = mg.moe_gating_topk(lf, top_k)
+        return weights, ids, ref.gating_aux(lf, torch.softmax(lf, dim=-1),
+                                            ids)
+    return ref.topk_gating(logits, top_k)

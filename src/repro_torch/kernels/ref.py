@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the attention kernels (port of the attention
-part of ``repro.kernels.ref``).
+"""Plain PyTorch versions of the attention and MoE gating kernels (port of
+the attention and gating parts of ``repro.kernels.ref``).
 
 Two tiers per op, as in the JAX package:
   * ``*_naive``  — smallest-possible oracle, materializes everything.
@@ -172,3 +172,36 @@ def decode_attention_direct(q, k_cache, v_cache, lengths, *,
                        v_cache.float())
     out = out / torch.clamp(l, min=1e-30)
     return out.reshape(B, H, Dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE top-k gating
+# ---------------------------------------------------------------------------
+def topk_gating(logits: torch.Tensor, top_k: int):
+    """Softmax-then-topk with renormalization (Mixtral/granite convention).
+
+    Returns (weights (T, k) f32, indices (T, k) i32, aux) where aux carries
+    the load-balance and router z losses. Ties go to the lower expert index,
+    as in ``lax.top_k``: ``torch.topk`` promises no order among ties, so
+    this takes the first k of a stable descending sort.
+    """
+    lf = logits.float()
+    probs = torch.softmax(lf, dim=-1)                              # (T, E)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :top_k], idx[:, :top_k]
+    weights = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
+    return weights, idx.to(torch.int32), gating_aux(lf, probs, idx)
+
+
+def gating_aux(logits: torch.Tensor, probs: torch.Tensor,
+               idx: torch.Tensor) -> dict:
+    """Switch load-balance loss E * sum_e f_e * p_e (f_e: share of the T*k
+    choices routed to e, times k) and router z-loss mean(logsumexp^2), from
+    fp32 logits (T, E), their softmax and the chosen ids (T, k)."""
+    T, E = logits.shape
+    counts = torch.zeros(E, dtype=torch.float32, device=logits.device)
+    counts.scatter_add_(0, idx.reshape(-1).long(),
+                        torch.ones(idx.numel(), device=logits.device))
+    lb_loss = E * torch.sum(counts / T * probs.mean(0))
+    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return {"lb_loss": lb_loss, "z_loss": z_loss}

@@ -1,0 +1,160 @@
+"""Mixture-of-Experts layer (port of ``repro/models/moe.py``), forward only.
+
+Three paths, as in the reference:
+  * ``capacity`` — top-k gating, then capacity-bounded gather-only dispatch:
+    integer index maps (slot_of (T, K) token -> slot, token_of_slot /
+    tk_of_slot slot -> token) are built with integer sorts and scatters, and
+    every float movement is a gather. Tokens above an expert's capacity are
+    dropped in GShard order: by expert, then by flat index t * K + k.
+  * ``cfg.moe_block_dispatch = nb`` — the same over nb blocks of T / nb
+    tokens, each with its own capacity (GShard group capacity). The
+    capacity path is this path with one block and runs through the same
+    code; the reference's ``vmap`` over blocks is a leading block dim here.
+  * ``cfg.moe_impl = "dense"`` — the oracle: every expert on every token.
+
+Everything is on the device with capacities from static shapes, so a step
+never waits on the host. The reference's backward (gather-only custom VJPs
+of dispatch and combine) comes with training and is not ported: these
+functions serve inference under ``torch.no_grad``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+Params = dict
+
+
+def init_moe(cfg: ModelConfig, rep: int, init) -> Params:
+    """Stacked (leading ``rep`` dim) MoE parameters; the router is fp32
+    whatever the parameter dtype, as in the reference."""
+    D, Fd, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    s_in = (2.0 / (D + Fd)) ** 0.5
+    return {"router": init((rep, D, E), D ** -0.5, torch.float32),
+            "w_gate": init((rep, E, D, Fd), s_in),
+            "w_up": init((rep, E, D, Fd), s_in),
+            "w_down": init((rep, E, Fd, D), s_in)}
+
+
+def capacity(cfg: ModelConfig, T: int) -> int:
+    """Slots per expert for T tokens: capacity_factor * T * K / E, plus one,
+    rounded up to a multiple of 8 (at least 8), at most T * K."""
+    K, E = cfg.moe_top_k, cfg.n_experts
+    cap = int(cfg.capacity_factor * T * K / E) + 1
+    cap = max(8, -(-cap // 8) * 8)
+    return min(cap, T * K)
+
+
+# ---------------------------------------------------------------------------
+# Index maps (integers only; tiny)
+# ---------------------------------------------------------------------------
+def _dispatch_indices(idx: torch.Tensor, E: int, cap: int):
+    """``build_dispatch_indices`` over a leading block dim: idx (N, T, K)."""
+    N, T, K = idx.shape
+    TK = T * K
+    dev = idx.device
+    flat_expert = idx.reshape(N, TK).long()
+    order = torch.argsort(flat_expert, dim=1, stable=True)
+    sorted_expert = flat_expert.gather(1, order)
+    counts = torch.zeros((N, E), dtype=torch.int64, device=dev).scatter_add_(
+        1, sorted_expert, torch.ones_like(sorted_expert))
+    starts = torch.cumsum(counts, dim=1) - counts
+    pos = torch.arange(TK, device=dev) - starts.gather(1, sorted_expert)
+    keep = pos < cap
+    slot_sorted = torch.where(keep, sorted_expert * cap + pos, E * cap)
+    inv = torch.argsort(order, dim=1, stable=True)
+    slot_of = slot_sorted.gather(1, inv).reshape(N, T, K)
+    # every dropped entry scatters to slot E*cap; the overwrite after each
+    # scatter keeps that slot empty whichever duplicate landed last
+    token_of_slot = torch.full((N, E * cap + 1), T, dtype=torch.int64,
+                               device=dev).scatter_(
+        1, slot_sorted, torch.where(keep, order // K, T))
+    token_of_slot[:, E * cap] = T
+    tk_of_slot = torch.full((N, E * cap + 1), TK, dtype=torch.int64,
+                            device=dev).scatter_(
+        1, slot_sorted, torch.where(keep, order, TK))
+    tk_of_slot[:, E * cap] = TK
+    return slot_of, token_of_slot, tk_of_slot
+
+
+def build_dispatch_indices(idx: torch.Tensor, E: int, cap: int):
+    """idx: (T, K) expert choices. Returns (int64)
+    slot_of: (T, K) destination slot in [0, E*cap] (E*cap = dropped),
+    token_of_slot: (E*cap+1,) source token in [0, T] (T = empty slot),
+    tk_of_slot: (E*cap+1,) flat (t*K+k) index in [0, T*K] (T*K = empty)."""
+    return tuple(t[0] for t in _dispatch_indices(idx[None], E, cap))
+
+
+# ---------------------------------------------------------------------------
+# Gather-only dispatch / combine (forward)
+# ---------------------------------------------------------------------------
+def _dispatch(x_pad: torch.Tensor, token_of_slot: torch.Tensor) -> torch.Tensor:
+    """x_pad: (N, T+1, D) with a zero pad row per block -> (N, E*cap+1, D)."""
+    blk = torch.arange(x_pad.shape[0], device=x_pad.device)[:, None]
+    return x_pad[blk, token_of_slot]
+
+
+def _combine(y_pad: torch.Tensor, w: torch.Tensor,
+             slot_of: torch.Tensor) -> torch.Tensor:
+    """y_pad: (N, E*cap+1, D) zero pad row; w: (N, T, K) in the activation
+    dtype -> (N, T, D). The K terms are summed one by one in w's dtype, as
+    the reference's ``sum`` over k does."""
+    blk = torch.arange(y_pad.shape[0], device=y_pad.device)[:, None, None]
+    terms = w[..., None] * y_pad[blk, slot_of].to(w.dtype)     # (N, T, K, D)
+    out = terms[:, :, 0]
+    for k in range(1, w.shape[-1]):
+        out = out + terms[:, :, k]
+    return out
+
+
+def _expert_ffn(p: Params, xs: torch.Tensor) -> torch.Tensor:
+    """xs: (E, C, D) -> (E, C, D); per-expert gated FFN as batched products."""
+    dt = xs.dtype
+    g = torch.bmm(xs, p["w_gate"].to(dt))
+    h = torch.bmm(xs, p["w_up"].to(dt))
+    return torch.bmm(F.silu(g) * h, p["w_down"].to(dt))
+
+
+def moe_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+                impl: Optional[str] = None):
+    """x: (B, S, D) -> (out (B, S, D), aux_losses dict). ``impl`` goes to
+    ``ops.moe_gating``."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.moe_top_k
+    T = B * S
+    x_flat = x.reshape(T, D)
+    logits = x_flat.float() @ p["router"]                       # (T, E) f32
+    weights, idx, aux = ops.moe_gating(logits, K, impl=impl)
+
+    if cfg.moe_impl == "dense":
+        dt = x.dtype
+        g = torch.einsum("td,edf->tef", x_flat, p["w_gate"].to(dt))
+        h = torch.einsum("td,edf->tef", x_flat, p["w_up"].to(dt))
+        y_all = torch.einsum("tef,efd->ted", F.silu(g) * h,
+                             p["w_down"].to(dt))
+        gate_full = torch.zeros((T, E), dtype=torch.float32,
+                                device=x.device).scatter_add_(
+            1, idx.long(), weights)
+        out = torch.einsum("ted,te->td", y_all.float(), gate_full)
+        return out.reshape(B, S, D).to(x.dtype), aux
+
+    nb = cfg.moe_block_dispatch
+    if not (nb and T % nb == 0 and T // nb >= E // max(1, K)):
+        nb = 1                       # capacity path: one block of T tokens
+    Tb = T // nb
+    cap = capacity(cfg, Tb)
+    slot_of, token_of_slot, _ = _dispatch_indices(idx.reshape(nb, Tb, K),
+                                                  E, cap)
+    x_pad = torch.cat([x_flat.reshape(nb, Tb, D), x.new_zeros(nb, 1, D)], 1)
+    disp = _dispatch(x_pad, token_of_slot)[:, :-1]        # (nb, E*cap, D)
+    disp = disp.reshape(nb, E, cap, D).transpose(0, 1).reshape(E, nb * cap, D)
+    y = _expert_ffn(p, disp)                              # (E, nb*cap, D)
+    y = y.reshape(E, nb, cap, D).transpose(0, 1).reshape(nb, E * cap, D)
+    y_pad = torch.cat([y, y.new_zeros(nb, 1, D)], 1)
+    out = _combine(y_pad, weights.reshape(nb, Tb, K).to(x.dtype), slot_of)
+    return out.reshape(B, S, D), aux

@@ -1,5 +1,6 @@
 """Period-grouped decoder stack (port of ``repro/models/transformer.py``) for
-attention-only configs with dense MLPs: qwen2, internlm2, minitron, gemma2.
+attention configs with dense or MoE MLPs: qwen2, internlm2, minitron,
+gemma2, granite-moe and kimi-k2.
 
 Parameters keep the JAX names and shapes: ``embed (V, D)``, ``final_norm``,
 ``lm_head (D, V)`` when untied, and per group ``g{i}.{j}.<leaf>`` stacked
@@ -24,6 +25,7 @@ from torch import nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 
 def resolve_device(device) -> torch.device:
@@ -50,7 +52,7 @@ def check_supported(cfg: ModelConfig) -> None:
         if spec.attn_type == "cross":
             raise NotImplementedError(f"{cfg.name}: cross-attention is not "
                                       "ported")
-        if spec.mlp != "dense":
+        if spec.mlp not in ("dense", "moe"):
             raise NotImplementedError(f"{cfg.name}: {spec.mlp} MLP layers "
                                       "are not ported")
 
@@ -81,7 +83,8 @@ class _LayerStack(nn.Module):
         self.norm1 = norm()
         self.mixer = _params(L.init_attention(cfg, spec, rep, init))
         self.norm2 = norm()
-        self.mlp = _params(L.init_mlp(cfg, rep, init))
+        self.mlp = _params(MOE.init_moe(cfg, rep, init) if spec.mlp == "moe"
+                           else L.init_mlp(cfg, rep, init))
         if cfg.use_post_norms:
             self.post_norm1 = norm()
             self.post_norm2 = norm()
@@ -119,16 +122,17 @@ class Transformer(nn.Module):
         if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
 
-        def init(shape, std):
+        def init(shape, std, dtype=None):
             """std None: ones in fp32 (norm scales); 0.0: zeros; else normal
-            weights in the param dtype."""
+            weights in ``dtype`` (the param dtype when None)."""
             if std is None:
                 return torch.ones(shape, dtype=torch.float32, device=dev)
+            dt = pd if dtype is None else dtype
             if dev.type == "meta" or std == 0.0:
-                return torch.zeros(shape, dtype=pd, device=dev)
+                return torch.zeros(shape, dtype=dt, device=dev)
             w = torch.randn(shape, generator=generator, device=dev,
                             dtype=torch.float32)
-            return (w * std).to(pd)
+            return (w * std).to(dt)
 
         self.cfg = cfg
         D, V = cfg.d_model, _padded_vocab(cfg)
@@ -179,7 +183,10 @@ class Transformer(nn.Module):
             mix_out = L.rms_norm(mix_out, p["post_norm1"], cfg.norm_eps)
         x = x + mix_out
         h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-        mlp_out = L.mlp_forward(cfg, p["mlp"], h2)
+        if spec.mlp == "moe":      # aux losses are for training: dropped
+            mlp_out, _ = MOE.moe_forward(cfg, p["mlp"], h2, impl=impl)
+        else:
+            mlp_out = L.mlp_forward(cfg, p["mlp"], h2)
         if cfg.use_post_norms:
             mlp_out = L.rms_norm(mlp_out, p["post_norm2"], cfg.norm_eps)
         return x + mlp_out, kv
@@ -277,10 +284,20 @@ def cache_insert(cfg: ModelConfig, cache: dict, prefill_cache: dict,
     return cache
 
 
-def count_params(cfg: ModelConfig) -> int:
-    """Exact parameter count, from a model built on the meta device."""
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count, from a model built on the meta device. With
+    ``active_only``, every ``mlp`` gate/up/down leaf counts top_k/n_experts
+    of its size (floored per leaf), as in the reference; like it, this also
+    scales a dense MLP in an MoE config (kimi-k2's first layer)."""
     model = Transformer(cfg, device="meta")
-    return sum(p.numel() for p in model.parameters())
+    total = 0
+    for name, p in model.named_parameters():
+        n = p.numel()
+        if active_only and cfg.n_experts and ".mlp." in name and \
+                name.rsplit(".", 1)[-1] in ("w_gate", "w_up", "w_down"):
+            n = n * cfg.moe_top_k // cfg.n_experts
+        total += n
+    return total
 
 
 def _flatten(tree, prefix: str = ""):

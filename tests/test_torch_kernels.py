@@ -17,6 +17,7 @@ from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_gating as mg
 
 TOL = 2e-5
 # the JAX oracles, jitted: one compile per case instead of one per op
@@ -133,7 +134,7 @@ def test_plain_paths_zero_fully_masked_rows():
 # dispatch: no fallback hides the device or the kernel
 # ---------------------------------------------------------------------------
 def test_dispatch_rejects_what_it_cannot_run():
-    before = (fa.launches, da.launches)
+    before = (fa.launches, da.launches, mg.launches)
     q = torch.zeros(1, 8, 4, 64)
     k = torch.zeros(1, 8, 2, 64)
     with pytest.raises(ValueError):
@@ -149,7 +150,12 @@ def test_dispatch_rejects_what_it_cannot_run():
         ops.decode_attention(qd, k, k, torch.tensor([3]),
                              k_new=torch.zeros(1, 2, 64),
                              v_new=torch.zeros(1, 2, 64))
-    assert (fa.launches, da.launches) == before
+    logits = torch.zeros(4, 32)
+    with pytest.raises(ValueError):
+        ops.moe_gating(logits, 8, impl="cuda")
+    with pytest.raises(ValueError):                 # CPU tensor, no fallback
+        mg.moe_gating_topk(logits, 8)
+    assert (fa.launches, da.launches, mg.launches) == before
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -2,8 +2,13 @@
 numpy weights and tokens, on the CPU, at the reduced configs.
 
 Tolerance 1e-4 max abs on fp32 logits: the two CPU paths reduce in
-different orders (matmul blocking, online vs one-pass softmax).
+different orders (matmul blocking, online vs one-pass softmax). MoE configs
+route discretely, so their tests first check that no router choice in the
+port's run sits within ROUTER_MARGIN of a tie: a choice that flips between
+the two packages would fail as a router near-tie, not as a float error.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,10 +18,13 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models import transformer as JT
 from repro_torch.configs import get_config, list_archs
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 
 TOL = 1e-4
+ROUTER_MARGIN = 1e-5     # >> the ~1e-7 the packages' router probs differ by
 PARITY_ARCHS = ["qwen2-1.5b", "internlm2-1.8b", "gemma2-27b", "minitron-4b"]
+MOE_ARCHS = ["granite-moe-1b-a400m", "kimi-k2-1t-a32b"]
 # the JAX entry points, jitted (config static): one compile per shape
 j_forward = jax.jit(lambda cfg, p, t: JT.forward(cfg, p, t)[0],
                     static_argnums=0)
@@ -43,6 +51,8 @@ def _numpy_params(cfg, seed):
         if "embed" in name or "lm_head" in name:
             return 0.5 * x
         fan_in = int(np.prod(shape[1:-1])) if "'wo'" in name else shape[1]
+        if "'mlp'" in name and len(shape) == 4:      # experts (L,E,in,out)
+            fan_in = shape[2]
         return x / np.sqrt(fan_in)
 
     return jax.tree_util.tree_map_with_path(draw, shapes)
@@ -61,20 +71,43 @@ def _err(a, b):
     return float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
 
 
-@pytest.mark.parametrize("arch", PARITY_ARCHS)
-def test_forward_logits_match_jax(arch):
-    cfg_j, _, params_j, model = _both(arch)
+@pytest.fixture
+def router_margins(monkeypatch):
+    """Per ops.moe_gating call of the port: the smallest gap between the
+    k-th and (k+1)-th router probability of any token."""
+    margins = []
+    gating = ops.moe_gating
+
+    def spy(logits, top_k, *, impl=None):
+        probs = torch.softmax(logits.float(), -1).sort(-1, descending=True)[0]
+        margins.append(float((probs[:, top_k - 1] - probs[:, top_k]).min()))
+        return gating(logits, top_k, impl=impl)
+
+    monkeypatch.setattr(ops, "moe_gating", spy)
+    return margins
+
+
+def _check_routes(cfg, margins):
+    if cfg.n_experts:
+        assert margins and min(margins) > ROUTER_MARGIN, \
+            f"router near-tie: margins {sorted(margins)[:3]}"
+
+
+@pytest.mark.parametrize("arch", PARITY_ARCHS + MOE_ARCHS)
+def test_forward_logits_match_jax(arch, router_margins):
+    cfg_j, cfg_t, params_j, model = _both(arch)
     rng = np.random.default_rng(1)
     tokens = rng.integers(0, cfg_j.vocab_size, size=(2, 40))
     logits_j = j_forward(cfg_j, params_j, jnp.asarray(tokens))
     logits_t = model(torch.from_numpy(tokens))
+    _check_routes(cfg_t, router_margins)
     assert logits_t.shape == logits_j.shape
     assert _err(logits_t, logits_j) < TOL
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "internlm2-1.8b",
-                                  "gemma2-27b"])
-def test_prefill_then_decode_matches_jax(arch):
+                                  "gemma2-27b", "granite-moe-1b-a400m"])
+def test_prefill_then_decode_matches_jax(arch, router_margins):
     """Two sequences prefilled one by one into a slot cache, the second
     cut to fewer tokens (causal prefill makes its first 23 positions those
     of a 23-token prompt), then three committed decode steps on fixed
@@ -88,6 +121,7 @@ def test_prefill_then_decode_matches_jax(arch):
         prompt = rng.integers(0, cfg_j.vocab_size, size=(1, max(lens)))
         lj, pf_j = j_prefill(cfg_j, params_j, jnp.asarray(prompt))
         lt, pf_t = model.prefill(torch.from_numpy(prompt))
+        _check_routes(cfg_t, router_margins)
         assert _err(lt, lj) < TOL
         cache_j = JT.cache_insert(cfg_j, cache_j, pf_j, slot, L)
         T.cache_insert(cfg_t, cache_t, pf_t, slot, L)
@@ -99,6 +133,7 @@ def test_prefill_then_decode_matches_jax(arch):
                                jnp.asarray(lengths, jnp.int32))
         lt, cache_t = model.decode_step(cache_t, torch.from_numpy(toks),
                                         torch.from_numpy(lengths))
+        _check_routes(cfg_t, router_margins)
         assert _err(lt, lj) < TOL
         lengths = lengths + 1
     k_j = np.asarray(cache_j["g0"][0]["mixer"]["k"])
@@ -106,22 +141,33 @@ def test_prefill_then_decode_matches_jax(arch):
 
 
 def test_param_names_and_count_match_jax():
-    for arch in PARITY_ARCHS:
+    for arch in PARITY_ARCHS + ["granite-moe-1b-a400m"]:
         assert get_config(arch).param_count() == \
             jax_get_config(arch).param_count(), arch
-    cfg = get_config("gemma2-27b").reduced()
-    shapes = jax.eval_shape(
-        lambda: JT.init_params(jax_get_config("gemma2-27b").reduced(),
-                               jax.random.PRNGKey(0)))
-    jax_names = {
-        ".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
-        for path, _ in jax.tree_util.tree_leaves_with_path(shapes)}
-    model = T.Transformer(cfg, device="meta")
-    assert jax_names == {n for n, _ in model.named_parameters()}
+    granite = "granite-moe-1b-a400m"
+    assert get_config(granite).active_param_count() == \
+        jax_get_config(granite).active_param_count()
+    for arch in ("gemma2-27b", granite):      # bf16: the router stays fp32
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  param_dtype="bfloat16")
+        cfg_j = dataclasses.replace(jax_get_config(arch).reduced(),
+                                    param_dtype="bfloat16")
+        shapes = jax.eval_shape(
+            lambda c=cfg_j: JT.init_params(c, jax.random.PRNGKey(0)))
+        jax_names = {
+            ".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in path): leaf
+            for path, leaf in jax.tree_util.tree_leaves_with_path(shapes)}
+        model = T.Transformer(cfg, device="meta")
+        ours = dict(model.named_parameters())
+        assert set(jax_names) == set(ours), arch
+        for name, leaf in jax_names.items():
+            assert str(ours[name].dtype).split(".")[-1] == leaf.dtype.name
+
 
 
 def test_unported_configs_raise():
-    ported = set(PARITY_ARCHS)
+    ported = set(PARITY_ARCHS + MOE_ARCHS)
     for arch in list_archs():
         if arch in ported:
             continue

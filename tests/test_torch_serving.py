@@ -1,5 +1,6 @@
 """Port serving (repro_torch.serving) vs the JAX package's engine and block
 manager, on the CPU; and the port's import and device boundaries."""
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -25,10 +26,10 @@ from repro_torch.serving import (BlockManager, EngineConfig, OutOfBlocks,
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
-@pytest.fixture(scope="module")
-def models():
-    """Reduced internlm2 with numpy-drawn weights, in both packages."""
-    cfg_j = jax_get_config("internlm2-1.8b").reduced()
+@functools.cache
+def _models(arch):
+    """Reduced ``arch`` with numpy-drawn weights, in both packages."""
+    cfg_j = jax_get_config(arch).reduced()
     rng = np.random.default_rng(7)
     shapes = jax.eval_shape(lambda: JT.init_params(cfg_j,
                                                    jax.random.PRNGKey(0)))
@@ -40,9 +41,14 @@ def models():
         return 0.3 * x
 
     np_params = jax.tree_util.tree_map_with_path(draw, shapes)
-    cfg_t = get_config("internlm2-1.8b").reduced()
+    cfg_t = get_config(arch).reduced()
     model = T.from_jax_params(cfg_t, np_params, device="cpu")
     return cfg_j, jax.tree.map(jnp.asarray, np_params), cfg_t, model
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models("internlm2-1.8b")
 
 
 def _prompts(vocab):
@@ -51,27 +57,32 @@ def _prompts(vocab):
             for L in (5, 9, 13, 7)]
 
 
-def test_engine_greedy_matches_jax_engine(models):
-    """Prompts of tests/test_serving.py::test_engine_matches_reference; the
-    JAX engine decodes in append mode, the port in committed mode."""
-    cfg_j, params_j, cfg_t, model = models
-    prompts = _prompts(cfg_j.vocab_size)
-    eng_j = JServingEngine(cfg_j, params_j,
-                           JEngineConfig(max_batch=4, max_seq=64))
-    eng_t = ServingEngine(cfg_t, model, EngineConfig(max_batch=4, max_seq=64),
-                          device="cpu")
-    for i, p in enumerate(prompts):
-        eng_j.submit(JRequest(rid=i, prompt=p, max_new_tokens=6))
-        eng_t.submit(Request(rid=i, prompt=p, max_new_tokens=6))
-    done_j = {r.rid: r.generated for r in eng_j.run()}
-    done_t = eng_t.run()
-    assert len(done_t) == 4
-    for r in done_t:
-        assert r.generated == done_j[r.rid], r.rid
-        assert len(r.generated) == 6 and r.ttft >= 0 and r.tpot >= 0
-    assert eng_t.blocks.n_used == 0
-    eng_t.blocks.check_invariants()
-    assert eng_t.prefills == 4
+def test_engine_greedy_matches_jax_engine():
+    """Prompts of tests/test_serving.py::test_engine_matches_reference, for
+    reduced internlm2 and granite-moe; the JAX engine decodes in append
+    mode, the port in committed mode. Both decode the full slot batch, so
+    granite's MoE sees the empty slots too and its capacity and drops
+    match."""
+    for arch in ("internlm2-1.8b", "granite-moe-1b-a400m"):
+        cfg_j, params_j, cfg_t, model = _models(arch)
+        prompts = _prompts(cfg_j.vocab_size)
+        eng_j = JServingEngine(cfg_j, params_j,
+                               JEngineConfig(max_batch=4, max_seq=64))
+        eng_t = ServingEngine(cfg_t, model,
+                              EngineConfig(max_batch=4, max_seq=64),
+                              device="cpu")
+        for i, p in enumerate(prompts):
+            eng_j.submit(JRequest(rid=i, prompt=p, max_new_tokens=6))
+            eng_t.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+        done_j = {r.rid: r.generated for r in eng_j.run()}
+        done_t = eng_t.run()
+        assert len(done_t) == 4, arch
+        for r in done_t:
+            assert r.generated == done_j[r.rid], (arch, r.rid)
+            assert len(r.generated) == 6 and r.ttft >= 0 and r.tpot >= 0
+        assert eng_t.blocks.n_used == 0
+        eng_t.blocks.check_invariants()
+        assert eng_t.prefills == 4
 
 
 def test_engine_rejects_too_long_and_batches_continuously(models):
