@@ -10,22 +10,32 @@ Phases, each of which raises on failure (nothing is caught):
   2. kernels — each CUDA kernel against its plain PyTorch version on the
                card. Attention: the tests/test_kernels.py shape sweep in
                fp32 and bf16, window/softcap and ragged cases, and both
-               served models' shapes (qwen2-1.5b: H=12, KVH=2, Dh=128;
-               granite-moe: H=16, KVH=8, Dh=64; bf16, prefill
+               served attention models' shapes (qwen2-1.5b: H=12, KVH=2,
+               Dh=128; granite-moe: H=16, KVH=8, Dh=64; bf16, prefill
                Sq=Skv=1024, decode B=8, S=2048). MoE gating: the
                tests/test_kernels.py shapes, granite's decode and prefill
                and jamba's shapes, and an exp-underflow case; ids exactly
-               equal. Times with CUDA events.
-  3. serving — qwen2-1.5b, then granite-moe-1b-a400m, at full width and
-               depth (bf16, seeded random weights) behind
-               ServingEngine(max_batch=8, max_seq=2048): 8 requests, 32 new
-               tokens each. The launch counters, zeroed just before each
-               run, must show every prefill and decode step of every layer
-               going through the kernels.
+               equal. WKV6 and Mamba scans: the tests/test_kernels.py
+               shapes, full-width prefill (rwkv6-1.6b: H=32, K=64; jamba:
+               Din=16384, N=16; T=1024) and the decode batch (B=8, T=1,
+               also against the single-step versions), fp32 and bf16,
+               against the sequential oracles. Times with CUDA events and
+               torch.profiler.
+  3. serving — qwen2-1.5b, granite-moe-1b-a400m and rwkv6-1.6b at full
+               width and depth, then jamba-1.5-large at full width on the
+               first 4 layers of its period (bf16, seeded random weights)
+               behind ServingEngine(max_batch=8, max_seq=2048): 8 requests,
+               32 new tokens each. The launch counters, zeroed just before
+               each run, must show every prefill and decode step of every
+               layer going through its kernels, per layer kind.
   4. path    — one prompt through prefill and 8 teacher-forced decode steps,
                once through the kernels and once with impl="plain": qwen2
                in bf16; granite in fp32 (gated, with no differing expert
-               choice) and in bf16 (reported).
+               choice) and in bf16 (reported); rwkv6 in fp32 (gated, argmax
+               equal) and in bf16 (reported); jamba in fp32 on layers 0-1
+               (Mamba + dense, Mamba + MoE) and on layers 2-3 (Mamba +
+               dense, attention + MoE), each gated with no differing expert
+               choice, and in bf16 on the 4 (reported).
   5. trace   — torch.profiler over 5 serving-shaped decode steps (B=8) of
                each model: step wall time, device busy time, top kernels.
 
@@ -36,6 +46,7 @@ repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -66,7 +77,18 @@ PATH_TOL = 0.1
 # is ~1e-6 per layer, a few 1e-5 after 24 residual layers; 1e-3 leaves
 # room for growth with depth and is still far below what one flipped route
 # moves (a whole expert's output, weighted ~1/8, at O(1) hidden values).
+# rwkv6 and jamba in fp32 are held to the same 1e-3: their plain paths run
+# the chunked scans, which differ from the kernels' sequential sums by
+# ~1e-6 relative per layer (the case sweep above).
 PATH_TOL_FP32 = 1e-3
+# The scans vs their sequential oracles: tests/test_kernels.py's 1e-4 for
+# fp32 outputs and states. With bf16 inputs both sides read the same bf16
+# values and compute in fp32, so the fp32 results differ by summation order
+# only (~1e-6); the bf16 outputs may then round a value's last bit apart,
+# one bf16 ulp, <= 2^-7 of its magnitude: outputs must lie within
+# SCAN_TOL + 2^-7 |oracle| elementwise, states (fp32) within SCAN_TOL.
+SCAN_TOL = 1e-4
+BF16_ULP = 2.0 ** -7
 N_REQUESTS, NEW_TOKENS = 8, 32
 B_D, S_D = 8, 2048          # serving decode batch and cache length
 
@@ -98,6 +120,8 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gating as mg
+    from repro_torch.kernels import rwkv6_scan as rk
+    from repro_torch.kernels import ssm_scan as ss
     from repro_torch.models import transformer as T
     from repro_torch.serving import (EngineConfig, LatencyStats, Request,
                                      ServingEngine)
@@ -111,7 +135,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     kernel_mods = {"flash_attention": fa, "decode_attention": da,
-                   "moe_gating": mg}
+                   "moe_gating": mg, "rwkv6_scan": rk, "ssm_scan": ss}
 
     # -- 1. build ---------------------------------------------------------
     _, build_s, log = _build.timed_load()
@@ -190,6 +214,8 @@ def main() -> int:
         (1, 1024, 1024, 12, 2, 128, True, None, None),  # qwen2 serving
         (1, 1024, 1024, 16, 8, 64, True, None, None),   # granite serving
         (1, 1000, 1000, 16, 8, 64, True, None, None),   # granite path
+        (1, 1024, 1024, 64, 8, 128, True, None, None),  # jamba serving
+        (1, 1000, 1000, 64, 8, 128, True, None, None),  # jamba path
     ]
     n_flash = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -211,6 +237,7 @@ def main() -> int:
         (8, 2048, 12, 2, 128, 256, 50.0),
         (8, 2048, 12, 2, 128, None, None),              # qwen2 serving
         (8, 2048, 16, 8, 64, None, None),               # granite serving
+        (8, 2048, 64, 8, 128, None, None),              # jamba serving
     ]
     n_decode = 0
     lrng = np.random.default_rng(1)
@@ -255,9 +282,86 @@ def main() -> int:
                                  f"{e} >= {GATING_TOL}")
         gating_err = max(gating_err, e)
     sweep["moe_gating"] = {"float32": gating_err}
-    print(f"kernels: {n_flash} flash, {n_decode} decode and "
-          f"{len(gating_cases) + 1} moe_gating cases within tolerance (ids "
-          f"equal); max abs err {json.dumps(sweep)}")
+
+    def rwkv_inputs(B, Tn, H, K, dtype):
+        """tests/test_kernels.py::test_rwkv6_kernel's distributions; r/k/v
+        in ``dtype``, w/u/state fp32 as the model passes them."""
+        r, k, v = (rnd((B, Tn, H, K), torch.float32) * 0.5 for _ in range(3))
+        w = torch.exp(-torch.exp(rnd((B, Tn, H, K), torch.float32) * 0.5
+                                 - 1))
+        return (r.to(dtype), k.to(dtype), v.to(dtype), w,
+                rnd((H, K), torch.float32) * 0.3,
+                rnd((B, H, K, K), torch.float32) * 0.1)
+
+    def ssm_inputs(B, Tn, Din, N, dtype):
+        """tests/test_kernels.py::test_ssm_kernel's distributions with a
+        non-zero state; x/Bm/Cm in ``dtype``, dt/A/D/h0 fp32."""
+        f32 = torch.float32
+        x = rnd((B, Tn, Din), dtype)
+        dt = torch.nn.functional.softplus(rnd((B, Tn, Din), f32)) * 0.1
+        A = -torch.exp(rnd((Din, N), f32) * 0.3)
+        return (x, dt, A, rnd((B, Tn, N), dtype), rnd((B, Tn, N), dtype),
+                rnd((Din,), f32), rnd((B, Din, N), f32) * 0.1)
+
+    scan_errs = {}
+
+    def scan_check(name, dtype, got, want, case, against):
+        """Outputs within SCAN_TOL (+ one bf16 ulp), states within
+        SCAN_TOL; records the max abs errors."""
+        (out, st), (out_r, st_r) = got, want
+        diff = (out.float() - out_r.float()).abs()
+        lim = SCAN_TOL + (BF16_ULP * out_r.float().abs()
+                          if dtype == torch.bfloat16 else 0.0)
+        e_out, e_st = float(diff.max()), err(st, st_r)
+        if not bool((diff < lim).all()) or not e_st < SCAN_TOL:
+            raise AssertionError(
+                f"{name} {case} {dtype} vs {against}: max abs err out "
+                f"{e_out}, state {e_st}")
+        key = str(dtype).split(".")[-1]
+        scan_errs[(name, case, key)] = max(e_out, e_st)
+        sweep.setdefault(name, {})
+        sweep[name][key] = max(sweep[name].get(key, 0.0), e_out, e_st)
+
+    RWKV_PF, RWKV_DEC = (1, 1024, 32, 64), (B_D, 1, 32, 64)
+    SSM_PF, SSM_DEC = (1, 1024, 16384, 16), (B_D, 1, 16384, 16)
+    rwkv_cases = [(2, 64, 2, 16), (1, 96, 4, 32), (2, 80, 2, 16),
+                  RWKV_PF, RWKV_DEC]
+    ssm_cases = [(2, 32, 64, 8), (1, 64, 128, 16), (2, 50, 32, 8),
+                 SSM_PF, SSM_DEC]
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in rwkv_cases:
+            args = rwkv_inputs(*case, dtype)
+            got = ops.rwkv6_scan(*args, impl="cuda")
+            scan_check("rwkv6_scan", dtype, got,
+                       ops.rwkv6_scan(*args, impl="naive"), case,
+                       "rwkv6_sequential")
+            if case[1] == 1:
+                scan_check("rwkv6_scan", dtype, got,
+                           ops.rwkv6_scan(*args, impl="plain"), case,
+                           "rwkv6_single_step")
+        for case in ssm_cases:
+            args = ssm_inputs(*case, dtype)
+            got = ops.ssm_scan(*args, impl="cuda")
+            scan_check("ssm_scan", dtype, got,
+                       ops.ssm_scan(*args, impl="naive"), case,
+                       "ssm_sequential")
+            if case[1] == 1:
+                scan_check("ssm_scan", dtype, got,
+                           ops.ssm_scan(*args, impl="plain"), case,
+                           "ssm_single_step")
+        # Bm / Cm as strided views of one projection, as mamba_forward
+        # passes them (dt_rank 512 columns before them)
+        x, dt, A, Bm, Cm, D, h0 = ssm_inputs(2, 40, 256, 16, dtype)
+        proj = torch.cat([rnd((2, 40, 512), dtype), Bm, Cm], dim=-1)
+        _, Bv, Cv = proj.split([512, 16, 16], dim=-1)
+        args = (x, dt, A, Bv, Cv, D, h0)
+        scan_check("ssm_scan", dtype, ops.ssm_scan(*args, impl="cuda"),
+                   ops.ssm_scan(*args, impl="naive"), "strided Bm/Cm",
+                   "ssm_sequential")
+    print(f"kernels: {n_flash} flash, {n_decode} decode, "
+          f"{len(gating_cases) + 1} moe_gating, {2 * len(rwkv_cases)} "
+          f"rwkv6_scan and {2 * len(ssm_cases) + 2} ssm_scan cases within "
+          f"tolerance (ids equal); max abs err {json.dumps(sweep)}")
 
     # timing at the serving path's shapes (bf16)
     bf16 = torch.bfloat16
@@ -388,13 +492,94 @@ def main() -> int:
         **gating_timing(1024, 32, 8), "tol": GATING_TOL,
         "decode_shape": gating_timing(B_D, 32, 8),
     }
-    for row in (flash_row, decode_row, moe_row):
+
+    def scan_timing(kernel, plain, make_args, nbytes, n_ops):
+        """Device ms (torch.profiler) and call ms (CUDA events) per call of
+        the kernel's wrapper and of the plain version (ops impl="plain"),
+        bf16 as served; the bound from the shapes: each input read once,
+        each output written once, and the scan's fp32 operations."""
+        sets = [make_args() for _ in range(4)]
+        times = {}
+        for key, fn in (("", kernel), ("plain_", plain)):
+            times[f"{key}ms"] = device_ms(fn, sets, iters=10)
+            times[f"{key}call_ms"] = time_ms(fn, sets, iters=10)
+        bound = {"bytes": nbytes / PEAK_BYTES * 1e3,
+                 "operations": n_ops / PEAK_FP32_FLOPS * 1e3}
+        return {**times, "bound_ms": max(bound.values()),
+                "bound_by": max(bound, key=bound.get), "bytes": nbytes,
+                "operations": n_ops}
+
+    bf16_size = 2
+
+    def rwkv_timing(B, Tn, H, K):
+        n = B * Tn * H * K
+        # r, k, v (bf16) and w (fp32) in, out (bf16); u; state in and out.
+        # Operations: per state element a step, 2 for the output (r * S,
+        # summed), 3 for the update (w * S + k * v); the bonus term is O(K).
+        return {"shape": f"B={B} T={Tn} H={H} K={K} bf16 r/k/v, fp32 w",
+                **scan_timing(rk.rwkv6_scan,
+                              lambda *a: ops.rwkv6_scan(*a, impl="plain"),
+                              lambda: rwkv_inputs(B, Tn, H, K, bf16),
+                              n * (4 * bf16_size + 4) + H * K * 4
+                              + 2 * B * H * K * K * 4,
+                              5 * B * Tn * H * K * K)}
+
+    def ssm_timing(B, Tn, Din, N):
+        n = B * Tn * Din
+        # x (bf16) and dt (fp32) in, y (bf16) out; Bm, Cm (bf16); A, D;
+        # h0 and hT. Operations: per state element a step, dt * A, exp,
+        # the update's product and FMA (3), the output's FMA (2); 3 a
+        # channel (dt * x, D * x, the sum).
+        return {"shape": f"B={B} T={Tn} Din={Din} N={N} bf16 x/Bm/Cm, fp32 "
+                         "dt/A/D/h0",
+                **scan_timing(ss.ssm_scan,
+                              lambda *a: ops.ssm_scan(*a, impl="plain"),
+                              lambda: ssm_inputs(B, Tn, Din, N, bf16),
+                              n * (2 * bf16_size + 4)
+                              + 2 * B * Tn * N * bf16_size
+                              + Din * N * 4 + Din * 4 + 2 * B * Din * N * 4,
+                              n * (7 * N + 3))}
+
+    rwkv_row = {
+        "name": "rwkv6_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:46",
+        "tpu_kernel": "src/repro/kernels/rwkv6_scan.py:46",
+        **rwkv_timing(*RWKV_PF),
+        # vs rwkv6_sequential at this shape in this run's case sweep
+        "max_abs_err": scan_errs[("rwkv6_scan", RWKV_PF, "float32")],
+        "tol": SCAN_TOL,
+        "bf16_max_abs_err": scan_errs[("rwkv6_scan", RWKV_PF, "bfloat16")],
+        "library_ms": None, "library": "none: no one PyTorch call computes "
+                                       "the WKV6 recurrence",
+        "decode_shape": rwkv_timing(*RWKV_DEC),
+    }
+    ssm_row = {
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:47",
+        "tpu_kernel": "src/repro/kernels/ssm_scan.py:47",
+        **ssm_timing(*SSM_PF),
+        "max_abs_err": scan_errs[("ssm_scan", SSM_PF, "float32")],
+        "tol": SCAN_TOL,
+        "bf16_max_abs_err": scan_errs[("ssm_scan", SSM_PF, "bfloat16")],
+        "library_ms": None, "library": "none: no one PyTorch call computes "
+                                       "the selective scan",
+        "decode_shape": ssm_timing(*SSM_DEC),
+    }
+    kernel_rows = [flash_row, decode_row, moe_row, rwkv_row, ssm_row]
+    for row in kernel_rows:
         row["kernel_ms"] = row["ms"]
         if not row["max_abs_err"] < row["tol"]:
             raise AssertionError(f"{row['name']} at the serving shape: "
                                  f"{row['max_abs_err']} >= {row['tol']}")
 
     # -- helpers of phases 3-5 ----------------------------------------------
+    def free():
+        """Drop what the last model left behind before the next is built."""
+        gc.collect()
+        torch.cuda.empty_cache()
+
     def build(cfg):
         t0 = time.perf_counter()
         model = T.Transformer(
@@ -432,6 +617,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: mod.launches for name, mod in kernel_mods.items()}
+        kinds = [spec.kind for spec in cfg.layer_specs()]
         if len(done) != N_REQUESTS or any(len(r.generated) != NEW_TOKENS
                                           for r in done):
             raise AssertionError(f"serving {cfg.name}: {len(done)} finished,"
@@ -440,9 +626,12 @@ def main() -> int:
             raise AssertionError(f"serving {cfg.name}: {eng.prefills} "
                                  "prefills")
         n_moe = sum(spec.mlp == "moe" for spec in cfg.layer_specs())
-        expected = {"flash_attention": cfg.n_layers * eng.prefills,
-                    "decode_attention": cfg.n_layers * eng.decodes,
-                    "moe_gating": n_moe * (eng.prefills + eng.decodes)}
+        steps = eng.prefills + eng.decodes
+        expected = {"flash_attention": kinds.count("attn") * eng.prefills,
+                    "decode_attention": kinds.count("attn") * eng.decodes,
+                    "moe_gating": n_moe * steps,
+                    "rwkv6_scan": kinds.count("rwkv") * steps,
+                    "ssm_scan": kinds.count("mamba") * steps}
         if launches != expected:
             raise AssertionError(
                 f"serving {cfg.name}: launches {launches} for "
@@ -455,12 +644,15 @@ def main() -> int:
         for r in done:
             stats.observe(r.ttft, r.tpot)
         serving = {
-            "model": cfg.name, "requests": len(done),
+            "model": cfg.name, "layers": cfg.n_layers,
+            "requests": len(done),
             "new_tokens": NEW_TOKENS, "prompt_lens": prompt_lens.tolist(),
             "prefills": eng.prefills, "decode_steps": eng.decodes,
             "flash_launches": launches["flash_attention"],
             "decode_launches": launches["decode_attention"],
             "moe_gating_launches": launches["moe_gating"],
+            "rwkv6_scan_launches": launches["rwkv6_scan"],
+            "ssm_scan_launches": launches["ssm_scan"],
             "wall_s": wall,
             "output_tok_per_s": N_REQUESTS * NEW_TOKENS / wall,
             "ttft_p50_s": stats.percentile("ttfts", 50),
@@ -507,9 +699,10 @@ def main() -> int:
                 {"prefill_ms": ev[0].elapsed_time(ev[1]),
                  "decode_step_ms": ev[1].elapsed_time(ev[2]) / STEPS})
 
-    def path(cfg, model, tol):
+    def path(cfg, model, tol, gate_argmax=False):
         """Kernel path vs plain path on one prompt; gated on ``tol`` and,
-        when given, on zero differing expert choices."""
+        when given, on zero differing expert choices (and with
+        ``gate_argmax`` on equal argmax at every position)."""
         prng = np.random.default_rng(2)
         prompt = torch.from_numpy(prng.integers(0, cfg.vocab_size,
                                                 size=(1, P))).to(dev)
@@ -535,7 +728,10 @@ def main() -> int:
         if not bool(torch.isfinite(out_k).all()):
             raise AssertionError(f"{cfg.name} kernel path logits are not "
                                  "finite")
-        res = {"model": cfg.name, "dtype": cfg.dtype, "prompt": P,
+        res = {"model": cfg.name, "layers": cfg.n_layers,
+               "layer_kinds": [f"{spec.kind}+{spec.mlp}"
+                               for spec in cfg.layer_specs()],
+               "dtype": cfg.dtype, "prompt": P,
                "decode_steps": STEPS, "max_abs_err": path_err, "tol": tol,
                "argmax_agree": int((out_k.argmax(-1)
                                     == out_p.argmax(-1)).sum()),
@@ -553,6 +749,10 @@ def main() -> int:
                 raise AssertionError(f"{cfg.name}: {differing} of {choices} "
                                      "expert choices differ between the "
                                      "kernel and plain paths")
+            if gate_argmax and res["argmax_agree"] != res["positions"]:
+                raise AssertionError(f"{cfg.name}: argmax differs at "
+                                     f"{res['positions'] - res['argmax_agree']}"
+                                     " positions")
         return res
 
     def trace(cfg, model, n_steps=5):
@@ -575,7 +775,8 @@ def main() -> int:
         kernels = sorted(((e.key, e.self_device_time_total / 1e3 / n_steps)
                           for e in dev_events), key=lambda kv: -kv[1])
         busy_ms = sum(ms for _, ms in kernels)
-        res = {"model": cfg.name, "batch": B_D, "lengths": d_lens.tolist(),
+        res = {"model": cfg.name, "layers": cfg.n_layers, "batch": B_D,
+               "lengths": d_lens.tolist(),
                "step_wall_ms": step_ms, "traced": True,
                "kernels_per_step": sum(e.count for e in dev_events) / n_steps,
                "device_busy_ms": busy_ms if kernels else "not measured",
@@ -592,7 +793,7 @@ def main() -> int:
     path(cfg, model, PATH_TOL)
     trace(cfg, model)
     del model
-    torch.cuda.empty_cache()
+    free()
 
     # -- 3-5. granite-moe-1b-a400m: serving, path (fp32 gated, bf16), trace --
     cfg = get_config("granite-moe-1b-a400m")
@@ -602,17 +803,62 @@ def main() -> int:
     model32 = build(cfg32)
     path(cfg32, model32, PATH_TOL_FP32)
     del model32
-    torch.cuda.empty_cache()
+    free()
     path(cfg, model, None)          # bf16: reported, not gated
     trace(cfg, model)
     del model
-    torch.cuda.empty_cache()
+    free()
 
-    for row in (flash_row, decode_row, moe_row):
+    # -- 3-5. rwkv6-1.6b: serving, path (bf16, fp32 gated), trace ----------
+    cfg = get_config("rwkv6-1.6b")
+    model = build(cfg)
+    launches_by_path[cfg.name] = serve(cfg, model)
+    path(cfg, model, None)          # bf16: reported, not gated
+    trace(cfg, model)
+    del model
+    free()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model32 = build(cfg32)
+    path(cfg32, model32, PATH_TOL_FP32, gate_argmax=True)
+    del model32
+    free()
+
+    # -- 3-5. jamba-1.5-large at full width: the first 4 layers of its
+    # period (mamba+dense, mamba+MoE, mamba+dense, attn+MoE; 46 GB in bf16)
+    # serve, path (bf16) and trace. In fp32 only 2 layers fit (48-49 GB):
+    # layers 0-1 (mamba+dense, mamba+MoE) and layers 2-3 (mamba+dense,
+    # attn+MoE), each path gated, so every layer kind, attention at Jamba's
+    # 64/8 heads included, is held to the plain path in fp32.
+    jamba = get_config("jamba-1.5-large-398b")
+
+    def layers(lo, hi):
+        return dataclasses.replace(jamba, groups=((jamba.groups[0][0][lo:hi],
+                                                   1),))
+
+    cfg = layers(0, 4)
+    model = build(cfg)
+    launches_by_path[f"{cfg.name} ({cfg.n_layers} layers)"] = serve(cfg,
+                                                                     model)
+    path(cfg, model, None)          # bf16: reported, not gated
+    trace(cfg, model)
+    del model
+    free()
+    for lo in (0, 2):
+        cfg32 = dataclasses.replace(layers(lo, lo + 2), dtype="float32",
+                                    param_dtype="float32")
+        model32 = build(cfg32)
+        path(cfg32, model32, PATH_TOL_FP32)
+        del model32
+        free()
+
+    for row in kernel_rows:
         row["launches_by_path"] = {m: n[row["name"]]
                                    for m, n in launches_by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
-    print(json.dumps({"kernels": [flash_row, decode_row, moe_row]}))
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']} was never launched on the "
+                                 "served paths")
+    print(json.dumps({"kernels": kernel_rows}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

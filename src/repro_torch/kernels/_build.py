@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (each returns a cudaError_t as int)
 SIGNATURES = {
     # q, k, v, o, B, Sq, Skv, H, KVH, Dh, dtype, causal, window, softcap,
@@ -39,6 +40,13 @@ SIGNATURES = {
                                _I, _F, _F, _P),
     # logits, weights, ids, T, E, k, stream
     "repro_moe_gating": (_P, _P, _P, _I, _I, _I, _P),
+    # r, k, v, w, u, s0, out, sT, B, T, H, K, dtype, stream
+    "repro_rwkv6_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _P),
+    # x, dt, A, Bm, Cm, D, h0, y, hT, B, T, Din, N, Bm/Cm batch stride,
+    # Bm/Cm time stride, dtype, stream
+    "repro_ssm_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _L, _L, _I, _P),
 }
 
 

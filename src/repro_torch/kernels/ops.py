@@ -1,5 +1,5 @@
-"""Dispatch around the attention and MoE gating hot spots (port of
-``repro/kernels/ops.py``).
+"""Dispatch around the attention, MoE gating, RWKV6 and Mamba scan hot spots
+(port of ``repro/kernels/ops.py``).
 
 Every model-layer call site goes through this module. The implementation
 follows the tensor: a CUDA tensor goes to the hand-written CUDA kernel, a
@@ -9,7 +9,8 @@ that:
   * ``"cuda"``  — the kernel; raises on CPU tensors.
   * ``"plain"`` — the plain version on any device (``chip_smoke.py`` holds
     each kernel to it on the card).
-  * ``"naive"`` — the materializing oracle.
+  * ``"naive"`` — the materializing (attention) or sequential (scans)
+    oracle.
 
 Arguments a kernel does not take raise ``NotImplementedError`` on the kernel
 path; nothing falls back to the plain version behind the caller's back.
@@ -24,6 +25,8 @@ from . import decode_attention as da
 from . import flash_attention as fa
 from . import moe_gating as mg
 from . import ref
+from . import rwkv6_scan as rk
+from . import ssm_scan as ss
 
 IMPLS = (None, "cuda", "plain", "naive")
 
@@ -88,3 +91,36 @@ def moe_gating(logits, top_k: int, *, impl: Optional[str] = None):
         return weights, ids, ref.gating_aux(lf, torch.softmax(lf, dim=-1),
                                             ids)
     return ref.topk_gating(logits, top_k)
+
+
+def rwkv6_scan(r, k, v, w, u, state, *, impl: Optional[str] = None):
+    """WKV6 recurrence. r/k/w (B, T, H, K), v (B, T, H, V), u (H, K),
+    state (B, H, K, V) -> (out (B, T, H, V), final state fp32).
+
+    A CUDA tensor goes to the kernel at every T, T == 1 included (one launch
+    where the single-step version takes about eight). The plain path takes
+    ``ref.rwkv6_single_step`` at T == 1 and ``ref.rwkv6_chunked`` otherwise,
+    as the reference does; ``"naive"`` the sequential oracle."""
+    if _kernel_path(impl, r):
+        return rk.rwkv6_scan(r, k, v, w, u, state)
+    if impl == "naive":
+        return ref.rwkv6_sequential(r, k, v, w, u, state)
+    if r.shape[1] == 1:
+        return ref.rwkv6_single_step(r, k, v, w, u, state)
+    return ref.rwkv6_chunked(r, k, v, w, u, state)
+
+
+def ssm_scan(x, dt, A, Bm, Cm, D, h0, *, impl: Optional[str] = None):
+    """Mamba selective scan. x/dt (B, T, Din), A (Din, N), Bm/Cm (B, T, N),
+    D (Din,), h0 (B, Din, N) -> (y (B, T, Din), final h fp32).
+
+    Dispatch as ``rwkv6_scan``: the kernel for CUDA tensors at every T;
+    plain ``ref.ssm_single_step`` at T == 1, ``ref.ssm_chunked`` otherwise;
+    ``"naive"`` the sequential oracle."""
+    if _kernel_path(impl, x):
+        return ss.ssm_scan(x, dt, A, Bm, Cm, D, h0)
+    if impl == "naive":
+        return ref.ssm_sequential(x, dt, A, Bm, Cm, D, h0)
+    if x.shape[1] == 1:
+        return ref.ssm_single_step(x, dt, A, Bm, Cm, D, h0)
+    return ref.ssm_chunked(x, dt, A, Bm, Cm, D, h0)

@@ -1,10 +1,13 @@
-"""Plain PyTorch versions of the attention and MoE gating kernels (port of
-the attention and gating parts of ``repro.kernels.ref``).
+"""Plain PyTorch versions of the port's kernels (port of
+``repro.kernels.ref``): attention, MoE gating, and the RWKV6 and Mamba
+scans.
 
 Two tiers per op, as in the JAX package:
-  * ``*_naive``  — smallest-possible oracle, materializes everything.
-  * blockwise / direct — the plain paths the dispatch in ``ops.py`` takes
-    for CPU tensors, and that ``chip_smoke.py`` holds each CUDA kernel to.
+  * ``*_naive`` / ``*_sequential`` — smallest-possible oracle, materializes
+    everything or walks T one step at a time.
+  * blockwise / direct / ``*_chunked`` — the plain paths the dispatch in
+    ``ops.py`` takes for CPU tensors, and that ``chip_smoke.py`` holds each
+    CUDA kernel to. The scans take ``*_single_step`` at T == 1.
 
 Shapes:
   q    : (B, Sq, H, Dh)
@@ -18,6 +21,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -205,3 +209,148 @@ def gating_aux(logits: torch.Tensor, probs: torch.Tensor,
     lb_loss = E * torch.sum(counts / T * probs.mean(0))
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return {"lb_loss": lb_loss, "z_loss": z_loss}
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (data-dependent-decay linear attention; "Finch")
+# ---------------------------------------------------------------------------
+def rwkv6_sequential(r, k, v, w, u, state):
+    """The oracle: out_t = r_t · (S_t + diag(u) k_t vᵀ_t);
+    S_{t+1} = diag(w_t) S_t + k_t vᵀ_t, one step at a time.
+
+    r/k/w (B, T, H, K), v (B, T, H, V), u (H, K), state (B, H, K, V).
+    Returns (out (B, T, H, V) in v's dtype, final state fp32)."""
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    S = state.float()
+    outs = []
+    for t in range(r.shape[1]):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]      # (B,H,K,V)
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], S + uf * kv))
+        S = wf[:, t, :, :, None] * S + kv
+    return torch.stack(outs, 1).to(v.dtype), S
+
+
+def rwkv6_single_step(r, k, v, w, u, state):
+    """T == 1: one state update (the reference's decode fast path)."""
+    rf, kf, vf, wf = (t[:, 0].float() for t in (r, k, v, w))
+    S = state.float()
+    kv = kf[..., :, None] * vf[..., None, :]
+    out = torch.einsum("bhk,bhkv->bhv", rf,
+                       S + u.float()[None, :, :, None] * kv)
+    return out[:, None].to(v.dtype), wf[..., None] * S + kv
+
+
+def rwkv6_chunked(r, k, v, w, u, state, *, chunk: int = 32):
+    """Chunked WKV6: the carried state enters through matmuls, the tokens
+    of a chunk through a (c, c) per-channel-decayed score matrix in log
+    space, both exponents shifted by the chunk's midpoint and clipped at
+    ±60, as in the reference. T is padded to a multiple of the chunk with
+    zeros and w = 1 (the padding neither decays nor feeds the state)."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    if T % chunk:
+        pad = (0, 0, 0, 0, 0, (-T) % chunk)
+        out, S = rwkv6_chunked(F.pad(r, pad), F.pad(k, pad), F.pad(v, pad),
+                               F.pad(w, pad, value=1.0), u, state,
+                               chunk=chunk)
+        return out[:, :T], S
+    c, n = chunk, T // chunk
+
+    def split(x, d):            # (B, T, H, d) -> (n, B, H, c, d)
+        return x.float().reshape(B, n, c, H, d).permute(1, 0, 3, 2, 4)
+
+    rf, kf, vf, wf = split(r, K), split(k, K), split(v, V), split(w, K)
+    uf = u.float()
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
+                     diagonal=-1)                       # j < t
+    S = state.float()
+    outs = []
+    for i in range(n):
+        rc, kc, vc, wc = rf[i], kf[i], vf[i], wf[i]
+        lw = torch.log(torch.clamp(wc, min=1e-30))
+        cum = torch.cumsum(lw, dim=2)                   # inclusive
+        cum_excl = cum - lw
+        inter = torch.einsum("bhck,bhkv->bhcv", rc * torch.exp(cum_excl), S)
+        M = cum[:, :, c // 2, :][:, :, None, :]
+        a = rc * torch.exp(torch.clamp(cum_excl - M, -60.0, 60.0))
+        b = kc * torch.exp(torch.clamp(M - cum, -60.0, 60.0))
+        scores = torch.einsum("bhtk,bhjk->bhtj", a, b)
+        scores = torch.where(tri, scores, 0.0)
+        diag = torch.einsum("bhck,hk,bhck->bhc", rc, uf, kc)
+        outs.append(inter + torch.einsum("bhtj,bhjv->bhtv", scores, vc)
+                    + diag[..., None] * vc)
+        decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
+        S = S * torch.exp(cum[:, :, -1, :])[..., None] + torch.einsum(
+            "bhck,bhcv->bhkv", kc * decay_to_end, vc)
+    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, T, H, V)
+    return out.to(v.dtype), S
+
+
+# ---------------------------------------------------------------------------
+# Mamba selective scan
+# ---------------------------------------------------------------------------
+def ssm_sequential(x, dt, A, Bm, Cm, D, h0):
+    """The oracle: h_t = exp(dt_t·A)·h_{t-1} + (dt_t·x_t)·B_t;
+    y_t = h_t·C_t + D·x_t, one step at a time.
+
+    x/dt (B, T, Din), A (Din, N), Bm/Cm (B, T, N), D (Din,), h0 (B, Din, N).
+    Returns (y (B, T, Din) in x's dtype, final h fp32)."""
+    xf, dtf, Bf, Cf = (t.float() for t in (x, dt, Bm, Cm))
+    Af, Df = A.float(), D.float()
+    h = h0.float()
+    ys = []
+    for t in range(x.shape[1]):
+        h = torch.exp(dtf[:, t, :, None] * Af) * h \
+            + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]) + Df * xf[:, t])
+    return torch.stack(ys, 1).to(x.dtype), h
+
+
+def ssm_single_step(x, dt, A, Bm, Cm, D, h0):
+    """T == 1: one state update (the reference's decode fast path)."""
+    xf, dtf, Bf, Cf = (t[:, 0].float() for t in (x, dt, Bm, Cm))
+    h = torch.exp(dtf[..., None] * A.float()) * h0.float() \
+        + (dtf * xf)[..., None] * Bf[:, None, :]
+    y = torch.einsum("bdn,bn->bd", h, Cf) + D.float() * xf
+    return y[:, None].to(x.dtype), h
+
+
+def _doubling_scan(a, b):
+    """Inclusive scan along dim 1 of the pairs (a, b) under the reference's
+    combine (a1, b1) ∘ (a2, b2) = (a1·a2, a2·b1 + b2), in log2(c) doubling
+    rounds (torch has no associative_scan)."""
+    c = a.shape[1]
+    d = 1
+    while d < c:
+        a_prev, b_prev = a[:, :-d], b[:, :-d]
+        b = torch.cat([b[:, :d], a[:, d:] * b_prev + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a_prev * a[:, d:]], dim=1)
+        d *= 2
+    return a, b
+
+
+def ssm_chunked(x, dt, A, Bm, Cm, D, h0, *, chunk: int = 256):
+    """Chunk-sequential scan with a doubling scan inside each chunk. Peak
+    intermediate: a few (B, chunk, Din, N) fp32 tensors, never the full
+    (B, T, Din, N). T is padded to a multiple of the chunk with zeros
+    (dt = 0 leaves the state as it is)."""
+    B, T, Din = x.shape
+    if T % chunk:
+        pad = (0, 0, 0, (-T) % chunk)
+        y, h = ssm_chunked(F.pad(x, pad), F.pad(dt, pad), A, F.pad(Bm, pad),
+                           F.pad(Cm, pad), D, h0, chunk=chunk)
+        return y[:, :T], h
+    Af, Df = A.float(), D.float()
+    h = h0.float()
+    ys = []
+    for s in range(0, T, chunk):
+        xc, dtc, Bc, Cc = (t[:, s:s + chunk].float() for t in (x, dt, Bm, Cm))
+        a = torch.exp(dtc[..., None] * Af)                 # (B,c,Din,N)
+        b = (dtc * xc)[..., None] * Bc[:, :, None, :]
+        aa, bb = _doubling_scan(a, b)
+        del a, b
+        h_t = aa * h[:, None] + bb
+        ys.append(torch.einsum("bcdn,bcn->bcd", h_t, Cc) + Df * xc)
+        h = h_t[:, -1]
+    return torch.cat(ys, 1).to(x.dtype), h

@@ -1,6 +1,6 @@
 """Period-grouped decoder stack (port of ``repro/models/transformer.py``) for
-attention configs with dense or MoE MLPs: qwen2, internlm2, minitron,
-gemma2, granite-moe and kimi-k2.
+attention, Mamba and RWKV-6 layers with dense, MoE or no MLPs: qwen2,
+internlm2, minitron, gemma2, granite-moe, kimi-k2, jamba and rwkv6.
 
 Parameters keep the JAX names and shapes: ``embed (V, D)``, ``final_norm``,
 ``lm_head (D, V)`` when untied, and per group ``g{i}.{j}.<leaf>`` stacked
@@ -10,10 +10,13 @@ converts leaf for leaf (``from_jax_params``).
 
 PyTorch runs eagerly, so where the JAX stack scans over layers this one
 loops over views of the stacked tensors, and decode writes each layer's new
-K/V into the cache in place (committed mode).
+K/V, and each recurrent layer's new state, into the cache in place
+(committed mode).
 
-Caches mirror the JAX structure: ``{"g{i}": ({"mixer": {"k", "v"}}, ...)}``
-with leaves (L, B, S, KVH, Dh).
+Caches mirror the JAX structure: ``{"g{i}": ({"mixer": {...}}, ...)}``.
+Attention layers hold ``k``/``v`` (L, B, S, KVH, Dh); Mamba layers ``h``
+(L, B, Din, N) fp32 and ``conv`` (L, B, K-1, Din); RWKV layers ``wkv``
+(L, B, H, K, K) fp32, ``shift_tm`` and ``shift_cm`` (L, B, D).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from torch import nn
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 
 
 def resolve_device(device) -> torch.device:
@@ -46,15 +50,20 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: codebook / vision frontends "
                                   "are not ported")
     for spec in cfg.layer_specs():
-        if spec.kind != "attn":
+        if spec.kind not in ("attn", "mamba", "rwkv"):
             raise NotImplementedError(f"{cfg.name}: {spec.kind} layers are "
                                       "not ported")
-        if spec.attn_type == "cross":
+        if spec.kind == "attn" and spec.attn_type == "cross":
             raise NotImplementedError(f"{cfg.name}: cross-attention is not "
                                       "ported")
-        if spec.mlp not in ("dense", "moe"):
+        if spec.mlp not in ("dense", "moe", "none"):
             raise NotImplementedError(f"{cfg.name}: {spec.mlp} MLP layers "
                                       "are not ported")
+
+
+def is_recurrent(cfg: ModelConfig) -> bool:
+    """True when a layer carries a recurrent state (Mamba or RWKV)."""
+    return any(spec.kind in ("mamba", "rwkv") for spec in cfg.layer_specs())
 
 
 def _padded_vocab(cfg: ModelConfig) -> int:
@@ -81,10 +90,19 @@ class _LayerStack(nn.Module):
 
         self.rep = rep
         self.norm1 = norm()
-        self.mixer = _params(L.init_attention(cfg, spec, rep, init))
-        self.norm2 = norm()
-        self.mlp = _params(MOE.init_moe(cfg, rep, init) if spec.mlp == "moe"
-                           else L.init_mlp(cfg, rep, init))
+        if spec.kind == "mamba":
+            self.mixer = _params(SSM.init_mamba(cfg, rep, init))
+        elif spec.kind == "rwkv":
+            self.mixer = _params(SSM.init_rwkv(cfg, rep, init))
+        else:
+            self.mixer = _params(L.init_attention(cfg, spec, rep, init))
+        # an RWKV layer's norm2 feeds its channel mix; it has no mlp
+        if spec.kind == "rwkv" or spec.mlp != "none":
+            self.norm2 = norm()
+        if spec.kind != "rwkv" and spec.mlp != "none":
+            self.mlp = _params(MOE.init_moe(cfg, rep, init)
+                               if spec.mlp == "moe"
+                               else L.init_mlp(cfg, rep, init))
         if cfg.use_post_norms:
             self.post_norm1 = norm()
             self.post_norm2 = norm()
@@ -122,17 +140,20 @@ class Transformer(nn.Module):
         if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
 
-        def init(shape, std, dtype=None):
-            """std None: ones in fp32 (norm scales); 0.0: zeros; else normal
-            weights in ``dtype`` (the param dtype when None)."""
+        def init(shape, std, dtype=None, *, fill=1.0):
+            """std None: ``fill`` in fp32 (a number, or a tensor broadcast
+            over the leading dims): norm scales and the recurrent layers'
+            fp32 constants; 0.0: zeros; else normal weights in ``dtype``
+            (the param dtype when None)."""
             if std is None:
-                return torch.ones(shape, dtype=torch.float32, device=dev)
+                out = torch.empty(shape, dtype=torch.float32, device=dev)
+                return out.copy_(torch.as_tensor(fill, dtype=torch.float32))
             dt = pd if dtype is None else dtype
             if dev.type == "meta" or std == 0.0:
                 return torch.zeros(shape, dtype=dt, device=dev)
             w = torch.randn(shape, generator=generator, device=dev,
                             dtype=torch.float32)
-            return (w * std).to(dt)
+            return w.mul_(std).to(dt)     # in place: one fp32 temporary
 
         self.cfg = cfg
         D, V = cfg.d_model, _padded_vocab(cfg)
@@ -171,17 +192,40 @@ class Transformer(nn.Module):
 
     def _layer(self, spec: LayerSpec, p: dict, x: torch.Tensor, *,
                positions=None, cache=None, lengths=None, impl=None):
+        """One layer. ``cache`` None: prefill (attention returns its K/V,
+        a recurrent layer starts from a zero state); else this layer's
+        cache views (decode: attention writes K/V into them). Returns (x,
+        the layer's new K/V or recurrent state)."""
         cfg = self.cfg
         h_in = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-        if cache is None:
-            mix_out, kv = L.attention_forward(cfg, spec, p["mixer"], h_in,
-                                              positions=positions, impl=impl)
+        if spec.kind == "attn":
+            if cache is None:
+                mix_out, new = L.attention_forward(
+                    cfg, spec, p["mixer"], h_in, positions=positions,
+                    impl=impl)
+            else:
+                mix_out, new = L.attention_decode(cfg, spec, p["mixer"],
+                                                  h_in, cache, lengths,
+                                                  impl=impl)
         else:
-            mix_out, kv = L.attention_decode(cfg, spec, p["mixer"], h_in,
-                                             cache, lengths, impl=impl)
+            st = cache if cache is not None else SSM.init_state(
+                cfg, spec, x.shape[0], x.dtype, x.device)
+            if spec.kind == "mamba":
+                mix_out, new = SSM.mamba_forward(cfg, p["mixer"], h_in, st,
+                                                 impl=impl)
+            else:      # rwkv: time mix, then channel mix, no mlp
+                mix_out, new = SSM.rwkv_time_mix(cfg, p["mixer"], h_in, st,
+                                                 impl=impl)
+                x = x + mix_out
+                h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+                cm_out, cm_new = SSM.rwkv_channel_mix(cfg, p["mixer"], h2,
+                                                      st)
+                return x + cm_out, {**new, **cm_new}
         if cfg.use_post_norms:
             mix_out = L.rms_norm(mix_out, p["post_norm1"], cfg.norm_eps)
         x = x + mix_out
+        if spec.mlp == "none":
+            return x, new
         h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
         if spec.mlp == "moe":      # aux losses are for training: dropped
             mlp_out, _ = MOE.moe_forward(cfg, p["mlp"], h2, impl=impl)
@@ -189,7 +233,7 @@ class Transformer(nn.Module):
             mlp_out = L.mlp_forward(cfg, p["mlp"], h2)
         if cfg.use_post_norms:
             mlp_out = L.rms_norm(mlp_out, p["post_norm2"], cfg.norm_eps)
-        return x + mlp_out, kv
+        return x + mlp_out, new
 
     def _groups(self):
         for gi, (period, rep) in enumerate(self.cfg.groups):
@@ -206,16 +250,16 @@ class Transformer(nn.Module):
         positions = torch.arange(S, device=h.device).expand(B, S)
         caches = {}
         for gi, period, rep, views in self._groups():
-            per_pos = [([], []) for _ in period]
+            per_pos = [[] for _ in period]
             for r in range(rep):
                 for li, spec in enumerate(period):
-                    h, kv = self._layer(spec, views[li][r], h,
-                                        positions=positions, impl=impl)
-                    per_pos[li][0].append(kv["k"])
-                    per_pos[li][1].append(kv["v"])
+                    h, new = self._layer(spec, views[li][r], h,
+                                         positions=positions, impl=impl)
+                    per_pos[li].append(new)
             caches[f"g{gi}"] = tuple(
-                {"mixer": {"k": torch.stack(ks), "v": torch.stack(vs)}}
-                for ks, vs in per_pos)
+                {"mixer": {name: torch.stack([st[name] for st in sts])
+                           for name in sts[0]}}
+                for sts in per_pos)
         h = L.rms_norm(h, self.final_norm, self.cfg.norm_eps)
         return self._unembed(h), caches
 
@@ -229,17 +273,20 @@ class Transformer(nn.Module):
                     lengths: torch.Tensor, *, append: bool = False,
                     impl: Optional[str] = None):
         """One decode step. tokens (B,); lengths (B,) tokens already in the
-        cache (the position of the new token). Writes each layer's new K/V
-        into ``cache`` IN PLACE and returns (logits (B, V), cache).
+        cache (the position of the new token). Writes each attention layer's
+        new K/V and each recurrent layer's new state into ``cache`` IN
+        PLACE and returns (logits (B, V), cache).
 
-        Lengths given on the CPU are bounds-checked against the cache
-        before anything is written (on the device an out-of-range write
-        would be a device-side fault)."""
+        Lengths given on the CPU are bounds-checked before anything is
+        written (on the device an out-of-range write would be a device-side
+        fault): never negative, and below the capacity of the first
+        attention layer's cache where the config has one (a recurrent state
+        has no capacity)."""
         if append:
             raise NotImplementedError(
                 "append-mode decode is not ported; use append=False")
         if lengths.device.type == "cpu":
-            max_seq = cache["g0"][0]["mixer"]["k"].shape[2]
+            max_seq = _attention_capacity(self.cfg, cache)
             if bool(((lengths < 0) | (lengths >= max_seq)).any()):
                 raise ValueError(f"lengths {lengths.tolist()} outside the "
                                  f"cache's [0, {max_seq})")
@@ -248,39 +295,62 @@ class Transformer(nn.Module):
         for gi, period, rep, views in self._groups():
             for r in range(rep):
                 for li, spec in enumerate(period):
-                    leaves = cache[f"g{gi}"][li]["mixer"]
-                    layer_cache = {"k": leaves["k"][r], "v": leaves["v"][r]}
-                    h, _ = self._layer(spec, views[li][r], h,
-                                       cache=layer_cache, lengths=lengths,
-                                       impl=impl)
+                    layer_cache = {name: t[r] for name, t in
+                                   cache[f"g{gi}"][li]["mixer"].items()}
+                    h, new = self._layer(spec, views[li][r], h,
+                                         cache=layer_cache, lengths=lengths,
+                                         impl=impl)
+                    if spec.kind != "attn":
+                        for name, t in new.items():
+                            layer_cache[name].copy_(t)
         h = L.rms_norm(h, self.final_norm, self.cfg.norm_eps)
         return self._unembed(h)[:, 0], cache
 
 
+def _attention_capacity(cfg: ModelConfig, cache: dict) -> float:
+    """Positions the first attention layer's cache holds; unbounded in an
+    attention-free config."""
+    for gi, (period, _) in enumerate(cfg.groups):
+        for li, spec in enumerate(period):
+            if spec.kind == "attn":
+                return cache[f"g{gi}"][li]["mixer"]["k"].shape[2]
+    return float("inf")
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device="cuda") -> dict:
-    """Zeroed decode cache in the model dtype."""
+    """Zeroed decode cache: attention K/V in the model dtype, recurrent
+    states as ``ssm.init_state``."""
     check_supported(cfg)
     dev = resolve_device(device)
     cdt = getattr(torch, cfg.dtype)
-    return {f"g{gi}": tuple(
-        {"mixer": L.init_attention_cache(cfg, spec, rep, batch, max_seq, cdt,
-                                         dev)} for spec in period)
-        for gi, (period, rep) in enumerate(cfg.groups)}
+
+    def layer(spec, rep):
+        if spec.kind == "attn":
+            return L.init_attention_cache(cfg, spec, rep, batch, max_seq,
+                                          cdt, dev)
+        return SSM.init_state(cfg, spec, batch, cdt, dev, lead=(rep,))
+
+    return {f"g{gi}": tuple({"mixer": layer(spec, rep)} for spec in period)
+            for gi, (period, rep) in enumerate(cfg.groups)}
 
 
 def cache_insert(cfg: ModelConfig, cache: dict, prefill_cache: dict,
                  slot: int, length: int) -> dict:
     """Write a single-sequence prefill cache (batch == 1) into batch slot
     ``slot`` of a decode cache, IN PLACE: the first ``length`` positions of
-    every layer's K/V. Returns ``cache``."""
+    every attention layer's K/V, and every recurrent state whole (the
+    prefill must have run on exactly ``length`` tokens for that state to be
+    the prompt's). Returns ``cache``."""
     for gi, (period, _) in enumerate(cfg.groups):
-        for li in range(len(period)):
+        for li, spec in enumerate(period):
             dst = cache[f"g{gi}"][li]["mixer"]
             src = prefill_cache[f"g{gi}"][li]["mixer"]
-            for name in ("k", "v"):
-                dst[name][:, slot, :length] = src[name][:, 0, :length].to(
-                    dst[name].dtype)
+            for name, d in dst.items():
+                if spec.kind == "attn":
+                    d[:, slot, :length] = src[name][:, 0, :length].to(d.dtype)
+                else:
+                    d[:, slot] = src[name][:, 0].to(d.dtype)
     return cache
 
 

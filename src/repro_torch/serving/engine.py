@@ -1,12 +1,16 @@
 """Single-instance serving engine: continuous batching over the PyTorch model
 (port of ``repro/serving/engine.py``).
 
-Same admission, padding, prefill-budget, retire and TTFT/TPOT logic as the
-JAX engine: slot-based batch, paged-block admission control (kv_cache.py),
-power-of-two padded prefill, greedy/temperature sampling. Decode runs in
-committed mode: each step writes the new tokens' K/V into the slot cache in
-place, then attends (on CUDA, through the hand-written kernels). Greedy
-sampling is one argmax over the batch on the device.
+Same admission, prefill-budget, retire and TTFT/TPOT logic as the JAX
+engine: slot-based batch, paged-block admission control (kv_cache.py),
+greedy/temperature sampling. Attention-only configs prefill at a power of
+two as the JAX engine does; configs with Mamba or RWKV layers prefill at the
+prompt's exact length, because a recurrent state taken at the padded end
+has also absorbed the pad tokens (the JAX engine's padded prefill does
+that, and its decode then departs from its own model's). Decode runs in
+committed mode: each step writes the new tokens' K/V and recurrent states
+into the slot cache in place (on CUDA, through the hand-written kernels).
+Greedy sampling is one argmax over the batch on the device.
 """
 from __future__ import annotations
 
@@ -86,6 +90,7 @@ class ServingEngine:
         self.finished: list[Request] = []
         self.generator = torch.Generator(device=self.device).manual_seed(
             ecfg.seed)
+        self.exact_prefill = T.is_recurrent(cfg)
         self.steps = 0
         self.prefills = 0        # model.prefill calls
         self.decodes = 0         # model.decode_step calls
@@ -127,7 +132,8 @@ class ServingEngine:
             self.queue.popleft()
             slot = free_slots[0]
             self.blocks.allocate(req.rid, L)
-            padded = max(8, 1 << (L - 1).bit_length())
+            padded = L if self.exact_prefill else max(
+                8, 1 << (L - 1).bit_length())
             toks = np.zeros((1, padded), np.int64)
             toks[0, :L] = req.prompt
             logits, pf_cache = self.model.prefill(

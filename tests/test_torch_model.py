@@ -2,10 +2,17 @@
 numpy weights and tokens, on the CPU, at the reduced configs.
 
 Tolerance 1e-4 max abs on fp32 logits: the two CPU paths reduce in
-different orders (matmul blocking, online vs one-pass softmax). MoE configs
-route discretely, so their tests first check that no router choice in the
-port's run sits within ROUTER_MARGIN of a tie: a choice that flips between
-the two packages would fail as a router near-tie, not as a float error.
+different orders (matmul blocking, online vs one-pass softmax, chunked vs
+associative scans). MoE configs route discretely, so their tests first
+check that no router choice in the port's run sits within ROUTER_MARGIN of
+a tie: a choice that flips between the two packages would fail as a router
+near-tie, not as a float error.
+
+Jamba is reduced to the first 4 layers of its period, the prefix that
+chip_smoke.py serves at full width (Mamba with a dense MLP, Mamba with MoE,
+Mamba with a dense MLP, attention with MoE: every layer kind it has), with
+capacity_factor=16 as in tests/test_models_smoke.py so prefill and decode
+drop no token.
 """
 import dataclasses
 
@@ -25,6 +32,8 @@ TOL = 1e-4
 ROUTER_MARGIN = 1e-5     # >> the ~1e-7 the packages' router probs differ by
 PARITY_ARCHS = ["qwen2-1.5b", "internlm2-1.8b", "gemma2-27b", "minitron-4b"]
 MOE_ARCHS = ["granite-moe-1b-a400m", "kimi-k2-1t-a32b"]
+RECURRENT_ARCHS = ["rwkv6-1.6b", "jamba-1.5-large-398b"]
+PREFILL_LENS = (40, 23)   # prompt lengths of the slot-cache tests
 # the JAX entry points, jitted (config static): one compile per shape
 j_forward = jax.jit(lambda cfg, p, t: JT.forward(cfg, p, t)[0],
                     static_argnums=0)
@@ -58,9 +67,19 @@ def _numpy_params(cfg, seed):
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
+def _reduced(cfg):
+    """``cfg.reduced()``; jamba also cut to the first 4 layers of its period
+    (see the module docstring)."""
+    if cfg.name.startswith("jamba"):
+        period = cfg.groups[0][0]
+        return dataclasses.replace(cfg.reduced(), groups=((period[:4], 1),),
+                                   capacity_factor=16.0)
+    return cfg.reduced()
+
+
 def _both(arch, seed=0):
-    cfg_j = jax_get_config(arch).reduced()
-    cfg_t = get_config(arch).reduced()
+    cfg_j = _reduced(jax_get_config(arch))
+    cfg_t = _reduced(get_config(arch))
     np_params = _numpy_params(cfg_j, seed)
     params_j = jax.tree.map(jnp.asarray, np_params)
     model = T.from_jax_params(cfg_t, np_params, device="cpu")
@@ -93,7 +112,7 @@ def _check_routes(cfg, margins):
             f"router near-tie: margins {sorted(margins)[:3]}"
 
 
-@pytest.mark.parametrize("arch", PARITY_ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", PARITY_ARCHS + MOE_ARCHS + RECURRENT_ARCHS)
 def test_forward_logits_match_jax(arch, router_margins):
     cfg_j, cfg_t, params_j, model = _both(arch)
     rng = np.random.default_rng(1)
@@ -106,19 +125,25 @@ def test_forward_logits_match_jax(arch, router_margins):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "internlm2-1.8b",
-                                  "gemma2-27b", "granite-moe-1b-a400m"])
+                                  "gemma2-27b", "granite-moe-1b-a400m"]
+                         + RECURRENT_ARCHS)
 def test_prefill_then_decode_matches_jax(arch, router_margins):
     """Two sequences prefilled one by one into a slot cache, the second
     cut to fewer tokens (causal prefill makes its first 23 positions those
     of a 23-token prompt), then three committed decode steps on fixed
-    tokens. gemma2's local layers cross their 32-token window."""
+    tokens. gemma2's local layers cross their 32-token window. A recurrent
+    state holds every token it was given, so configs with Mamba or RWKV
+    layers prefill each prompt at its exact length instead. Every cache
+    leaf, K/V and recurrent states alike, must match at the end."""
     cfg_j, cfg_t, params_j, model = _both(arch, seed=2)
     rng = np.random.default_rng(3)
-    lens, max_seq, steps = [40, 23], 48, 3
+    lens, max_seq, steps = list(PREFILL_LENS), 48, 3
     cache_j, _ = JT.init_cache(cfg_j, 2, max_seq)
     cache_t = T.init_cache(cfg_t, 2, max_seq, device="cpu")
     for slot, L in enumerate(lens):
         prompt = rng.integers(0, cfg_j.vocab_size, size=(1, max(lens)))
+        if T.is_recurrent(cfg_t):
+            prompt = prompt[:, :L]
         lj, pf_j = j_prefill(cfg_j, params_j, jnp.asarray(prompt))
         lt, pf_t = model.prefill(torch.from_numpy(prompt))
         _check_routes(cfg_t, router_margins)
@@ -136,21 +161,27 @@ def test_prefill_then_decode_matches_jax(arch, router_margins):
         _check_routes(cfg_t, router_margins)
         assert _err(lt, lj) < TOL
         lengths = lengths + 1
-    k_j = np.asarray(cache_j["g0"][0]["mixer"]["k"])
-    assert _err(cache_t["g0"][0]["mixer"]["k"], k_j) < TOL
+    for gi in range(len(cfg_t.groups)):
+        for li, layer in enumerate(cache_t[f"g{gi}"]):
+            leaves_j = cache_j[f"g{gi}"][li]["mixer"]
+            assert set(layer["mixer"]) == set(leaves_j)
+            for name, leaf in layer["mixer"].items():
+                assert _err(leaf, np.asarray(leaves_j[name])) < TOL, \
+                    (gi, li, name)
 
 
 def test_param_names_and_count_match_jax():
-    for arch in PARITY_ARCHS + ["granite-moe-1b-a400m"]:
+    for arch in PARITY_ARCHS + ["granite-moe-1b-a400m"] + RECURRENT_ARCHS:
         assert get_config(arch).param_count() == \
             jax_get_config(arch).param_count(), arch
     granite = "granite-moe-1b-a400m"
     assert get_config(granite).active_param_count() == \
         jax_get_config(granite).active_param_count()
-    for arch in ("gemma2-27b", granite):      # bf16: the router stays fp32
-        cfg = dataclasses.replace(get_config(arch).reduced(),
+    # bf16: the router and the recurrent layers' constants stay fp32
+    for arch in ("gemma2-27b", granite) + tuple(RECURRENT_ARCHS):
+        cfg = dataclasses.replace(_reduced(get_config(arch)),
                                   param_dtype="bfloat16")
-        cfg_j = dataclasses.replace(jax_get_config(arch).reduced(),
+        cfg_j = dataclasses.replace(_reduced(jax_get_config(arch)),
                                     param_dtype="bfloat16")
         shapes = jax.eval_shape(
             lambda c=cfg_j: JT.init_params(c, jax.random.PRNGKey(0)))
@@ -167,7 +198,7 @@ def test_param_names_and_count_match_jax():
 
 
 def test_unported_configs_raise():
-    ported = set(PARITY_ARCHS + MOE_ARCHS)
+    ported = set(PARITY_ARCHS + MOE_ARCHS + RECURRENT_ARCHS)
     for arch in list_archs():
         if arch in ported:
             continue
@@ -182,6 +213,17 @@ def test_unported_configs_raise():
     with pytest.raises(ValueError):             # past the cache's capacity
         model.decode_step(cache, torch.zeros(1, dtype=torch.int64),
                           torch.tensor([16]))
+    # attention-free: no capacity to pass, but lengths stay non-negative
+    cfg = get_config("rwkv6-1.6b").reduced()
+    model = T.Transformer(cfg, device="cpu")
+    cache = T.init_cache(cfg, 1, 16, device="cpu")
+    logits, _ = model.decode_step(cache, torch.zeros(1, dtype=torch.int64),
+                                  torch.tensor([16]))
+    assert logits.shape == (1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError):
+        model.decode_step(cache, torch.zeros(1, dtype=torch.int64),
+                          torch.tensor([-1]))
 
 
 def test_model_defaults_to_cuda(monkeypatch):

@@ -22,6 +22,9 @@ from repro_torch.configs import get_config
 from repro_torch.models import transformer as T
 from repro_torch.serving import (BlockManager, EngineConfig, OutOfBlocks,
                                  Request, ServingEngine)
+# the reduced configs and the jitted JAX model entry points of the model
+# tests: the same config, shapes and jitted functions share XLA compiles
+from test_torch_model import PREFILL_LENS, _reduced, j_decode, j_prefill
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -29,7 +32,7 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 @functools.cache
 def _models(arch):
     """Reduced ``arch`` with numpy-drawn weights, in both packages."""
-    cfg_j = jax_get_config(arch).reduced()
+    cfg_j = _reduced(jax_get_config(arch))
     rng = np.random.default_rng(7)
     shapes = jax.eval_shape(lambda: JT.init_params(cfg_j,
                                                    jax.random.PRNGKey(0)))
@@ -41,7 +44,7 @@ def _models(arch):
         return 0.3 * x
 
     np_params = jax.tree_util.tree_map_with_path(draw, shapes)
-    cfg_t = get_config(arch).reduced()
+    cfg_t = _reduced(get_config(arch))
     model = T.from_jax_params(cfg_t, np_params, device="cpu")
     return cfg_j, jax.tree.map(jnp.asarray, np_params), cfg_t, model
 
@@ -51,10 +54,9 @@ def models():
     return _models("internlm2-1.8b")
 
 
-def _prompts(vocab):
+def _prompts(vocab, lens=(5, 9, 13, 7)):
     rng = np.random.default_rng(0)
-    return [list(map(int, rng.integers(1, vocab, size=L)))
-            for L in (5, 9, 13, 7)]
+    return [list(map(int, rng.integers(1, vocab, size=L))) for L in lens]
 
 
 def test_engine_greedy_matches_jax_engine():
@@ -83,6 +85,67 @@ def test_engine_greedy_matches_jax_engine():
         assert eng_t.blocks.n_used == 0
         eng_t.blocks.check_invariants()
         assert eng_t.prefills == 4
+
+
+def _jax_exact_prefill_greedy(cfg, params, prompts, max_batch, max_seq,
+                              new_tokens):
+    """The JAX model driven at the model level, as the port's engine drives
+    its own when all prompts fit the first step: each prompt prefilled at
+    its exact length into its slot, then committed decode steps over the
+    whole slot batch, greedy. (The JAX engine pads prompts to a power of
+    two, and its recurrent states then absorb the pad tokens: ROADMAP
+    C-ref-4.)"""
+    cache, _ = JT.init_cache(cfg, max_batch, max_seq)
+    lengths = np.zeros(max_batch, np.int32)
+    toks = np.zeros(max_batch, np.int32)
+    out = []
+    for slot, p in enumerate(prompts):
+        logits, pf = j_prefill(cfg, params, jnp.asarray([p], jnp.int32))
+        cache = JT.cache_insert(cfg, cache, pf, slot, len(p))
+        out.append([int(jnp.argmax(logits[0, -1]))])
+        lengths[slot] = len(p)
+    for _ in range(new_tokens - 1):
+        toks[:len(out)] = [g[-1] for g in out]
+        logits, cache = j_decode(cfg, params, cache, jnp.asarray(toks),
+                                 jnp.asarray(lengths))
+        for slot, g in enumerate(out):
+            g.append(int(jnp.argmax(logits[slot])))
+        lengths[:len(out)] += 1
+    return out
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b"])
+def test_engine_prefills_recurrent_configs_at_exact_length(arch,
+                                                           monkeypatch):
+    """Configs with Mamba or RWKV layers: the port's engine prefills each
+    prompt unpadded and matches the JAX model's exact-length prefill and
+    committed decode on the same slot batch, token for token. The prompt
+    lengths (40 and 23, neither a power of two, so the JAX engine would pad
+    both) and the slot batch (2 x 48) are those of
+    test_torch_model.py::test_prefill_then_decode_matches_jax, so the JAX
+    side reuses its compiles."""
+    cfg_j, params_j, cfg_t, model = _models(arch)
+    prompts = _prompts(cfg_j.vocab_size, PREFILL_LENS)
+    batch, max_seq, new = len(prompts), 48, 6
+    want = _jax_exact_prefill_greedy(cfg_j, params_j, prompts, batch,
+                                     max_seq, new)
+    prefill_lens = []
+    prefill = model.prefill
+
+    def spy(tokens, **kw):
+        prefill_lens.append(tokens.shape[1])
+        return prefill(tokens, **kw)
+
+    monkeypatch.setattr(model, "prefill", spy)
+    eng = ServingEngine(cfg_t, model,
+                        EngineConfig(max_batch=batch, max_seq=max_seq),
+                        device="cpu")
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=new))
+    done = {r.rid: r.generated for r in eng.run()}
+    assert prefill_lens == list(PREFILL_LENS)
+    assert [done[i] for i in range(len(prompts))] == want
+    assert eng.decodes == new - 1 and eng.blocks.n_used == 0
 
 
 def test_engine_rejects_too_long_and_batches_continuously(models):
@@ -158,9 +221,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
+        "print(' '.join(n for n in sys.modules if n.startswith('repro_torch')))\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env={"PYTHONPATH": str(SRC),
                                           "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout) >= 14      # every module was imported
+    imported = set(proc.stdout.split())
+    assert len(imported) >= 22         # every module was imported
+    assert {"repro_torch.models.ssm", "repro_torch.kernels.rwkv6_scan",
+            "repro_torch.kernels.ssm_scan"} <= imported
