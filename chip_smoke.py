@@ -6,7 +6,9 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (nothing is caught):
-  1. build   — compiles src/repro_torch/kernels/csrc/*.cu for sm_90a.
+  1. build   — compiles src/repro_torch/kernels/csrc/*.cu for sm_90a and
+               counts the tensor-core instructions in the library's SASS
+               (cuobjdump): the bf16 prefill kernels must have them.
   2. kernels — each CUDA kernel against its plain PyTorch version on the
                card. Attention: the tests/test_kernels.py shape sweep in
                fp32 and bf16, window/softcap and ragged cases, and both
@@ -19,8 +21,11 @@ Phases, each of which raises on failure (nothing is caught):
                shapes, full-width prefill (rwkv6-1.6b: H=32, K=64; jamba:
                Din=16384, N=16; T=1024) and the decode batch (B=8, T=1,
                also against the single-step versions), fp32 and bf16,
-               against the sequential oracles. Times with CUDA events and
-               torch.profiler.
+               against the sequential oracles. The attention sweeps also
+               hold the split-KV decode at its edges (G = 16, lengths 0
+               and 1, a window under one split, int64 and int32 lengths)
+               and the prefill at Sq = Skv = 64 k + 1 with a window under
+               one tile. Times with CUDA events and torch.profiler.
   3. serving — qwen2-1.5b, granite-moe-1b-a400m and rwkv6-1.6b at full
                width and depth, then jamba-1.5-large at full width on the
                first 4 layers of its period (bf16, seeded random weights)
@@ -48,6 +53,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -145,6 +151,30 @@ def main() -> int:
                 or line.startswith("=="):
             print(f"  {line.strip()}")
 
+    # tensor-core instructions per kernel in the built library's SASS
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass_mma = {}
+    if Path(cuobjdump).exists():
+        sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+            elif fn and "*/" in line and "MMA" in line:
+                op = line.split("*/", 1)[1].split()[0]
+                if op.rstrip(";").split(".")[0] in ("HMMA", "HGMMA"):
+                    ops_fn = sass_mma.setdefault(fn, {})
+                    ops_fn[op] = ops_fn.get(op, 0) + 1
+        tc = {f: o for f, o in sass_mma.items() if "flash_tc_kernel" in f}
+        if len(tc) != len(fa.HEAD_DIMS):
+            raise AssertionError(f"bf16 flash kernels without tensor-core "
+                                 f"instructions in their SASS: {sass_mma}")
+        print(f"sass: tensor-core instructions {json.dumps(sass_mma)}")
+    else:
+        print("sass: not measured (no cuobjdump)")
+
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rnd(shape, dtype):
@@ -211,6 +241,9 @@ def main() -> int:
         (2, 100, 160, 4, 2, 128, True, 48, 50.0),
         (1, 96, 136, 4, 2, 64, False, None, None),
         (1, 8, 8, 12, 2, 128, True, None, None),       # smallest padded
+        (1, 193, 193, 12, 2, 128, True, None, None),   # 64 k + 1: one row
+        (2, 129, 129, 4, 2, 64, True, 24, 30.0),       # window < one tile
+        (1, 257, 257, 8, 2, 128, True, 40, 50.0),
         (1, 1024, 1024, 12, 2, 128, True, None, None),  # qwen2 serving
         (1, 1024, 1024, 16, 8, 64, True, None, None),   # granite serving
         (1, 1000, 1000, 16, 8, 64, True, None, None),   # granite path
@@ -229,31 +262,43 @@ def main() -> int:
                   (B, Sq, Skv, H, KVH, Dh, causal, window, cap))
             n_flash += 1
 
-    decode_cases = [  # B, S, H, KVH, Dh, window, softcap
-        (2, 512, 8, 2, 64, None, None),                 # tests/test_kernels
-        (1, 256, 4, 4, 128, None, 30.0),
-        (2, 512, 4, 2, 64, 128, None),
-        (3, 256, 16, 2, 64, None, None),
-        (8, 2048, 12, 2, 128, 256, 50.0),
-        (8, 2048, 12, 2, 128, None, None),              # qwen2 serving
-        (8, 2048, 16, 8, 64, None, None),               # granite serving
-        (8, 2048, 64, 8, 128, None, None),              # jamba serving
+    decode_cases = [  # B, S, H, KVH, Dh, window, softcap, lengths
+        (2, 512, 8, 2, 64, None, None, None),           # tests/test_kernels
+        (1, 256, 4, 4, 128, None, 30.0, None),
+        (2, 512, 4, 2, 64, 128, None, None),
+        (3, 256, 16, 2, 64, None, None, None),
+        (8, 2048, 12, 2, 128, 256, 50.0, None),
+        (8, 2048, 12, 2, 128, None, None, None),        # qwen2 serving
+        (8, 2048, 16, 8, 64, None, None, None),         # granite serving
+        (8, 2048, 64, 8, 128, None, None, None),        # jamba serving
+        (4, 2048, 32, 2, 128, None, None, None),        # G = 16 (MAX_GROUP)
+        (4, 2048, 32, 2, 64, 40, 30.0, None),
+        (8, 2048, 12, 2, 128, None, None, [1] * 8),     # one split not empty
+        (4, 2048, 12, 2, 128, None, None, [2048, 0, 700, 1]),   # a zero row
+        (8, 2048, 12, 2, 128, 50, 30.0, None),          # window < one split
+        (3, 300, 12, 2, 128, 64, None, [300, 0, 129]),  # ragged last tile
     ]
     n_decode = 0
     lrng = np.random.default_rng(1)
     for dtype in (torch.float32, torch.bfloat16):
-        for B, S, H, KVH, Dh, window, cap in decode_cases:
+        for B, S, H, KVH, Dh, window, cap, lens in decode_cases:
             q = rnd((B, H, Dh), dtype)
             kc, vc = rnd((B, S, KVH, Dh), dtype), rnd((B, S, KVH, Dh), dtype)
-            lens = lrng.integers(1, S + 1, size=B)
-            lens[0], lens[-1] = 1, S                     # both extremes
-            lens = torch.from_numpy(lens).to(dev)
+            if lens is None:
+                lens = lrng.integers(1, S + 1, size=B)
+                lens[0], lens[-1] = 1, S                 # both extremes
             kw = dict(window=window, softcap=cap)
-            check("decode_attention", dtype,
-                  ops.decode_attention(q, kc, vc, lens, impl="cuda", **kw),
-                  ops.decode_attention(q, kc, vc, lens, impl="plain", **kw),
-                  (B, S, H, KVH, Dh, window, cap))
-            n_decode += 1
+            # lengths as the engine hands them over (int64) and as int32
+            for ldt in (torch.int64, torch.int32):
+                ln = torch.tensor(lens, dtype=ldt, device=dev)
+                got = ops.decode_attention(q, kc, vc, ln, impl="cuda", **kw)
+                check("decode_attention", dtype, got,
+                      ops.decode_attention(q, kc, vc, ln, impl="plain", **kw),
+                      (B, S, H, KVH, Dh, window, cap, str(ldt)))
+                if bool((got[ln == 0] != 0).any()):
+                    raise AssertionError(f"decode_attention {B, S, H} "
+                                         "lengths 0: output not zero")
+                n_decode += 1
 
     gating_cases = [  # T, E, k
         (100, 32, 4), (64, 8, 3), (257, 384, 8),        # tests/test_kernels
@@ -384,6 +429,15 @@ def main() -> int:
     pf_bytes = 2 * (2 * S_pf * H * Dh + 2 * S_pf * KVH * Dh)
     pf_bound = {"operations": pf_flops / PEAK_BF16_FLOPS * 1e3,
                 "bytes": pf_bytes / PEAK_BYTES * 1e3}
+    # ms: device time per call (torch.profiler); call_ms: per call as CUDA
+    # events see it back to back, the wrapper's host time included. plain_ms
+    # and library_ms are CUDA-event times, as in earlier runs.
+    def flash_kernel(a, b, c):
+        return ops.flash_attention(a, b, c, impl="cuda")
+
+    def sdpa_causal(a, b, c):
+        return sdpa(a, b, c, is_causal=True)
+
     flash_row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -391,16 +445,18 @@ def main() -> int:
         "tpu_kernel": "src/repro/kernels/flash_attention.py:92",
         "shape": "B=1 Sq=Skv=1024 H=12 KVH=2 Dh=128 bf16 causal",
         "max_abs_err": flash_err, "tol": TOL["bfloat16"],
-        "ms": time_ms(lambda a, b, c: ops.flash_attention(
-            a, b, c, impl="cuda"), pf_sets),
+        "ms": device_ms(flash_kernel, pf_sets),
+        "call_ms": time_ms(flash_kernel, pf_sets),
         "plain_ms": time_ms(lambda a, b, c: ops.flash_attention(
             a, b, c, impl="plain"), pf_sets, iters=10),
-        "library_ms": time_ms(lambda a, b, c: sdpa(a, b, c, is_causal=True),
-                              lib_sets),
+        "library_ms": time_ms(sdpa_causal, lib_sets),
+        "library_device_ms": device_ms(sdpa_causal, lib_sets),
         "library_max_abs_err": lib_err,
         "bound_ms": max(pf_bound.values()),
         "bound_by": max(pf_bound, key=pf_bound.get),
         "flops": pf_flops, "bytes": pf_bytes,
+        "block_q": fa.BLOCK_Q,
+        "blocks": H * -(-S_pf // fa.BLOCK_Q),
     }
 
     d_lens = torch.from_numpy(
@@ -426,25 +482,60 @@ def main() -> int:
     d_flops = 4 * live * H * Dh
     d_bound = {"bytes": d_bytes / PEAK_BYTES * 1e3,
                "operations": d_flops / PEAK_BF16_FLOPS * 1e3}
+    def decode_kernel(a, b, c, ln):
+        return ops.decode_attention(a, b, c, ln, impl="cuda")
+
+    def sdpa_masked(a, b, c, m):
+        return sdpa(a, b, c, attn_mask=m)
+
+    n_splits = da.plan_splits(B_D, KVH, S_D,
+                              torch.cuda.get_device_properties(dev)
+                              .multi_processor_count)
     decode_row = {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:76",
         "tpu_kernel": "src/repro/kernels/decode_attention.py:76",
         "shape": f"B=8 S=2048 H=12 KVH=2 Dh=128 bf16 lengths "
-                 f"{d_lens.tolist()}",
+                 f"{d_lens.tolist()} ({d_lens.dtype})",
         "max_abs_err": decode_err, "tol": TOL["bfloat16"],
-        "ms": time_ms(lambda a, b, c, ln: ops.decode_attention(
-            a, b, c, ln, impl="cuda"), d_sets),
+        "ms": device_ms(decode_kernel, d_sets),
+        "call_ms": time_ms(decode_kernel, d_sets),
         "plain_ms": time_ms(lambda a, b, c, ln: ops.decode_attention(
             a, b, c, ln, impl="plain"), d_sets),
-        "library_ms": time_ms(lambda a, b, c, m: sdpa(a, b, c, attn_mask=m),
-                              dlib_sets),
+        "library_ms": time_ms(sdpa_masked, dlib_sets),
+        "library_device_ms": device_ms(sdpa_masked, dlib_sets),
         "library_max_abs_err": lib_err,
         "bound_ms": max(d_bound.values()),
         "bound_by": max(d_bound, key=d_bound.get),
-        "flops": d_flops, "bytes": d_bytes, "blocks": B_D * KVH,
+        "flops": d_flops, "bytes": d_bytes,
+        "n_splits": n_splits, "blocks": n_splits * B_D * KVH,
+        "combine_blocks": B_D * H,
     }
+    # device ms of the decode kernels against the split count, at the
+    # serving decode shapes of qwen2, granite and jamba (the wrapper's
+    # choice is marked)
+    split_sweep = {}
+    for Hs, KVHs, Dhs in ((H, KVH, Dh), (16, 8, 64), (64, 8, 128)):
+        sets = [(rnd((B_D, Hs, Dhs), bf16), rnd((B_D, S_D, KVHs, Dhs), bf16),
+                 rnd((B_D, S_D, KVHs, Dhs), bf16), d_lens) for _ in range(4)]
+        planned = da.plan_splits(B_D, KVHs, S_D, torch.cuda
+                                 .get_device_properties(dev)
+                                 .multi_processor_count)
+        split_sweep[f"H={Hs} KVH={KVHs} Dh={Dhs}"] = {
+            f"{n}{'*' if n == planned else ''}": device_ms(
+                lambda a, b, c, ln, n=n: da.decode_attention(
+                    a, b, c, ln, n_splits=n), sets)
+            for n in sorted({planned, 2, 4, 8, 16, 32})}
+        del sets
+    print(f"decode split sweep (device ms; * = planned): "
+          f"{json.dumps(split_sweep)}")
+    print(f"attention timing: flash {flash_row['blocks']} blocks of "
+          f"BQ={fa.BLOCK_Q}, device {flash_row['ms']:.5f} ms, call "
+          f"{flash_row['call_ms']:.5f} ms, SDPA {flash_row['library_ms']:.5f}"
+          f" ms; decode {n_splits} splits, {decode_row['blocks']} blocks, "
+          f"device {decode_row['ms']:.5f} ms, call {decode_row['call_ms']:.5f}"
+          f" ms, SDPA + mask {decode_row['library_ms']:.5f} ms")
     del pf_sets, lib_sets, d_sets, dlib_sets
 
     def library_gating(lg, k):

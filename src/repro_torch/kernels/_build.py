@@ -34,10 +34,10 @@ SIGNATURES = {
     # scale, stream
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _F, _F, _P),
-    # q, k_cache, v_cache, lengths, o, B, S, H, KVH, Dh, dtype, window,
-    # softcap, scale, stream
-    "repro_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _F, _F, _P),
+    # q, k_cache, v_cache, lengths, o, partials, B, S, H, KVH, Dh, dtype,
+    # lengths dtype, n_splits, window, softcap, scale, stream
+    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _F, _F, _P),
     # logits, weights, ids, T, E, k, stream
     "repro_moe_gating": (_P, _P, _P, _I, _I, _I, _P),
     # r, k, v, w, u, s0, out, sT, B, T, H, K, dtype, stream

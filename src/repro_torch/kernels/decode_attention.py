@@ -1,30 +1,55 @@
-"""Wrapper of the CUDA decode attention kernel (``csrc/decode_attention.cu``),
-the port of ``repro/kernels/decode_attention.py::decode_attention``.
+"""Wrapper of the CUDA split-KV decode attention kernels
+(``csrc/decode_attention.cu``), the port of
+``repro/kernels/decode_attention.py::decode_attention``.
 
 Takes CUDA tensors only; ``ops.decode_attention`` sends CPU tensors to the
-plain version (``ref.decode_attention_direct``). ``launches`` counts the
-kernel's launches and nothing else.
+plain version (``ref.decode_attention_direct``; ``ref.decode_attention_split``
+mirrors the kernels' split and combine). One call launches the split pass
+and the combine pass; ``launches`` counts such calls and nothing else.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from . import _build
 from .flash_attention import DTYPE_CODES, HEAD_DIMS
+from .ref import DECODE_SPLIT_TILE
 
 MAX_GROUP = 16      # query heads per kv head (csrc MAX_G)
+LENGTH_CODES = {torch.int32: 0, torch.int64: 1}
+BLOCKS_PER_SM = 4   # split-pass blocks the split count aims for, per SM
 
 launches = 0
+
+
+def plan_splits(B: int, KVH: int, S: int, sm_count: int) -> int:
+    """Number of kv splits for a (B, KVH) grid over a cache of S rows:
+    about ``BLOCKS_PER_SM * sm_count`` blocks in all, each split a whole
+    number of ``DECODE_SPLIT_TILE`` rows, and no split that starts past S.
+    A function of the shapes and the card only: never of the lengths, whose
+    reading would make the host wait on the device."""
+    tiles = max(1, -(-S // DECODE_SPLIT_TILE))
+    want = max(1, -(-BLOCKS_PER_SM * sm_count // max(1, B * KVH)))
+    per_split = -(-tiles // min(want, tiles))
+    return -(-tiles // per_split)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
                      window: Optional[int] = None,
-                     softcap: Optional[float] = None) -> torch.Tensor:
-    """q: (B, H, Dh); cache (B, S, KVH, Dh); lengths (B,) cache lengths with
-    the new token already written -> (B, H, Dh)."""
+                     softcap: Optional[float] = None,
+                     n_splits: Optional[int] = None) -> torch.Tensor:
+    """q: (B, H, Dh); cache (B, S, KVH, Dh); lengths (B,) int32 or int64
+    cache lengths with the new token already written -> (B, H, Dh).
+    ``n_splits`` overrides ``plan_splits`` (chip_smoke.py sweeps it)."""
     global launches
     B, H, Dh = q.shape
     if k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
@@ -38,6 +63,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             f"got H={H}, KVH={KVH}")
     if lengths.shape != (B,):
         raise ValueError(f"lengths shape {tuple(lengths.shape)} != ({B},)")
+    if lengths.dtype not in LENGTH_CODES:
+        raise ValueError(f"lengths must be int32 or int64, got "
+                         f"{lengths.dtype}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("lengths", lengths)):
         if not t.is_cuda or t.device != q.device:
@@ -49,6 +77,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              "aligned")
+    if not lengths.is_contiguous():
+        raise ValueError("lengths must be contiguous")
     if q.dtype not in DTYPE_CODES:
         raise NotImplementedError(f"decode_attention kernel dtype {q.dtype}")
     if Dh not in HEAD_DIMS:
@@ -58,17 +88,24 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
-    lens = lengths.to(torch.int32).contiguous()
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o
+    if n_splits is None:
+        n_splits = plan_splits(B, KVH, S, _sm_count(q.device.index))
+    elif n_splits < 1:
+        raise ValueError(f"n_splits must be >= 1, got {n_splits}")
+    # per (b, h, split): m, l, then o (Dh) — fp32 scratch of the two passes
+    partials = torch.empty(B * H * n_splits * (Dh + 2), dtype=torch.float32,
+                           device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lens.data_ptr(), o.data_ptr(), B, S, H, KVH, Dh,
-            DTYPE_CODES[q.dtype], -1 if window is None else int(window),
+            lengths.data_ptr(), o.data_ptr(), partials.data_ptr(), B, S, H,
+            KVH, Dh, DTYPE_CODES[q.dtype], LENGTH_CODES[lengths.dtype],
+            n_splits, -1 if window is None else int(window),
             0.0 if softcap is None else float(softcap), Dh ** -0.5, stream)
     _build.check(err, "decode_attention launch")
     launches += 1

@@ -1,9 +1,11 @@
 """Wrapper of the CUDA prefill attention kernel (``csrc/flash_attention.cu``),
 the port of ``repro/kernels/flash_attention.py::flash_attention``.
 
-Takes CUDA tensors only; ``ops.flash_attention`` sends CPU tensors to the
-plain version (``ref.blockwise_attention``). ``launches`` counts the
-kernel's launches and nothing else.
+bf16 runs on the tensor cores (wgmma); fp32 keeps an fp32-FMA kernel,
+since TF32 products cannot meet the fp32 tolerance. Takes CUDA tensors
+only; ``ops.flash_attention`` sends CPU tensors to the plain version
+(``ref.blockwise_attention``). ``launches`` counts the kernel's launches
+and nothing else.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from . import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
+BLOCK_Q = 64        # query rows per block (csrc BQ, both dtypes)
 
 launches = 0
 

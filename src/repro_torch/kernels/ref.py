@@ -178,6 +178,60 @@ def decode_attention_direct(q, k_cache, v_cache, lengths, *,
     return out.reshape(B, H, Dh).to(q.dtype)
 
 
+# kv rows per split-pass step of the CUDA decode kernel (csrc TILE): a
+# split's chunk is a whole number of them
+DECODE_SPLIT_TILE = 128
+
+
+def split_chunk(S: int, n_splits: int, tile: int = DECODE_SPLIT_TILE) -> int:
+    """Rows per kv split: ceil(S / n_splits) rounded up to ``tile``, as the
+    CUDA decode kernel cuts the cache."""
+    return -(-(-(-S // n_splits)) // tile) * tile
+
+
+def decode_attention_split(q, k_cache, v_cache, lengths, *, n_splits: int,
+                           window: Optional[int] = None,
+                           softcap: Optional[float] = None,
+                           tile: int = DECODE_SPLIT_TILE) -> torch.Tensor:
+    """Split-KV decode as the CUDA kernel does it, in fp32: the cache is cut
+    into ``n_splits`` chunks of ``split_chunk(S, n_splits, tile)`` rows; each
+    chunk gives a partial (m, l, o) of its kept keys (an empty chunk gives
+    m = NEG_INF, l = 0, o = 0); the combine rescales each partial by
+    exp(m_s - m), skips empty ones through the m_safe guard and divides by
+    max(l, 1e-30). Used by the tests, which cannot run the CUDA combine."""
+    B, H, Dh = q.shape
+    _, S, KVH, _ = k_cache.shape
+    G = H // KVH
+    chunk = split_chunk(S, n_splits, tile)
+    qf = q.float().reshape(B, KVH, G, Dh) * (Dh ** -0.5)
+    s = torch.einsum("bhgd,bshd->bhgs", qf, k_cache.float())
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    k_pos = torch.arange(S, device=q.device)
+    lens = lengths.to(q.device).long().clamp(0, S)[:, None]
+    valid = k_pos[None] < lens
+    if window is not None:
+        valid &= k_pos[None] >= lens - window
+    vf = v_cache.float()
+    parts = []
+    for i in range(n_splits):
+        keep = (valid & (k_pos[None] // chunk == i))[:, None, None]
+        s_i = torch.where(keep, s, NEG_INF)
+        m_i = s_i.amax(dim=-1)
+        m_safe = torch.where(m_i <= NEG_INF / 2, 0.0, m_i)
+        p = torch.where(keep, torch.exp(s_i - m_safe[..., None]), 0.0)
+        parts.append((m_i, p.sum(dim=-1),
+                      torch.einsum("bhgs,bshd->bhgd", p, vf)))
+    m_s = torch.stack([m for m, _, _ in parts])
+    m = m_s.amax(dim=0)
+    m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+    w = torch.where(m_s <= NEG_INF / 2, 0.0, torch.exp(m_s - m_safe))
+    l = (w * torch.stack([l for _, l, _ in parts])).sum(dim=0)
+    o = (w[..., None] * torch.stack([o for _, _, o in parts])).sum(dim=0)
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, H, Dh).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MoE top-k gating
 # ---------------------------------------------------------------------------

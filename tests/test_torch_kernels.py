@@ -92,12 +92,16 @@ def test_plain_blockwise_matches_jax_blockwise(Sq, Skv, causal, lens):
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("B,S,H,KVH,Dh,win,cap", [
+_DECODE_SHAPES = [
     (2, 256, 8, 2, 64, None, None),
     (1, 256, 4, 4, 128, None, 30.0),
     (2, 256, 4, 2, 64, 64, None),
     (1, 256, 16, 2, 64, 32, 50.0),
-])
+]
+
+
+
+@pytest.mark.parametrize("B,S,H,KVH,Dh,win,cap", _DECODE_SHAPES)
 def test_plain_decode_matches_jax_kernel(B, S, H, KVH, Dh, win, cap):
     rng = np.random.default_rng(S + H)
     q = _normal(rng, (B, H, Dh))
@@ -115,6 +119,65 @@ def test_plain_decode_matches_jax_kernel(B, S, H, KVH, Dh, win, cap):
     assert _err(o_plain, o_jax) < TOL
     assert _err(o_plain, o_direct) < TOL
     assert _err(o_naive, o_oracle) < TOL
+
+
+@pytest.mark.parametrize("n_splits,tile", [
+    (1, 128),       # one split: the whole cache
+    (3, 128),       # the kernel's tile: 2 chunks of 128 rows, 1 empty split
+    (3, 32),        # three chunks of 96 rows
+    (12, 32),       # more splits than the 8 kv tiles: 4 empty splits
+])
+@pytest.mark.parametrize("B,S,H,KVH,Dh,win,cap", _DECODE_SHAPES)
+def test_split_decode_mirror_matches_jax(B, S, H, KVH, Dh, win, cap,
+                                         n_splits, tile):
+    """ref.decode_attention_split (the CUDA split + combine, in PyTorch) vs
+    the JAX kernel (interpret mode) and its naive oracle, with lengths 0, 1
+    and S. Shapes as test_plain_decode_matches_jax_kernel, so the JAX
+    functions compile no new shape."""
+    rng = np.random.default_rng(S + H)
+    q = _normal(rng, (B, H, Dh))
+    kc = _normal(rng, (B, S, KVH, Dh))
+    vc = _normal(rng, (B, S, KVH, Dh))
+    length_sets = ([[0, S], [1, S // 2 + 3]] if B == 2
+                   else [[0], [1], [S]])
+    for lens in length_sets:
+        lens = np.asarray(lens, np.int32)
+        jargs = tuple(map(jnp.asarray, (q, kc, vc, lens)))
+        o_jax = np.asarray(jax_decode(*jargs, window=win, softcap=cap,
+                                      interpret=True))
+        o_split = ref.decode_attention_split(
+            *map(torch.from_numpy, (q, kc, vc, lens)), n_splits=n_splits,
+            window=win, softcap=cap, tile=tile).numpy()
+        assert _err(o_split, o_jax) < TOL
+        assert not o_split[lens == 0].any()
+        # the naive oracle averages v over a fully masked row: compare the
+        # rows that attend to something
+        if (lens > 0).any():
+            o_oracle = np.asarray(j_decode_naive(*jargs, window=win,
+                                                 softcap=cap))
+            assert _err(o_split[lens > 0], o_oracle[lens > 0]) < TOL
+
+
+@pytest.mark.parametrize("B,KVH,S,sms,want", [
+    (8, 2, 2048, 132, 16),      # qwen2 serving: 16 chunks of 128 rows
+    (8, 8, 2048, 132, 8),       # granite / jamba: 8 chunks of 256 rows
+    (1, 1, 256, 132, 2),        # capped by the cache's tiles
+    (64, 8, 2048, 132, 2),      # the (b, kv head) grid nearly fills it
+    (128, 8, 2048, 132, 1),
+    (3, 2, 300, 132, 3),        # ragged last tile
+    (1, 2, 100, 16, 1),
+])
+def test_decode_split_plan(B, KVH, S, sms, want):
+    """The wrapper's split count, a function of shapes and SM count only:
+    each split a whole number of tiles, every row covered, no split wholly
+    past S, and about BLOCKS_PER_SM blocks per SM where the cache allows."""
+    n = da.plan_splits(B, KVH, S, sms)
+    chunk = ref.split_chunk(S, n)
+    assert n == want
+    assert chunk % ref.DECODE_SPLIT_TILE == 0
+    assert n * chunk >= S > (n - 1) * chunk
+    tiles = -(-S // ref.DECODE_SPLIT_TILE)
+    assert n * B * KVH >= min(da.BLOCKS_PER_SM * sms, tiles * B * KVH) // 2
 
 
 def test_plain_paths_zero_fully_masked_rows():
@@ -190,17 +253,33 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=cuda_device).to(dtype)
 
-    q, k, v = rnd(2, 200, 12, 128), rnd(2, 200, 2, 128), rnd(2, 200, 2, 128)
-    for window, cap in ((None, None), (64, 30.0)):
+    # flash: ragged 200, Sq = Skv = 64 k + 1, a window under one tile + cap
+    for S, window, cap in ((200, None, None), (200, 64, 30.0),
+                           (193, None, None), (193, 24, 30.0)):
+        q, k, v = rnd(2, S, 12, 128), rnd(2, S, 2, 128), rnd(2, S, 2, 128)
         o = ops.flash_attention(q, k, v, window=window, softcap=cap)
         o_ref = ops.flash_attention(q, k, v, window=window, softcap=cap,
                                     impl="plain")
         assert _err(o.float().cpu(), o_ref.float().cpu()) < tol
-    qd, kc, vc = rnd(3, 12, 128), rnd(3, 300, 2, 128), rnd(3, 300, 2, 128)
-    lens = torch.tensor([1, 150, 300], device=cuda_device)
-    for window, cap in ((None, None), (64, 30.0)):
-        o = ops.decode_attention(qd, kc, vc, lens, window=window,
-                                 softcap=cap)
-        o_ref = ops.decode_attention(qd, kc, vc, lens, window=window,
-                                     softcap=cap, impl="plain")
-        assert _err(o.float().cpu(), o_ref.float().cpu()) < tol
+    # decode: G 6 and 16, lengths 0 / 1 / S, a window under one split,
+    # int64 and int32 lengths; also against the split mirror
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for B, S, H, lens, window, cap in (
+            (3, 300, 12, [1, 150, 300], None, None),
+            (3, 300, 12, [1, 150, 300], 64, 30.0),
+            (4, 2048, 32, [2048, 0, 1000, 7], None, None),   # G = 16
+            (4, 2048, 12, [1, 1, 1, 1], None, None),  # one split not empty
+            (4, 2048, 12, [2048, 0, 1500, 129], 50, 30.0)):
+        qd, kc, vc = rnd(B, H, 128), rnd(B, S, 2, 128), rnd(B, S, 2, 128)
+        for ldt in (torch.int64, torch.int32):
+            ln = torch.tensor(lens, dtype=ldt, device=cuda_device)
+            o = ops.decode_attention(qd, kc, vc, ln, window=window,
+                                     softcap=cap)
+            o_ref = ops.decode_attention(qd, kc, vc, ln, window=window,
+                                         softcap=cap, impl="plain")
+            o_split = ref.decode_attention_split(
+                qd, kc, vc, ln, window=window, softcap=cap,
+                n_splits=da.plan_splits(B, 2, S, sms))
+            assert _err(o.float().cpu(), o_ref.float().cpu()) < tol
+            assert _err(o.float().cpu(), o_split.float().cpu()) < tol
+            assert not o[ln == 0].any()
