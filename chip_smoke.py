@@ -20,8 +20,13 @@ Phases, each of which raises on failure (nothing is caught):
                equal. WKV6 and Mamba scans: the tests/test_kernels.py
                shapes, full-width prefill (rwkv6-1.6b: H=32, K=64; jamba:
                Din=16384, N=16; T=1024) and the decode batch (B=8, T=1,
-               also against the single-step versions), fp32 and bf16,
-               against the sequential oracles. The attention sweeps also
+               also against the single-step versions and with the state
+               written in place), fp32 and bf16, against the sequential
+               oracles; rwkv6 also at the chunk edges T = c - 1, c, c + 1 of
+               every chunk size, T = 881, B = 8 at T = 200 and decays down to
+               ~e^-20; ssm also at N = 8 and 16 with Din = 16608 (not whole
+               blocks), T = 1023. A chunk sweep times rwkv6's chunk
+               sizes. The attention sweeps also
                hold the split-KV decode at its edges (G = 16, lengths 0
                and 1, a window under one split, int64 and int32 lengths)
                and the prefill at Sq = Skv = 64 k + 1 with a window under
@@ -328,12 +333,13 @@ def main() -> int:
         gating_err = max(gating_err, e)
     sweep["moe_gating"] = {"float32": gating_err}
 
-    def rwkv_inputs(B, Tn, H, K, dtype):
+    def rwkv_inputs(B, Tn, H, K, dtype, strong_decay=False):
         """tests/test_kernels.py::test_rwkv6_kernel's distributions; r/k/v
-        in ``dtype``, w/u/state fp32 as the model passes them."""
+        in ``dtype``, w/u/state fp32 as the model passes them.
+        ``strong_decay``: w = exp(-exp(N(0, 1) + 2)), down to ~e^-20."""
         r, k, v = (rnd((B, Tn, H, K), torch.float32) * 0.5 for _ in range(3))
-        w = torch.exp(-torch.exp(rnd((B, Tn, H, K), torch.float32) * 0.5
-                                 - 1))
+        z = rnd((B, Tn, H, K), torch.float32)
+        w = torch.exp(-torch.exp(z + 2 if strong_decay else z * 0.5 - 1))
         return (r.to(dtype), k.to(dtype), v.to(dtype), w,
                 rnd((H, K), torch.float32) * 0.3,
                 rnd((B, H, K, K), torch.float32) * 0.1)
@@ -369,21 +375,39 @@ def main() -> int:
 
     RWKV_PF, RWKV_DEC = (1, 1024, 32, 64), (B_D, 1, 32, 64)
     SSM_PF, SSM_DEC = (1, 1024, 16384, 16), (B_D, 1, 16384, 16)
-    rwkv_cases = [(2, 64, 2, 16), (1, 96, 4, 32), (2, 80, 2, 16),
-                  RWKV_PF, RWKV_DEC]
+    # rwkv6: (B, T, H, K, chunk or None for the plan, strong decay); the
+    # chunk edges T = c - 1, c, c + 1 of every chunk size, a served prompt
+    # length, a batch, and decays down to ~e^-20
+    rwkv_cases = [(2, 64, 2, 16, None, False), (1, 96, 4, 32, None, False),
+                  (2, 80, 2, 16, None, False), (*RWKV_PF, None, False),
+                  (*RWKV_DEC, None, False)]
+    rwkv_cases += [(1, T_, 32, 64, c, False) for c in rk.CHUNKS
+                   for T_ in (c - 1, c, c + 1)]
+    rwkv_cases += [(1, 881, 32, 64, None, False), (B_D, 200, 32, 64, None,
+                                                   False),
+                   (1, 300, 32, 64, None, True)]
+    # ssm: (B, T, Din, N); N = 8 and 16 at a Din that is not a whole
+    # number of blocks (16384 + 64 * 3 + 32) and T = 1023
     ssm_cases = [(2, 32, 64, 8), (1, 64, 128, 16), (2, 50, 32, 8),
-                 SSM_PF, SSM_DEC]
+                 SSM_PF, SSM_DEC, (1, 1023, 16608, 16), (1, 1023, 16608, 8)]
     for dtype in (torch.float32, torch.bfloat16):
-        for case in rwkv_cases:
-            args = rwkv_inputs(*case, dtype)
-            got = ops.rwkv6_scan(*args, impl="cuda")
+        for B_, T_, H_, K_, c, strong in rwkv_cases:
+            args = rwkv_inputs(B_, T_, H_, K_, dtype, strong_decay=strong)
+            case = (B_, T_, H_, K_) + ((f"chunk {c}",) if c else ()) \
+                + (("strong decay",) if strong else ())
+            got = rk.rwkv6_scan(*args, chunk=c)
             scan_check("rwkv6_scan", dtype, got,
                        ops.rwkv6_scan(*args, impl="naive"), case,
                        "rwkv6_sequential")
-            if case[1] == 1:
+            if T_ == 1:
                 scan_check("rwkv6_scan", dtype, got,
                            ops.rwkv6_scan(*args, impl="plain"), case,
                            "rwkv6_single_step")
+                # decode's in-place state: state_out is the state itself
+                st = args[-1].clone()
+                scan_check("rwkv6_scan", dtype,
+                           ops.rwkv6_scan(*args[:-1], st, state_out=st),
+                           got, case + ("in place",), "out-of-place kernel")
         for case in ssm_cases:
             args = ssm_inputs(*case, dtype)
             got = ops.ssm_scan(*args, impl="cuda")
@@ -394,6 +418,10 @@ def main() -> int:
                 scan_check("ssm_scan", dtype, got,
                            ops.ssm_scan(*args, impl="plain"), case,
                            "ssm_single_step")
+                h = args[-1].clone()
+                scan_check("ssm_scan", dtype,
+                           ops.ssm_scan(*args[:-1], h, state_out=h), got,
+                           case + ("in place",), "out-of-place kernel")
         # Bm / Cm as strided views of one projection, as mamba_forward
         # passes them (dt_rank 512 columns before them)
         x, dt, A, Bm, Cm, D, h0 = ssm_inputs(2, 40, 256, 16, dtype)
@@ -403,8 +431,20 @@ def main() -> int:
         scan_check("ssm_scan", dtype, ops.ssm_scan(*args, impl="cuda"),
                    ops.ssm_scan(*args, impl="naive"), "strided Bm/Cm",
                    "ssm_sequential")
+    # the chunked passes with the final state written over the input state
+    # (carry reads each element of s0 before it writes that of sT)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = rwkv_inputs(1, 100, 32, 64, dtype)
+        st = args[-1].clone()
+        got = rk.rwkv6_scan(*args[:-1], st, state_out=st, chunk=32)
+        if got[1] is not st:
+            raise AssertionError("rwkv6_scan did not return state_out")
+        scan_check("rwkv6_scan", dtype, got,
+                   ops.rwkv6_scan(*args, impl="naive"),
+                   (1, 100, 32, 64, "chunk 32", "in place"),
+                   "rwkv6_sequential")
     print(f"kernels: {n_flash} flash, {n_decode} decode, "
-          f"{len(gating_cases) + 1} moe_gating, {2 * len(rwkv_cases)} "
+          f"{len(gating_cases) + 1} moe_gating, {2 * len(rwkv_cases) + 2} "
           f"rwkv6_scan and {2 * len(ssm_cases) + 2} ssm_scan cases within "
           f"tolerance (ids equal); max abs err {json.dumps(sweep)}")
 
@@ -631,12 +671,25 @@ def main() -> int:
                               + Din * N * 4 + Din * 4 + 2 * B * Din * N * 4,
                               n * (7 * N + 3))}
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the SM clock the card can reach: the special-function-unit bound of
+    # the Mamba scan (one accurate exponential per state and step, 16
+    # results a clock per SM on Hopper) is taken at it
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+    def sfu_bound_ms(B, Tn, Din, N):
+        return B * Tn * Din * N / (16 * sms * max_sm_mhz * 1e6) * 1e3
+
     rwkv_row = {
         "name": "rwkv6_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan.py:46",
         "tpu_kernel": "src/repro/kernels/rwkv6_scan.py:46",
         **rwkv_timing(*RWKV_PF),
+        "chunk": rk.plan_chunks(*RWKV_PF[:3], sms),
         # vs rwkv6_sequential at this shape in this run's case sweep
         "max_abs_err": scan_errs[("rwkv6_scan", RWKV_PF, "float32")],
         "tol": SCAN_TOL,
@@ -651,13 +704,29 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssm_scan.py:47",
         "tpu_kernel": "src/repro/kernels/ssm_scan.py:47",
         **ssm_timing(*SSM_PF),
+        "sfu_bound_ms": sfu_bound_ms(*SSM_PF), "max_sm_mhz": max_sm_mhz,
         "max_abs_err": scan_errs[("ssm_scan", SSM_PF, "float32")],
         "tol": SCAN_TOL,
         "bf16_max_abs_err": scan_errs[("ssm_scan", SSM_PF, "bfloat16")],
         "library_ms": None, "library": "none: no one PyTorch call computes "
                                        "the selective scan",
-        "decode_shape": ssm_timing(*SSM_DEC),
+        "decode_shape": {**ssm_timing(*SSM_DEC),
+                         "sfu_bound_ms": sfu_bound_ms(*SSM_DEC)},
     }
+    # device ms of rwkv6_scan against the chunk size (* = planned) at the
+    # timing shape, a served prompt length and the shortest one
+    chunk_sweep = {}
+    for Tn in (1024, 881, 323, 79):
+        sets = [rwkv_inputs(1, Tn, 32, 64, bf16) for _ in range(4)]
+        planned = rk.plan_chunks(1, Tn, 32, sms)
+        chunk_sweep[f"B=1 T={Tn} H=32 K=64"] = {
+            f"{c}{'*' if c == planned else ''}": device_ms(
+                lambda *a, c=c: rk.rwkv6_scan(*a, chunk=c), sets, iters=10)
+            for c in rk.CHUNKS}
+        del sets
+    print(f"chunk sweep: rwkv6_scan device ms by chunk size (* = planned): "
+          f"{json.dumps(chunk_sweep)}")
+    rwkv_row["chunk_sweep"] = chunk_sweep
     kernel_rows = [flash_row, decode_row, moe_row, rwkv_row, ssm_row]
     for row in kernel_rows:
         row["kernel_ms"] = row["ms"]
@@ -830,6 +899,8 @@ def main() -> int:
                "gating_calls": len(routes_k), "expert_choices": choices,
                "differing_routes": differing,
                "reordered_tokens": reordered,
+               "prefill_ms": t_k["prefill_ms"],
+               "plain_prefill_ms": t_p["prefill_ms"],
                "times": {"cuda": t_k, "plain": t_p}}
         print(f"path: {json.dumps(res)}")
         if tol is not None:

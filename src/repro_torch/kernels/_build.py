@@ -40,9 +40,9 @@ SIGNATURES = {
                                _I, _I, _I, _I, _F, _F, _P),
     # logits, weights, ids, T, E, k, stream
     "repro_moe_gating": (_P, _P, _P, _I, _I, _I, _P),
-    # r, k, v, w, u, s0, out, sT, B, T, H, K, dtype, stream
-    "repro_rwkv6_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _P),
+    # r, k, v, w, u, s0, out, sT, scratch, B, T, H, K, chunk, dtype, stream
+    "repro_rwkv6_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _P),
     # x, dt, A, Bm, Cm, D, h0, y, hT, B, T, Din, N, Bm/Cm batch stride,
     # Bm/Cm time stride, dtype, stream
     "repro_ssm_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

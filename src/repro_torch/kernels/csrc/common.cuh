@@ -1,5 +1,5 @@
-// Shared helpers of the port's attention kernels: element conversion and the
-// masking constant of the reference (kernels/ref.py NEG_INF).
+// Shared helpers of the port's kernels: element conversion, cp.async copies
+// and the masking constant of the reference (kernels/ref.py NEG_INF).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -84,6 +84,31 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ base,
 #pragma unroll
     for (int j = 0; j < N; ++j) dst[r * ld + c + j] = x[j] * scale;
   }
+}
+
+// cp.async copies from global to shared memory that bypass registers;
+// `valid` false zero-fills the destination and reads nothing.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid = true) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid = true) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ float warp_max(float x, unsigned width) {

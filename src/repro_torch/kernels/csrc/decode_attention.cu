@@ -46,6 +46,9 @@
 
 namespace {
 
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 using repro::from_f32;
 using repro::kNegInf;
 using repro::to_f32;
@@ -65,19 +68,6 @@ size_t smem_bytes(int G, int DH, size_t elem) {
   // the loop); sQ (G x DH), per warp scores (G x SUB), m, l (G each), fp32
   return size_t(NWARP) * 2 * SUB * DH * elem +
          sizeof(float) * (size_t(G) * DH + size_t(NWARP) * G * (SUB + 2));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
 // One warp copies rows [r0, r0 + SUB) of a (rows, DH) slice into dst (SUB x
@@ -200,7 +190,7 @@ __global__ void __launch_bounds__(NT)
   for (; r0 < re; r0 += TILE) {
     const int rows = min(SUB, re - r0);
     const int next = r0 + TILE;
-    cp_async_wait1();   // this sub-tile's K has landed
+    cp_async_wait<1>();   // this sub-tile's K has landed
     __syncwarp();
 
     // 1. scores of the sub-tile's rows, masked rows -1e30
@@ -256,7 +246,7 @@ __global__ void __launch_bounds__(NT)
         for (int c = 0; c < CPL; ++c) acc[g][c] *= alpha;
       }
     }
-    cp_async_wait1();   // this sub-tile's V has landed
+    cp_async_wait<1>();   // this sub-tile's V has landed
     __syncwarp();
 
     // 3. o += p v over the sub-tile's rows (zero-filled rows past `rows`

@@ -48,6 +48,8 @@
 
 namespace {
 
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 using repro::from_f32;
 using repro::kNegInf;
 
@@ -219,13 +221,6 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // d (64 x 64 fp32, 32 a thread) += A * B, A and B K-major in shared memory

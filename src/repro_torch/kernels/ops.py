@@ -93,34 +93,52 @@ def moe_gating(logits, top_k: int, *, impl: Optional[str] = None):
     return ref.topk_gating(logits, top_k)
 
 
-def rwkv6_scan(r, k, v, w, u, state, *, impl: Optional[str] = None):
+def _into(result, state_out):
+    """The plain paths' ``state_out``: copy the final state into it."""
+    if state_out is None:
+        return result
+    out, state = result
+    state_out.copy_(state)
+    return out, state_out
+
+
+def rwkv6_scan(r, k, v, w, u, state, *, impl: Optional[str] = None,
+               state_out: Optional[torch.Tensor] = None):
     """WKV6 recurrence. r/k/w (B, T, H, K), v (B, T, H, V), u (H, K),
     state (B, H, K, V) -> (out (B, T, H, V), final state fp32).
 
     A CUDA tensor goes to the kernel at every T, T == 1 included (one launch
     where the single-step version takes about eight). The plain path takes
     ``ref.rwkv6_single_step`` at T == 1 and ``ref.rwkv6_chunked`` otherwise,
-    as the reference does; ``"naive"`` the sequential oracle."""
+    as the reference does; ``"naive"`` the sequential oracle.
+    ``state_out`` (fp32, the state's shape) receives the final state, which
+    is then returned in it; it may be ``state`` itself."""
     if _kernel_path(impl, r):
-        return rk.rwkv6_scan(r, k, v, w, u, state)
+        return rk.rwkv6_scan(r, k, v, w, u, state, state_out=state_out)
     if impl == "naive":
-        return ref.rwkv6_sequential(r, k, v, w, u, state)
-    if r.shape[1] == 1:
-        return ref.rwkv6_single_step(r, k, v, w, u, state)
-    return ref.rwkv6_chunked(r, k, v, w, u, state)
+        res = ref.rwkv6_sequential(r, k, v, w, u, state)
+    elif r.shape[1] == 1:
+        res = ref.rwkv6_single_step(r, k, v, w, u, state)
+    else:
+        res = ref.rwkv6_chunked(r, k, v, w, u, state)
+    return _into(res, state_out)
 
 
-def ssm_scan(x, dt, A, Bm, Cm, D, h0, *, impl: Optional[str] = None):
+def ssm_scan(x, dt, A, Bm, Cm, D, h0, *, impl: Optional[str] = None,
+             state_out: Optional[torch.Tensor] = None):
     """Mamba selective scan. x/dt (B, T, Din), A (Din, N), Bm/Cm (B, T, N),
     D (Din,), h0 (B, Din, N) -> (y (B, T, Din), final h fp32).
 
     Dispatch as ``rwkv6_scan``: the kernel for CUDA tensors at every T;
     plain ``ref.ssm_single_step`` at T == 1, ``ref.ssm_chunked`` otherwise;
-    ``"naive"`` the sequential oracle."""
+    ``"naive"`` the sequential oracle. ``state_out`` as in ``rwkv6_scan``
+    (it may be ``h0`` itself)."""
     if _kernel_path(impl, x):
-        return ss.ssm_scan(x, dt, A, Bm, Cm, D, h0)
+        return ss.ssm_scan(x, dt, A, Bm, Cm, D, h0, state_out=state_out)
     if impl == "naive":
-        return ref.ssm_sequential(x, dt, A, Bm, Cm, D, h0)
-    if x.shape[1] == 1:
-        return ref.ssm_single_step(x, dt, A, Bm, Cm, D, h0)
-    return ref.ssm_chunked(x, dt, A, Bm, Cm, D, h0)
+        res = ref.ssm_sequential(x, dt, A, Bm, Cm, D, h0)
+    elif x.shape[1] == 1:
+        res = ref.ssm_single_step(x, dt, A, Bm, Cm, D, h0)
+    else:
+        res = ref.ssm_chunked(x, dt, A, Bm, Cm, D, h0)
+    return _into(res, state_out)

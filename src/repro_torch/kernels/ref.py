@@ -341,6 +341,30 @@ def rwkv6_chunked(r, k, v, w, u, state, *, chunk: int = 32):
     return out.to(v.dtype), S
 
 
+def rwkv6_chunk_parallel(r, k, v, w, u, state, *, chunk: int):
+    """The CUDA kernel's three passes, for the tests (which cannot run it):
+    T is cut into chunks of ``chunk`` steps (the last may be shorter);
+    1. each chunk walks from S = 0 to its own state L_i, and P_i is the
+       product of its decays (w multiplied, never through log / exp);
+    2. the carry: S_in[0] = state, S_in[i+1] = P_i ⊙ S_in[i] + L_i;
+    3. each chunk walks its steps from S_in[i] for its outputs.
+    Exact for every w in (0, 1). Returns (out in v's dtype, final S fp32)."""
+    T = r.shape[1]
+    spans = [slice(t, min(t + chunk, T)) for t in range(0, T, chunk)]
+    zero = torch.zeros_like(state, dtype=torch.float32)
+    L = [rwkv6_sequential(r[:, s], k[:, s], v[:, s], w[:, s], u, zero)[1]
+         for s in spans]
+    P = [torch.prod(w[:, s].float(), dim=1) for s in spans]      # (B, H, K)
+    S = state.float()
+    S_in = []
+    for L_i, P_i in zip(L, P):
+        S_in.append(S)
+        S = P_i[..., None] * S + L_i
+    outs = [rwkv6_sequential(r[:, s], k[:, s], v[:, s], w[:, s], u, S_i)[0]
+            for s, S_i in zip(spans, S_in)]
+    return torch.cat(outs, dim=1), S
+
+
 # ---------------------------------------------------------------------------
 # Mamba selective scan
 # ---------------------------------------------------------------------------

@@ -7,6 +7,8 @@ counts the kernel's launches and nothing else.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _build
@@ -19,11 +21,14 @@ launches = 0
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
-             h0: torch.Tensor):
+             h0: torch.Tensor, *, state_out: Optional[torch.Tensor] = None):
     """x (B, T, Din), Bm/Cm (B, T, N), all fp32 or all bf16; dt (B, T, Din),
     A (Din, N), D (Din,), h0 (B, Din, N) fp32 -> (y (B, T, Din) in x's
     dtype, final h (B, Din, N) fp32). Bm and Cm may be strided views (unit
-    stride along N); nothing is cast on entry."""
+    stride along N); nothing is cast on entry.
+
+    ``state_out``: a tensor like ``h0`` that the final h is written into
+    (and returned); it may be ``h0`` itself."""
     global launches
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, Din), got {tuple(x.shape)}")
@@ -60,8 +65,29 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                   f"{MAX_STATE}, got N={N}")
     if B > 65535:
         raise NotImplementedError(f"ssm_scan kernel batch {B} > 65535")
+    # x and dt are copied in 16-byte pieces, Bm / Cm rows in 4-byte words
+    per_piece, per_word = 16 // x.element_size(), 4 // x.element_size()
+    for name, t, align in (("x", x, 16), ("dt", dt, 16), ("Bm", Bm, 4),
+                           ("Cm", Cm, 4)):
+        if t.data_ptr() % align:
+            raise NotImplementedError(f"ssm_scan kernel: {name} is not "
+                                      f"{align}-byte aligned")
+    if Din % per_piece or N % per_word or Bm.stride(0) % per_word \
+            or Bm.stride(1) % per_word:
+        raise NotImplementedError(
+            f"ssm_scan kernel with {x.dtype}: Din={Din} must be a multiple "
+            f"of {per_piece}, N={N} and the Bm/Cm strides {Bm.stride()} of "
+            f"{per_word}")
+    if state_out is None:
+        hT = torch.empty_like(h0)
+    elif (not state_out.is_cuda or state_out.device != x.device
+            or state_out.shape != h0.shape or state_out.dtype != torch.float32
+            or not state_out.is_contiguous()):
+        raise ValueError("state_out must be a contiguous float32 CUDA tensor "
+                         f"of shape {tuple(h0.shape)} on {x.device}")
+    else:
+        hT = state_out
     y = torch.empty_like(x)
-    hT = torch.empty_like(h0)
     lib = _build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

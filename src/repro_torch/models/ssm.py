@@ -80,9 +80,10 @@ def _mamba_conv(p: Params, x_in: torch.Tensor, conv_state: torch.Tensor):
 
 
 def mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict,
-                  *, impl: Optional[str] = None):
+                  *, impl: Optional[str] = None, in_place: bool = False):
     """x: (B, S, D) pre-normed; state {"h", "conv"}. Returns (out (B, S, D),
-    {"h": final h fp32, "conv": new conv state})."""
+    {"h": final h fp32, "conv": new conv state}). ``in_place``: the scan
+    writes the final h into ``state["h"]`` and returns that tensor."""
     dt_ = x.dtype
     Din, N, R = cfg.d_inner, cfg.mamba_d_state, cfg.dt_rank
     x_in, z = (x @ p["in_proj"].to(dt_)).split(Din, dim=-1)
@@ -92,7 +93,8 @@ def mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict,
     dt = F.softplus(dt_low.float() @ p["dt_w"].float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     y, h_fin = ops.ssm_scan(xc, dt, A, Bm, Cm, p["Dskip"], state["h"],
-                            impl=impl)
+                            impl=impl,
+                            state_out=state["h"] if in_place else None)
     out = (y * F.silu(z)) @ p["out_proj"].to(dt_)
     return out, {"h": h_fin, "conv": conv_new}
 
@@ -139,9 +141,11 @@ def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
 
 
 def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict,
-                  *, impl: Optional[str] = None):
+                  *, impl: Optional[str] = None, in_place: bool = False):
     """x: (B, S, D) pre-normed; state {"wkv", "shift_tm"}. Returns (out,
-    {"wkv": final state fp32, "shift_tm": x[:, -1]})."""
+    {"wkv": final state fp32, "shift_tm": x[:, -1]}). ``in_place``: the
+    scan writes the final state into ``state["wkv"]`` and returns that
+    tensor (the kernel takes it where S fits one chunk, as at decode)."""
     B, S, D = x.shape
     H, K = cfg.rwkv_heads, cfg.rwkv_head_dim
     dt = x.dtype
@@ -161,7 +165,9 @@ def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict,
     w_log = p["decay_base"].float() + torch.tanh(
         xw @ p["decay_w1"].to(dt)).float() @ p["decay_w2"].float()
     w = torch.exp(-torch.exp(w_log)).view(B, S, H, K)       # decay in (0, 1)
-    out, s_new = ops.rwkv6_scan(r, k, v, w, p["u"], state["wkv"], impl=impl)
+    out, s_new = ops.rwkv6_scan(
+        r, k, v, w, p["u"], state["wkv"], impl=impl,
+        state_out=state["wkv"] if in_place else None)
 
     # per-head groupnorm
     of = out.float()

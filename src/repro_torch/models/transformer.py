@@ -210,12 +210,14 @@ class Transformer(nn.Module):
         else:
             st = cache if cache is not None else SSM.init_state(
                 cfg, spec, x.shape[0], x.dtype, x.device)
+            # decode: the scan writes the new state into the cache slot
+            in_place = cache is not None
             if spec.kind == "mamba":
-                mix_out, new = SSM.mamba_forward(cfg, p["mixer"], h_in, st,
-                                                 impl=impl)
+                mix_out, new = SSM.mamba_forward(
+                    cfg, p["mixer"], h_in, st, impl=impl, in_place=in_place)
             else:      # rwkv: time mix, then channel mix, no mlp
-                mix_out, new = SSM.rwkv_time_mix(cfg, p["mixer"], h_in, st,
-                                                 impl=impl)
+                mix_out, new = SSM.rwkv_time_mix(
+                    cfg, p["mixer"], h_in, st, impl=impl, in_place=in_place)
                 x = x + mix_out
                 h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
                 cm_out, cm_new = SSM.rwkv_channel_mix(cfg, p["mixer"], h2,
@@ -302,7 +304,8 @@ class Transformer(nn.Module):
                                          impl=impl)
                     if spec.kind != "attn":
                         for name, t in new.items():
-                            layer_cache[name].copy_(t)
+                            if t is not layer_cache[name]:  # in place
+                                layer_cache[name].copy_(t)
         h = L.rms_norm(h, self.final_norm, self.cfg.norm_eps)
         return self._unembed(h)[:, 0], cache
 
