@@ -14,19 +14,24 @@ Phases, each of which raises on failure (nothing is caught):
                fp32 and bf16, window/softcap and ragged cases, and both
                served attention models' shapes (qwen2-1.5b: H=12, KVH=2,
                Dh=128; granite-moe: H=16, KVH=8, Dh=64; bf16, prefill
-               Sq=Skv=1024, decode B=8, S=2048). MoE gating: the
-               tests/test_kernels.py shapes, granite's decode and prefill
-               and jamba's shapes, and an exp-underflow case; ids exactly
-               equal. WKV6 and Mamba scans: the tests/test_kernels.py
-               shapes, full-width prefill (rwkv6-1.6b: H=32, K=64; jamba:
-               Din=16384, N=16; T=1024) and the decode batch (B=8, T=1,
-               also against the single-step versions and with the state
-               written in place), fp32 and bf16, against the sequential
-               oracles; rwkv6 also at the chunk edges T = c - 1, c, c + 1 of
-               every chunk size, T = 881, B = 8 at T = 200 and decays down to
-               ~e^-20; ssm also at N = 8 and 16 with Din = 16608 (not whole
-               blocks), T = 1023. A chunk sweep times rwkv6's chunk
-               sizes. The attention sweeps also
+               Sq=Skv=1024, decode B=8, S=2048). MoE gating (the routing
+               kernel without its maps): the tests/test_kernels.py shapes,
+               granite's decode and prefill and jamba's shapes, and an
+               exp-underflow case; ids exactly equal. MoE routing (gating,
+               dispatch maps and aux in one launch): granite's and jamba's
+               served shapes up to T = 8192, E = 384, a dropping cap, an
+               adversarial jamba route, nb = 2 and 4 and the underflow
+               rows; every integer equal. WKV6 and Mamba scans: the
+               tests/test_kernels.py shapes, full-width prefill
+               (rwkv6-1.6b: H=32, K=64; jamba: Din=16384, N=16; T=1024)
+               and the decode batch (B=8, T=1, also against the
+               single-step versions and with the state written in place),
+               fp32 and bf16, against the sequential oracles; rwkv6 also
+               at the chunk edges T = c - 1, c, c + 1 of every chunk size,
+               T = 881, B = 8 at T = 200 and decays down to ~e^-20 (there
+               also against the exact plain path); ssm also at N = 8 and
+               16 with Din = 16608 (not whole blocks), T = 1023. A chunk
+               sweep times rwkv6's chunk sizes. The attention sweeps also
                hold the split-KV decode at its edges (G = 16, lengths 0
                and 1, a window under one split, int64 and int32 lengths)
                and the prefill at Sq = Skv = 64 k + 1 with a window under
@@ -41,13 +46,15 @@ Phases, each of which raises on failure (nothing is caught):
   4. path    — one prompt through prefill and 8 teacher-forced decode steps,
                once through the kernels and once with impl="plain": qwen2
                in bf16; granite in fp32 (gated, with no differing expert
-               choice) and in bf16 (reported); rwkv6 in fp32 (gated, argmax
+               choice over every recorded choice, and no differing dispatch
+               slot) and in bf16 (reported); rwkv6 in fp32 (gated, argmax
                equal) and in bf16 (reported); jamba in fp32 on layers 0-1
                (Mamba + dense, Mamba + MoE) and on layers 2-3 (Mamba +
                dense, attention + MoE), each gated with no differing expert
                choice, and in bf16 on the 4 (reported).
   5. trace   — torch.profiler over 5 serving-shaped decode steps (B=8) of
-               each model: step wall time, device busy time, top kernels.
+               each model: step wall time, device busy time, top kernels,
+               launches by kernel name.
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -76,6 +83,9 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py::_tol
 GATING_TOL = 1e-6           # tests/test_kernels.py::test_moe_gating_kernel
+# the aux losses, relative: z_loss reaches ~60 at E = 384, where one fp32
+# ulp is 3.8e-6 (tests/test_torch_moe.py)
+AUX_RTOL = 1e-6
 # Logits of the kernel path vs the plain path, bf16, full-width qwen2 with
 # random weights (logit std ~0.78): both paths attend in fp32 and round to
 # bf16, so they differ only where a rounding flips and the flip propagates
@@ -121,6 +131,15 @@ def underflow_logits() -> np.ndarray:
     return lg
 
 
+def hot_logits(T: int, E: int) -> np.ndarray:
+    """An adversarial route: experts 0 and 1 lead every row by 20, so they
+    take all T tokens and drop above their capacity."""
+    lg = (np.random.default_rng(T).standard_normal((T, E)) * 2).astype(
+        np.float32)
+    lg[:, :2] += 20.0
+    return lg
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -134,6 +153,7 @@ def main() -> int:
     from repro_torch.kernels import rwkv6_scan as rk
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.models import transformer as T
+    from repro_torch.models.moe import capacity
     from repro_torch.serving import (EngineConfig, LatencyStats, Request,
                                      ServingEngine)
     from torch.autograd import DeviceType
@@ -188,6 +208,13 @@ def main() -> int:
     def err(a, b) -> float:
         return float((a.float() - b.float()).abs().max())
 
+    def aux_check(what, got, want):
+        """The aux losses within AUX_RTOL relative."""
+        for name, w in want.items():
+            g, w = float(got[name]), float(w)
+            if not abs(g - w) <= AUX_RTOL * abs(w):
+                raise AssertionError(f"{what}: {name} {g} vs plain {w}")
+
     def time_ms(fn, args_sets, iters=30):
         """Mean ms per call over ``iters`` calls, rotating through input
         sets (so a call does not find the previous call's inputs in L2)."""
@@ -203,24 +230,55 @@ def main() -> int:
         torch.cuda.synchronize()
         return t0.elapsed_time(t1) / iters
 
+    # how device_ms took each time: a profiler session on the first try, on
+    # a retry, or CUDA events behind a spin (printed as "device timer:")
+    timer_use = {"profiler": 0, "profiler_retry": 0, "events_behind_spin": 0}
+
+    def queued_ms(fn, args_sets, iters):
+        """Device ms per call without the profiler: the calls are queued
+        behind a spin kernel that outlasts the host's issue time, so the
+        two events bracket the device running them back to back."""
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        for i in range(iters):
+            fn(*args_sets[i % len(args_sets)])
+        issue_s = time.perf_counter() - h0
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        # clock64 cycles at <= 1.98 GHz: 3x the issue time, at least 1 ms
+        torch.cuda._sleep(int(max(3 * issue_s, 1e-3) * 2e9))
+        t0.record()
+        for i in range(iters):
+            fn(*args_sets[i % len(args_sets)])
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / iters
+
     def device_ms(fn, args_sets, iters=30):
         """Device time per call: the self time of every CUDA kernel the
         calls launch, under torch.profiler. Where the host takes longer to
         issue a call than the device to run it, time_ms measures the host
-        and this the device."""
+        and this the device. A profiler session that sees no device time
+        (CUPTI drops a session's records now and then) is retried twice,
+        then the calls are timed by queued_ms."""
         for i in range(3):
             fn(*args_sets[i % len(args_sets)])
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fn(*args_sets[i % len(args_sets)])
-            torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
-        if not total > 0:
-            raise AssertionError("torch.profiler saw no device time")
-        return total / 1e3 / iters
+        for attempt in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for i in range(iters):
+                    fn(*args_sets[i % len(args_sets)])
+                torch.cuda.synchronize()
+            total = sum(e.self_device_time_total
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA)
+            if total > 0:
+                timer_use["profiler_retry" if attempt else "profiler"] += 1
+                return total / 1e3 / iters
+        timer_use["events_behind_spin"] += 1
+        return queued_ms(fn, args_sets, iters)
 
     # -- 2. kernels vs plain ----------------------------------------------
     sweep = {"flash_attention": {}, "decode_attention": {}}
@@ -319,8 +377,8 @@ def main() -> int:
             lg = (np.random.default_rng(Tg).standard_normal((Tg, Eg))
                   * 2).astype(np.float32)
         lg = torch.from_numpy(lg).to(dev)
-        w, ids, _ = ops.moe_gating(lg, k, impl="cuda")
-        w_ref, ids_ref, _ = ops.moe_gating(lg, k, impl="plain")
+        w, ids, aux = ops.moe_gating(lg, k, impl="cuda")
+        w_ref, ids_ref, aux_ref = ops.moe_gating(lg, k, impl="plain")
         if not torch.equal(ids, ids_ref):
             raise AssertionError(f"moe_gating {case}: ids differ from the "
                                  "plain version")
@@ -330,8 +388,68 @@ def main() -> int:
         if not e < GATING_TOL:
             raise AssertionError(f"moe_gating {case}: weights max abs err "
                                  f"{e} >= {GATING_TOL}")
+        aux_check(f"moe_gating {case}", aux, aux_ref)
         gating_err = max(gating_err, e)
     sweep["moe_gating"] = {"float32": gating_err}
+
+    def served_cap(Tb, E, k):
+        """Slots per expert as the served configs size them (factor 1.25)."""
+        return capacity(dataclasses.replace(
+            get_config("granite-moe-1b-a400m"), n_experts=E, moe_top_k=k),
+            Tb)
+
+    # T, E, k, cap (None: as served), nb, logits ("rand", "hot" or
+    # "underflow")
+    route_cases = [
+        (8, 32, 8, None, 1, "rand"),            # granite decode
+        (1024, 32, 8, None, 1, "rand"),         # granite serving prefill
+        (2048, 32, 8, None, 1, "rand"),         # a max_seq prefill
+        (4096, 32, 8, None, 1, "rand"),
+        (8192, 32, 8, None, 1, "rand"),         # the kernel's limit at k = 8
+        (8192, 384, 8, None, 1, "rand"),        # > 48 KB of shared memory
+        (1000, 32, 8, None, 1, "rand"),         # granite's path prefill
+        (1000, 16, 2, None, 1, "rand"),         # jamba's path prefill
+        (8, 16, 2, None, 1, "rand"),            # jamba decode
+        (257, 384, 8, None, 1, "rand"),         # tests/test_kernels shape
+        (1024, 32, 8, 8, 1, "rand"),            # a dropping cap
+        (1000, 16, 2, None, 1, "hot"),          # experts 0, 1 take all
+        (1024, 32, 8, None, 2, "rand"),         # two dispatch blocks
+        (2048, 16, 2, None, 4, "hot"),
+        (3, 16, 8, 8, 1, "underflow"),
+    ]
+    route_err = 0.0
+    dropped_total = 0
+    for Tg, Eg, k, cap, nb, kind in route_cases:
+        case = (Tg, Eg, k, cap, nb, kind)
+        cap = cap or served_cap(Tg // nb, Eg, k)
+        lg = {"rand": lambda: (np.random.default_rng(Tg).standard_normal(
+                  (Tg, Eg)) * 2).astype(np.float32),
+              "hot": lambda: hot_logits(Tg, Eg),
+              "underflow": underflow_logits}[kind]()
+        lg = torch.from_numpy(lg).to(dev)
+        before = mg.launches
+        got = ops.moe_route(lg, k, cap=cap, nb=nb, impl="cuda")
+        if mg.launches != before + 1:
+            raise AssertionError(f"moe_route {case}: {mg.launches - before} "
+                                 "launches, expected 1")
+        want = ops.moe_route(lg, k, cap=cap, nb=nb, impl="plain")
+        for name, a, b in zip(("ids", "slot_of", "token_of_slot",
+                               "tk_of_slot"), got[1:5], want[1:5]):
+            if a.shape != b.shape or not torch.equal(a.long(), b.long()):
+                raise AssertionError(f"moe_route {case}: {name} differs from "
+                                     "the plain version")
+        if any(len(set(row)) != k for row in got[1].tolist()):
+            raise AssertionError(f"moe_route {case}: repeated ids")
+        e = err(got[0], want[0])
+        if not e < GATING_TOL:
+            raise AssertionError(f"moe_route {case}: weights max abs err "
+                                 f"{e} >= {GATING_TOL}")
+        aux_check(f"moe_route {case}", got[5], want[5])
+        route_err = max(route_err, e)
+        dropped_total += int((got[2] == Eg * cap).sum())
+    if not dropped_total:
+        raise AssertionError("moe_route: no case dropped an entry")
+    sweep["moe_route"] = {"float32": route_err}
 
     def rwkv_inputs(B, Tn, H, K, dtype, strong_decay=False):
         """tests/test_kernels.py::test_rwkv6_kernel's distributions; r/k/v
@@ -385,7 +503,7 @@ def main() -> int:
                    for T_ in (c - 1, c, c + 1)]
     rwkv_cases += [(1, 881, 32, 64, None, False), (B_D, 200, 32, 64, None,
                                                    False),
-                   (1, 300, 32, 64, None, True)]
+                   (1, 300, 32, 64, None, True), (1, 300, 32, 64, 16, True)]
     # ssm: (B, T, Din, N); N = 8 and 16 at a Din that is not a whole
     # number of blocks (16384 + 64 * 3 + 32) and T = 1023
     ssm_cases = [(2, 32, 64, 8), (1, 64, 128, 16), (2, 50, 32, 8),
@@ -399,6 +517,10 @@ def main() -> int:
             scan_check("rwkv6_scan", dtype, got,
                        ops.rwkv6_scan(*args, impl="naive"), case,
                        "rwkv6_sequential")
+            if strong:      # the plain path is exact there too (C1)
+                scan_check("rwkv6_scan", dtype, got,
+                           ops.rwkv6_scan(*args, impl="plain"), case,
+                           "rwkv6_chunked_exact")
             if T_ == 1:
                 scan_check("rwkv6_scan", dtype, got,
                            ops.rwkv6_scan(*args, impl="plain"), case,
@@ -444,9 +566,10 @@ def main() -> int:
                    (1, 100, 32, 64, "chunk 32", "in place"),
                    "rwkv6_sequential")
     print(f"kernels: {n_flash} flash, {n_decode} decode, "
-          f"{len(gating_cases) + 1} moe_gating, {2 * len(rwkv_cases) + 2} "
+          f"{len(gating_cases) + 1} moe_gating, {len(route_cases)} moe_route "
+          f"({dropped_total} entries dropped), {2 * len(rwkv_cases) + 2} "
           f"rwkv6_scan and {2 * len(ssm_cases) + 2} ssm_scan cases within "
-          f"tolerance (ids equal); max abs err {json.dumps(sweep)}")
+          f"tolerance (ids and maps equal); max abs err {json.dumps(sweep)}")
 
     # timing at the serving path's shapes (bf16)
     bf16 = torch.bfloat16
@@ -552,6 +675,14 @@ def main() -> int:
         "n_splits": n_splits, "blocks": n_splits * B_D * KVH,
         "combine_blocks": B_D * H,
     }
+    # device_ms's fallback beside the profiler on the same calls, for a
+    # kernel longer and one shorter than its call's host time (reported)
+    print("device timer check (ms, profiler vs events behind a spin): "
+          + json.dumps({
+              "flash_attention": [flash_row["ms"],
+                                  queued_ms(flash_kernel, pf_sets, 30)],
+              "decode_attention": [decode_row["ms"],
+                                   queued_ms(decode_kernel, d_sets, 30)]}))
     # device ms of the decode kernels against the split count, at the
     # serving decode shapes of qwen2, granite and jamba (the wrapper's
     # choice is marked)
@@ -615,14 +746,64 @@ def main() -> int:
             "bytes": nbytes, "operations": n_ops,
         }
 
+    def route_timing(Tg, Eg, k):
+        """The routing kernel (one launch: gating, dispatch maps, aux) at a
+        served shape and capacity, against the PyTorch composition it
+        replaces on the MoE layer's path (ops.moe_route impl="plain":
+        ref.topk_gating with gating_aux, then ref.dispatch_indices)."""
+        cap = served_cap(Tg, Eg, k)
+        sets = [(torch.randn((Tg, Eg), generator=gen, device=dev) * 2,)
+                for _ in range(8)]
+        got = ops.moe_route(sets[0][0], k, cap=cap, nb=1, impl="cuda")
+        want = ops.moe_route(sets[0][0], k, cap=cap, nb=1, impl="plain")
+        if not all(torch.equal(a.long(), b.long())
+                   for a, b in zip(got[1:5], want[1:5])):
+            raise AssertionError(f"moe_route T={Tg} E={Eg} k={k}: integers "
+                                 "differ from the plain version")
+        # logits in; weights and ids (8 bytes an entry) and slot_of (8)
+        # out; token_of_slot and tk_of_slot (8 bytes a slot); the aux
+        nbytes = Tg * Eg * 4 + Tg * k * 16 + 2 * (Eg * cap + 1) * 8
+        n_ops = Tg * Eg * (5 + k)      # softmax ~5 per logit, k argmax rounds
+        bound = {"bytes": nbytes / PEAK_BYTES * 1e3,
+                 "operations": n_ops / PEAK_FP32_FLOPS * 1e3}
+        fns = {"": lambda x: ops.moe_route(x, k, cap=cap, nb=1, impl="cuda"),
+               "plain_": lambda x: ops.moe_route(x, k, cap=cap, nb=1,
+                                                 impl="plain")}
+        times = {}
+        for key, fn in fns.items():
+            times[f"{key}ms"] = device_ms(fn, sets)
+            times[f"{key}call_ms"] = time_ms(fn, sets)
+        return {
+            "shape": f"T={Tg} E={Eg} k={k} cap={cap} nb=1 fp32",
+            "ctas": mg.plan_route(Tg, k, Eg),
+            "max_abs_err": err(got[0], want[0]), **times,
+            "bound_ms": max(bound.values()),
+            "bound_by": max(bound, key=bound.get),
+            "bytes": nbytes, "operations": n_ops,
+        }
+
     moe_row = {
         "name": "moe_gating", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/moe_gating.cu",
         "replaces": "src/repro/kernels/moe_gating.py:43",
         "tpu_kernel": "src/repro/kernels/moe_gating.py:43",
-        **gating_timing(1024, 32, 8), "tol": GATING_TOL,
-        "decode_shape": gating_timing(B_D, 32, 8),
+        "entry": "ops.moe_route (one launch a MoE layer call)",
+        **route_timing(1024, 32, 8), "tol": GATING_TOL,
+        "library_ms": None,
+        "library": "none: no one PyTorch call computes the routing; "
+                   "softmax + topk of the gating alone under gating_topk",
+        "decode_shape": route_timing(B_D, 32, 8),
+        "jamba_shape": route_timing(1000, 16, 2),
+        "gating_topk": gating_timing(1024, 32, 8),
+        "gating_topk_decode": gating_timing(B_D, 32, 8),
     }
+    print(f"moe timing: route T=1024 device {moe_row['ms']:.5f} ms call "
+          f"{moe_row['call_ms']:.5f} (composition device "
+          f"{moe_row['plain_ms']:.5f}, call {moe_row['plain_call_ms']:.5f});"
+          f" T=8 device {moe_row['decode_shape']['ms']:.5f} ms call "
+          f"{moe_row['decode_shape']['call_ms']:.5f} (composition "
+          f"{moe_row['decode_shape']['plain_ms']:.5f} / "
+          f"{moe_row['decode_shape']['plain_call_ms']:.5f})")
 
     def scan_timing(kernel, plain, make_args, nbytes, n_ops):
         """Device ms (torch.profiler) and call ms (CUDA events) per call of
@@ -825,20 +1006,26 @@ def main() -> int:
         return launches
 
     P, STEPS = 1000, 8
-    gating = ops.moe_gating
+    gating, route = ops.moe_gating, ops.moe_route
 
     def drive(cfg, model, impl, prompt, forced):
         """Prefill + teacher-forced decode steps; returns the logits rows,
-        times and the expert ids of every gating call (recorded by wrapping
-        ops.moe_gating for this run only)."""
+        times and, for every gating call, its expert ids and dispatch slots
+        (recorded by wrapping ops.moe_route, which the MoE layers call, and
+        ops.moe_gating, which the dense path calls, for this run only)."""
         routes = []
 
         def recording_gating(logits, top_k, *, impl=None):
             out = gating(logits, top_k, impl=impl)
-            routes.append(out[1])
+            routes.append((out[1], None))
             return out
 
-        ops.moe_gating = recording_gating
+        def recording_route(logits, top_k, **kw):
+            out = route(logits, top_k, **kw)
+            routes.append((out[1], out[2]))
+            return out
+
+        ops.moe_gating, ops.moe_route = recording_gating, recording_route
         cache = T.init_cache(cfg, 1, S_D)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
@@ -854,7 +1041,7 @@ def main() -> int:
             lengths = lengths + 1
         ev[2].record()
         torch.cuda.synchronize()
-        ops.moe_gating = gating
+        ops.moe_gating, ops.moe_route = gating, route
         return (torch.stack(rows).float(), routes,
                 {"prefill_ms": ev[0].elapsed_time(ev[1]),
                  "decode_step_ms": ev[1].elapsed_time(ev[2]) / STEPS})
@@ -870,11 +1057,18 @@ def main() -> int:
                                                 size=(STEPS, 1))).to(dev)
         out_k, routes_k, t_k = drive(cfg, model, "cuda", prompt, forced)
         out_p, routes_p, t_p = drive(cfg, model, "plain", prompt, forced)
-        if len(routes_k) != len(routes_p):
-            raise AssertionError("kernel and plain paths routed a different "
-                                 "number of times")
-        choices = differing = reordered = 0
-        for a, b in zip(routes_k, routes_p):
+        n_moe = sum(spec.mlp == "moe" for spec in cfg.layer_specs())
+        calls = n_moe * (1 + STEPS)
+        want_choices = n_moe * (P + STEPS) * cfg.moe_top_k
+        if not len(routes_k) == len(routes_p) == calls:
+            raise AssertionError(f"{cfg.name}: {len(routes_k)} kernel-path "
+                                 f"and {len(routes_p)} plain-path gating "
+                                 f"calls recorded, expected {calls}")
+        choices = differing = reordered = slots = differing_slots = 0
+        for (a, sa), (b, sb) in zip(routes_k, routes_p):
+            if sa is not None and torch.equal(a, b):
+                slots += sa.numel()
+                differing_slots += int((sa != sb).sum())
             E = cfg.n_experts
             oh_a = torch.zeros(a.shape[0], E, device=dev).scatter_(
                 1, a.long(), 1.0)
@@ -884,6 +1078,14 @@ def main() -> int:
             choices += a.numel()
             differing += int((oh_a != oh_b).sum()) // 2
             reordered += int((same_set & (a != b).any(-1)).sum())
+        if choices != want_choices:
+            raise AssertionError(f"{cfg.name}: {choices} expert choices "
+                                 f"recorded, expected {want_choices}")
+        if differing_slots:
+            raise AssertionError(f"{cfg.name}: {differing_slots} of {slots} "
+                                 "dispatch slots differ between the kernel "
+                                 "and plain paths where the routes are "
+                                 "equal")
         path_err = err(out_k, out_p)
         if not bool(torch.isfinite(out_k).all()):
             raise AssertionError(f"{cfg.name} kernel path logits are not "
@@ -899,6 +1101,7 @@ def main() -> int:
                "gating_calls": len(routes_k), "expert_choices": choices,
                "differing_routes": differing,
                "reordered_tokens": reordered,
+               "slots_compared": slots, "differing_slots": differing_slots,
                "prefill_ms": t_k["prefill_ms"],
                "plain_prefill_ms": t_p["prefill_ms"],
                "times": {"cuda": t_k, "plain": t_p}}
@@ -924,16 +1127,19 @@ def main() -> int:
         for _ in range(3):
             model.decode_step(cache, toks, d_lens)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_steps):
-                model.decode_step(cache, toks, d_lens)
-            torch.cuda.synchronize()
-            step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-        dev_events = [e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and e.self_device_time_total > 0]
+        for _ in range(3):      # a session without device records is retried
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(n_steps):
+                    model.decode_step(cache, toks, d_lens)
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+            dev_events = [e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA
+                          and e.self_device_time_total > 0]
+            if dev_events:
+                break
         kernels = sorted(((e.key, e.self_device_time_total / 1e3 / n_steps)
                           for e in dev_events), key=lambda kv: -kv[1])
         busy_ms = sum(ms for _, ms in kernels)
@@ -944,7 +1150,11 @@ def main() -> int:
                "device_busy_ms": busy_ms if kernels else "not measured",
                "device_idle_share": 1 - busy_ms / step_ms if kernels
                else "not measured",
-               "top_kernels_ms": [[k[:60], ms] for k, ms in kernels[:8]]}
+               "top_kernels_ms": [[k[:60], ms] for k, ms in kernels[:8]],
+               # launches by kernel name over the n_steps traced steps: the
+               # profiler can miss a launch at the window's edge (a count
+               # one short of a multiple of n_steps)
+               "kernel_counts": {e.key: e.count for e in dev_events}}
         print(f"trace: {json.dumps(res)}")
 
     # -- 3-5. qwen2-1.5b: serving, path (bf16), trace ----------------------
@@ -1020,6 +1230,7 @@ def main() -> int:
         if not row["launches"]:
             raise AssertionError(f"{row['name']} was never launched on the "
                                  "served paths")
+    print(f"device timer: {json.dumps(timer_use)}")
     print(json.dumps({"kernels": kernel_rows}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

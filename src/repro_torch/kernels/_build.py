@@ -38,8 +38,11 @@ SIGNATURES = {
     # lengths dtype, n_splits, window, softcap, scale, stream
     "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _F, _F, _P),
-    # logits, weights, ids, T, E, k, stream
-    "repro_moe_gating": (_P, _P, _P, _I, _I, _I, _P),
+    # logits, weights, ids, slot_of, token_of_slot, tk_of_slot (the three
+    # maps null for gating alone), aux, partial, ticket, T, E, k, groups,
+    # ctas, cap, stream
+    "repro_moe_route": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _P),
     # r, k, v, w, u, s0, out, sT, scratch, B, T, H, K, chunk, dtype, stream
     "repro_rwkv6_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _P),

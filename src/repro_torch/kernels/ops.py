@@ -1,4 +1,4 @@
-"""Dispatch around the attention, MoE gating, RWKV6 and Mamba scan hot spots
+"""Dispatch around the attention, MoE routing, RWKV6 and Mamba scan hot spots
 (port of ``repro/kernels/ops.py``).
 
 Every model-layer call site goes through this module. The implementation
@@ -81,16 +81,31 @@ def moe_gating(logits, top_k: int, *, impl: Optional[str] = None):
     """Top-k softmax gating. logits (T, E) -> (weights (T, k) f32,
     ids (T, k) i32, aux {"lb_loss", "z_loss"}).
 
-    On the kernel path the aux losses come from the kernel's ids and one
-    softmax and logsumexp of the same logits; nothing selects the top k a
-    second time. ``"plain"`` and ``"naive"`` both take ``ref.topk_gating``.
+    The kernel path is one launch of the routing kernel without its maps,
+    which writes the aux losses too. ``"plain"`` and ``"naive"`` both take
+    ``ref.topk_gating``.
     """
     if _kernel_path(impl, logits):
-        lf = logits.float().contiguous()
-        weights, ids = mg.moe_gating_topk(lf, top_k)
-        return weights, ids, ref.gating_aux(lf, torch.softmax(lf, dim=-1),
-                                            ids)
+        return mg.moe_gating(logits.float().contiguous(), top_k)
     return ref.topk_gating(logits, top_k)
+
+
+def moe_route(logits, top_k: int, *, cap: int, nb: int,
+              impl: Optional[str] = None):
+    """Everything an MoE layer needs between its router product and its
+    dispatch gather: top-k gating of logits (T, E) and the GShard dispatch
+    maps of ``nb`` blocks of T / nb tokens with ``cap`` slots per expert.
+    Returns (weights (T, k) f32, ids (T, k) i32, slot_of (nb, T/nb, k),
+    token_of_slot (nb, E*cap+1), tk_of_slot (nb, E*cap+1), aux
+    {"lb_loss", "z_loss"} over all T); the maps are int64 with each block's
+    values local to it (``ref.dispatch_indices``).
+
+    On CUDA tensors one launch of the routing kernel computes all of it;
+    ``"plain"`` and ``"naive"`` take ``ref.moe_route`` (``ref.topk_gating``
+    and ``ref.dispatch_indices``)."""
+    if _kernel_path(impl, logits):
+        return mg.moe_route(logits.float().contiguous(), top_k, cap, nb)
+    return ref.moe_route(logits, top_k, cap, nb)
 
 
 def _into(result, state_out):
@@ -109,8 +124,10 @@ def rwkv6_scan(r, k, v, w, u, state, *, impl: Optional[str] = None,
 
     A CUDA tensor goes to the kernel at every T, T == 1 included (one launch
     where the single-step version takes about eight). The plain path takes
-    ``ref.rwkv6_single_step`` at T == 1 and ``ref.rwkv6_chunked`` otherwise,
-    as the reference does; ``"naive"`` the sequential oracle.
+    ``ref.rwkv6_single_step`` at T == 1 and ``ref.rwkv6_chunked_exact``
+    otherwise (the reference's ``rwkv6_chunked`` clips its exponents at
+    ±60 and is wrong under strong decays); ``"naive"`` the sequential
+    oracle.
     ``state_out`` (fp32, the state's shape) receives the final state, which
     is then returned in it; it may be ``state`` itself."""
     if _kernel_path(impl, r):
@@ -120,7 +137,7 @@ def rwkv6_scan(r, k, v, w, u, state, *, impl: Optional[str] = None,
     elif r.shape[1] == 1:
         res = ref.rwkv6_single_step(r, k, v, w, u, state)
     else:
-        res = ref.rwkv6_chunked(r, k, v, w, u, state)
+        res = ref.rwkv6_chunked_exact(r, k, v, w, u, state)
     return _into(res, state_out)
 
 

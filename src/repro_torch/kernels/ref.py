@@ -266,6 +266,123 @@ def gating_aux(logits: torch.Tensor, probs: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# MoE dispatch index maps (integers only; tiny)
+# ---------------------------------------------------------------------------
+def dispatch_indices(idx: torch.Tensor, E: int, cap: int):
+    """The reference's ``build_dispatch_indices`` over a leading block dim:
+    idx (N, T, K) expert choices -> (int64)
+    slot_of (N, T, K): destination slot in [0, E*cap] (E*cap = dropped);
+    token_of_slot (N, E*cap+1): source token in [0, T] (T = empty slot);
+    tk_of_slot (N, E*cap+1): flat t*K+k index in [0, T*K] (T*K = empty).
+    An entry's position is its rank among the block's entries routed to
+    the same expert, in flat order (a stable sort); positions >= cap drop.
+    """
+    N, T, K = idx.shape
+    TK = T * K
+    dev = idx.device
+    flat_expert = idx.reshape(N, TK).long()
+    order = torch.argsort(flat_expert, dim=1, stable=True)
+    sorted_expert = flat_expert.gather(1, order)
+    counts = torch.zeros((N, E), dtype=torch.int64, device=dev).scatter_add_(
+        1, sorted_expert, torch.ones_like(sorted_expert))
+    starts = torch.cumsum(counts, dim=1) - counts
+    pos = torch.arange(TK, device=dev) - starts.gather(1, sorted_expert)
+    keep = pos < cap
+    slot_sorted = torch.where(keep, sorted_expert * cap + pos, E * cap)
+    inv = torch.argsort(order, dim=1, stable=True)
+    slot_of = slot_sorted.gather(1, inv).reshape(N, T, K)
+    # every dropped entry scatters to slot E*cap; the overwrite after each
+    # scatter keeps that slot empty whichever duplicate landed last
+    token_of_slot = torch.full((N, E * cap + 1), T, dtype=torch.int64,
+                               device=dev).scatter_(
+        1, slot_sorted, torch.where(keep, order // K, T))
+    token_of_slot[:, E * cap] = T
+    tk_of_slot = torch.full((N, E * cap + 1), TK, dtype=torch.int64,
+                            device=dev).scatter_(
+        1, slot_sorted, torch.where(keep, order, TK))
+    tk_of_slot[:, E * cap] = TK
+    return slot_of, token_of_slot, tk_of_slot
+
+
+def moe_route(logits: torch.Tensor, top_k: int, cap: int, nb: int):
+    """Top-k gating and the dispatch maps of ``nb`` blocks of T / nb tokens:
+    (weights (T, k) f32, ids (T, k) i32, slot_of (nb, T/nb, k),
+    token_of_slot and tk_of_slot (nb, E*cap+1), aux over all T)."""
+    weights, ids, aux = topk_gating(logits, top_k)
+    maps = dispatch_indices(ids.reshape(nb, -1, top_k), logits.shape[1],
+                            cap)
+    return (weights, ids, *maps, aux)
+
+
+def moe_route_sliced(logits: torch.Tensor, top_k: int, cap: int, nb: int,
+                     ctas: int):
+    """``moe_route`` cut as the CUDA routing kernel cuts it, for the tests
+    (which cannot run it): each block's tokens are split into ``ctas``
+    contiguous slices of ceil(Tb / ctas) tokens (the last ones short or
+    empty). Each slice ranks its entries per expert in flat order and
+    counts them; a slice's offset for expert e is the count of the slices
+    before it; an entry's position is offset + rank. Every output starts
+    empty and each element is written once: kept entries write their slot,
+    and the slices share out the empty slots and the sentinel E*cap by
+    contiguous ranges. The aux sums go slice by slice, then block by block,
+    in order."""
+    T, E = logits.shape
+    K = top_k
+    Tb = T // nb
+    S = E * cap + 1
+    dev = logits.device
+    lf = logits.float()
+    weights, ids, _ = topk_gating(lf, K)
+    probs = torch.softmax(lf, dim=-1)
+    lse2 = torch.logsumexp(lf, dim=-1) ** 2
+    slot_of = torch.empty((nb, Tb * K), dtype=torch.int64, device=dev)
+    token_of_slot = torch.empty((nb, S), dtype=torch.int64, device=dev)
+    tk_of_slot = torch.empty((nb, S), dtype=torch.int64, device=dev)
+    per = -(-Tb // ctas)
+    spans = [(min(r * per, Tb), min((r + 1) * per, Tb)) for r in range(ctas)]
+    psum = torch.zeros(E, device=dev)
+    counts = torch.zeros(E, dtype=torch.int64, device=dev)
+    z_sum = torch.zeros((), device=dev)
+    for g in range(nb):
+        flat = ids[g * Tb:(g + 1) * Tb].reshape(-1).long()
+        hist, ranks = [], []
+        for t0, t1 in spans:
+            oh = F.one_hot(flat[t0 * K:t1 * K], E)
+            hist.append(oh.sum(0))
+            ranks.append(((oh.cumsum(0) - oh) * oh).sum(1))
+        tot = torch.stack(hist).sum(0)
+        off = torch.zeros(E, dtype=torch.int64, device=dev)
+        for (t0, t1), h, rank in zip(spans, hist, ranks):
+            e = flat[t0 * K:t1 * K]
+            pos = off[e] + rank
+            keep = pos < cap
+            slot = torch.where(keep, e * cap + pos, E * cap)
+            slot_of[g, t0 * K:t1 * K] = slot
+            fi = torch.arange(t0 * K, t1 * K, device=dev)
+            token_of_slot[g, slot[keep]] = fi[keep] // K
+            tk_of_slot[g, slot[keep]] = fi[keep]
+            off = off + h
+        s = torch.arange(S, device=dev)
+        empty = (s == E * cap) | ((s % cap) >= tot[torch.clamp(
+            s // cap, max=E - 1)])
+        per_s = -(-S // ctas)
+        for r in range(ctas):
+            mine = empty & (s >= r * per_s) & (s < (r + 1) * per_s)
+            token_of_slot[g, mine] = Tb
+            tk_of_slot[g, mine] = Tb * K
+        blk_psum = torch.zeros(E, device=dev)
+        blk_z = torch.zeros((), device=dev)
+        for t0, t1 in spans:
+            blk_psum = blk_psum + probs[g * Tb + t0:g * Tb + t1].sum(0)
+            blk_z = blk_z + lse2[g * Tb + t0:g * Tb + t1].sum()
+        psum, z_sum, counts = psum + blk_psum, z_sum + blk_z, counts + tot
+    aux = {"lb_loss": E * torch.sum(counts / T * (psum / T)),
+           "z_loss": z_sum / T}
+    return (weights, ids, slot_of.reshape(nb, Tb, K), token_of_slot,
+            tk_of_slot, aux)
+
+
+# ---------------------------------------------------------------------------
 # RWKV6 (data-dependent-decay linear attention; "Finch")
 # ---------------------------------------------------------------------------
 def rwkv6_sequential(r, k, v, w, u, state):
@@ -300,7 +417,9 @@ def rwkv6_chunked(r, k, v, w, u, state, *, chunk: int = 32):
     of a chunk through a (c, c) per-channel-decayed score matrix in log
     space, both exponents shifted by the chunk's midpoint and clipped at
     ±60, as in the reference. T is padded to a multiple of the chunk with
-    zeros and w = 1 (the padding neither decays nor feeds the state)."""
+    zeros and w = 1 (the padding neither decays nor feeds the state).
+    Not the plain path: the clip is wrong for strong decays (ROADMAP C1);
+    ``ops`` takes ``rwkv6_chunked_exact``."""
     B, T, H, K = r.shape
     V = v.shape[-1]
     if T % chunk:
@@ -338,6 +457,63 @@ def rwkv6_chunked(r, k, v, w, u, state, *, chunk: int = 32):
         S = S * torch.exp(cum[:, :, -1, :])[..., None] + torch.einsum(
             "bhck,bhcv->bhkv", kc * decay_to_end, vc)
     out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, T, H, V)
+    return out.to(v.dtype), S
+
+
+def rwkv6_chunked_exact(r, k, v, w, u, state, *, chunk: int = 32):
+    """Chunked WKV6 with no clip: the plain path at T > 1.
+
+    Within a chunk, token j < t reaches token t through the decays of the
+    steps between them, D[t, j] = prod_{j < i < t} w_i per channel,
+    materialised as a (c + 1, c + 1, K) tensor with j from -1 and t up to
+    c: D[t, -1] carries the state into token t, D[c, j] carries token j
+    out of the chunk and D[c, -1] the state across it. The decays are
+    multiplied (a cumulative product), as the sequential oracle and the
+    CUDA kernel do: every factor is in (0, 1], so nothing overflows and
+    nothing is clamped, whatever w. (exp(cum_excl_t - cum_j) from the
+    chunk's cumulative log-decays is the same number, but the difference
+    of two large sums loses ~|cum| * 2^-24 of its exponent: 7e-5 at
+    w ~ e^-7.) All chunks' intra-chunk terms are computed at once; only
+    the carry of the state walks the chunks. Padding as in
+    ``rwkv6_chunked``."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    if T % chunk:
+        pad = (0, 0, 0, 0, 0, (-T) % chunk)
+        out, S = rwkv6_chunked_exact(F.pad(r, pad), F.pad(k, pad),
+                                     F.pad(v, pad), F.pad(w, pad, value=1.0),
+                                     u, state, chunk=chunk)
+        return out[:, :T], S
+    c, n = chunk, T // chunk
+
+    def split(x, d):            # (B, T, H, d) -> (B, H, n, c, d)
+        return x.float().reshape(B, n, c, H, d).permute(0, 3, 1, 2, 4)
+
+    rf, kf, vf, wf = split(r, K), split(k, K), split(v, V), split(w, K)
+    # factor[t, j] = w_{t-1} where j < t - 1, else 1 (rows t = 0..c, columns
+    # j = -1..c-1); its cumulative product over t is D
+    idx = torch.arange(c + 1, device=r.device)
+    live = (idx[:, None] - 1 > idx[None, :] - 1)[..., None]      # (t, j, 1)
+    w_prev = torch.cat([torch.ones_like(wf[..., :1, :]), wf], dim=3)
+    factor = torch.where(live, w_prev[..., :, None, :], 1.0)
+    D = torch.cumprod(factor, dim=3)                # (B, H, n, t, j, K)
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
+                     diagonal=-1)[..., None]                     # j < t
+    intra_decay = torch.where(tri, D[..., :c, 1:, :], 0.0)
+    scores = torch.einsum("bhntk,bhntjk,bhnjk->bhntj", rf, intra_decay, kf)
+    diag = torch.einsum("bhnck,hk,bhnck->bhnc", rf, u.float(), kf)
+    intra = torch.einsum("bhntj,bhnjv->bhntv", scores, vf) \
+        + diag[..., None] * vf
+    local = torch.einsum("bhnck,bhncv->bhnkv", kf * D[..., c, 1:, :], vf)
+    through = D[..., c, 0, :]                       # (B, H, n, K)
+    S = state.float()
+    s_in = []
+    for i in range(n):
+        s_in.append(S)
+        S = through[:, :, i, :, None] * S + local[:, :, i]
+    inter = torch.einsum("bhnck,bhnkv->bhncv", rf * D[..., :c, 0, :],
+                         torch.stack(s_in, dim=2))
+    out = (inter + intra).permute(0, 2, 3, 1, 4).reshape(B, T, H, V)
     return out.to(v.dtype), S
 
 

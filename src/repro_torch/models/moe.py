@@ -3,9 +3,11 @@
 Three paths, as in the reference:
   * ``capacity`` — top-k gating, then capacity-bounded gather-only dispatch:
     integer index maps (slot_of (T, K) token -> slot, token_of_slot /
-    tk_of_slot slot -> token) are built with integer sorts and scatters, and
-    every float movement is a gather. Tokens above an expert's capacity are
-    dropped in GShard order: by expert, then by flat index t * K + k.
+    tk_of_slot slot -> token), and every float movement is a gather. Tokens
+    above an expert's capacity are dropped in GShard order: by expert, then
+    by flat index t * K + k. ``ops.moe_route`` computes the gating, the maps
+    and the aux losses at once: one kernel launch on the card, integer
+    sorts and scatters in the plain version.
   * ``cfg.moe_block_dispatch = nb`` — the same over nb blocks of T / nb
     tokens, each with its own capacity (GShard group capacity). The
     capacity path is this path with one block and runs through the same
@@ -25,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 Params = dict
 
@@ -53,33 +55,8 @@ def capacity(cfg: ModelConfig, T: int) -> int:
 # ---------------------------------------------------------------------------
 # Index maps (integers only; tiny)
 # ---------------------------------------------------------------------------
-def _dispatch_indices(idx: torch.Tensor, E: int, cap: int):
-    """``build_dispatch_indices`` over a leading block dim: idx (N, T, K)."""
-    N, T, K = idx.shape
-    TK = T * K
-    dev = idx.device
-    flat_expert = idx.reshape(N, TK).long()
-    order = torch.argsort(flat_expert, dim=1, stable=True)
-    sorted_expert = flat_expert.gather(1, order)
-    counts = torch.zeros((N, E), dtype=torch.int64, device=dev).scatter_add_(
-        1, sorted_expert, torch.ones_like(sorted_expert))
-    starts = torch.cumsum(counts, dim=1) - counts
-    pos = torch.arange(TK, device=dev) - starts.gather(1, sorted_expert)
-    keep = pos < cap
-    slot_sorted = torch.where(keep, sorted_expert * cap + pos, E * cap)
-    inv = torch.argsort(order, dim=1, stable=True)
-    slot_of = slot_sorted.gather(1, inv).reshape(N, T, K)
-    # every dropped entry scatters to slot E*cap; the overwrite after each
-    # scatter keeps that slot empty whichever duplicate landed last
-    token_of_slot = torch.full((N, E * cap + 1), T, dtype=torch.int64,
-                               device=dev).scatter_(
-        1, slot_sorted, torch.where(keep, order // K, T))
-    token_of_slot[:, E * cap] = T
-    tk_of_slot = torch.full((N, E * cap + 1), TK, dtype=torch.int64,
-                            device=dev).scatter_(
-        1, slot_sorted, torch.where(keep, order, TK))
-    tk_of_slot[:, E * cap] = TK
-    return slot_of, token_of_slot, tk_of_slot
+# ``build_dispatch_indices`` over a leading block dim: idx (N, T, K)
+_dispatch_indices = ref.dispatch_indices
 
 
 def build_dispatch_indices(idx: torch.Tensor, E: int, cap: int):
@@ -123,15 +100,15 @@ def _expert_ffn(p: Params, xs: torch.Tensor) -> torch.Tensor:
 def moe_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                 impl: Optional[str] = None):
     """x: (B, S, D) -> (out (B, S, D), aux_losses dict). ``impl`` goes to
-    ``ops.moe_gating``."""
+    ``ops.moe_route`` (``ops.moe_gating`` on the dense path)."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.moe_top_k
     T = B * S
     x_flat = x.reshape(T, D)
     logits = x_flat.float() @ p["router"]                       # (T, E) f32
-    weights, idx, aux = ops.moe_gating(logits, K, impl=impl)
 
     if cfg.moe_impl == "dense":
+        weights, idx, aux = ops.moe_gating(logits, K, impl=impl)
         dt = x.dtype
         g = torch.einsum("td,edf->tef", x_flat, p["w_gate"].to(dt))
         h = torch.einsum("td,edf->tef", x_flat, p["w_up"].to(dt))
@@ -148,8 +125,8 @@ def moe_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         nb = 1                       # capacity path: one block of T tokens
     Tb = T // nb
     cap = capacity(cfg, Tb)
-    slot_of, token_of_slot, _ = _dispatch_indices(idx.reshape(nb, Tb, K),
-                                                  E, cap)
+    weights, _, slot_of, token_of_slot, _, aux = ops.moe_route(
+        logits, K, cap=cap, nb=nb, impl=impl)
     x_pad = torch.cat([x_flat.reshape(nb, Tb, D), x.new_zeros(nb, 1, D)], 1)
     disp = _dispatch(x_pad, token_of_slot)[:, :-1]        # (nb, E*cap, D)
     disp = disp.reshape(nb, E, cap, D).transpose(0, 1).reshape(E, nb * cap, D)

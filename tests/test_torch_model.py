@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.kernels import ops as jops
 from repro.models import transformer as JT
 from repro_torch.configs import get_config, list_archs
 from repro_torch.kernels import ops
@@ -40,6 +41,29 @@ j_forward = jax.jit(lambda cfg, p, t: JT.forward(cfg, p, t)[0],
 j_prefill = jax.jit(JT.prefill, static_argnums=0)
 j_decode = jax.jit(lambda cfg, p, c, t, l: JT.decode_step(
     cfg, p, c, t, l, append=False), static_argnums=0)
+
+
+def _prefill_sequential_scans(cfg, params, tokens):
+    """JAX's prefill with its sequential scan oracles (ops impl "naive",
+    set while the function is traced). Its default CPU path for RWKV6,
+    ref.rwkv6_chunked, clips its exponents at +-60 and is wrong under
+    strong decays (ROADMAP C1), which the port's plain path does not copy."""
+    prev = jops._DEFAULT_IMPL
+    jops.set_default_impl("naive")
+    try:
+        return JT.prefill(cfg, params, tokens)
+    finally:
+        jops.set_default_impl(prev)
+
+
+j_prefill_oracle = jax.jit(_prefill_sequential_scans, static_argnums=0)
+
+
+def jax_prefill(cfg, params, tokens):
+    """The JAX prefill the port is held to: ``j_prefill``, or for configs
+    with RWKV6 layers ``j_prefill_oracle``."""
+    rwkv = any(spec.kind == "rwkv" for spec in cfg.layer_specs())
+    return (j_prefill_oracle if rwkv else j_prefill)(cfg, params, tokens)
 
 
 def _numpy_params(cfg, seed):
@@ -92,17 +116,26 @@ def _err(a, b):
 
 @pytest.fixture
 def router_margins(monkeypatch):
-    """Per ops.moe_gating call of the port: the smallest gap between the
-    k-th and (k+1)-th router probability of any token."""
+    """Per gating call of the port (ops.moe_route on the capacity paths,
+    ops.moe_gating on the dense one): the smallest gap between the k-th and
+    (k+1)-th router probability of any token."""
     margins = []
-    gating = ops.moe_gating
+    gating, route = ops.moe_gating, ops.moe_route
 
-    def spy(logits, top_k, *, impl=None):
+    def record(logits, top_k):
         probs = torch.softmax(logits.float(), -1).sort(-1, descending=True)[0]
         margins.append(float((probs[:, top_k - 1] - probs[:, top_k]).min()))
+
+    def spy_gating(logits, top_k, *, impl=None):
+        record(logits, top_k)
         return gating(logits, top_k, impl=impl)
 
-    monkeypatch.setattr(ops, "moe_gating", spy)
+    def spy_route(logits, top_k, **kw):
+        record(logits, top_k)
+        return route(logits, top_k, **kw)
+
+    monkeypatch.setattr(ops, "moe_gating", spy_gating)
+    monkeypatch.setattr(ops, "moe_route", spy_route)
     return margins
 
 
@@ -134,7 +167,8 @@ def test_prefill_then_decode_matches_jax(arch, router_margins):
     tokens. gemma2's local layers cross their 32-token window. A recurrent
     state holds every token it was given, so configs with Mamba or RWKV
     layers prefill each prompt at its exact length instead. Every cache
-    leaf, K/V and recurrent states alike, must match at the end."""
+    leaf, K/V and recurrent states alike, must match at the end. RWKV6 is
+    held to JAX's sequential WKV6 oracle (``jax_prefill``)."""
     cfg_j, cfg_t, params_j, model = _both(arch, seed=2)
     rng = np.random.default_rng(3)
     lens, max_seq, steps = list(PREFILL_LENS), 48, 3
@@ -144,7 +178,7 @@ def test_prefill_then_decode_matches_jax(arch, router_margins):
         prompt = rng.integers(0, cfg_j.vocab_size, size=(1, max(lens)))
         if T.is_recurrent(cfg_t):
             prompt = prompt[:, :L]
-        lj, pf_j = j_prefill(cfg_j, params_j, jnp.asarray(prompt))
+        lj, pf_j = jax_prefill(cfg_j, params_j, jnp.asarray(prompt))
         lt, pf_t = model.prefill(torch.from_numpy(prompt))
         _check_routes(cfg_t, router_margins)
         assert _err(lt, lj) < TOL

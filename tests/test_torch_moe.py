@@ -67,7 +67,7 @@ def test_topk_gating_matches_jax(T, E, k):
     for name, want in aux_ref.items():
         assert abs(float(got[2][name]) - float(want)) <= 1e-6 * abs(
             float(want)), name
-    # the kernel path's aux: the same losses from ids + softmax of logits
+    # the aux losses from the ids and the softmax alone
     lf = torch.from_numpy(lg)
     aux = ref.gating_aux(lf, torch.softmax(lf, -1), got[1])
     for name in aux:
@@ -97,6 +97,89 @@ def test_build_dispatch_indices_matches_jax(cap):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     dropped = int((got[0] == 8 * cap).sum())
     assert (dropped > 0) == (cap == 8)
+
+
+# routing cases: T, E, K, cap, nb, logits (None: _logits(T, E, T))
+ROUTE_CASES = {
+    "granite-drops": (64, 32, 8, 8, 1, None),
+    "granite-no-drops": (64, 32, 8, 64, 1, None),   # cap = T: nothing drops
+    "jamba-drops": (40, 16, 2, 8, 1, "hot"),        # experts 0, 1 take all
+    "nb2": (64, 32, 8, 16, 2, None),
+    "ragged": (100, 32, 8, 32, 1, None),            # 100 % 3, 100 % 8 != 0
+    "underflow": (3, 16, 8, 8, 1, "underflow"),
+}
+
+
+def _route_logits(T, E, kind):
+    if kind == "underflow":
+        return _underflow_logits()
+    lg = _logits(T, E, T)
+    if kind == "hot":               # an adversarial route: every token to 0, 1
+        lg[:, :2] += 20.0
+    return lg
+
+
+def _check_route(got, lg, K, cap, nb):
+    """got: ops.moe_route's tuple (torch) against JAX's topk_gating and
+    build_dispatch_indices per block: integers equal, weights within 1e-6,
+    aux within 1e-6 relative. Returns the number of dropped entries."""
+    w, ids, slot_of, tos, tks, aux = got
+    T, E = lg.shape
+    Tb = T // nb
+    w_j, ids_j, aux_j = j_topk_gating(jnp.asarray(lg), K)
+    _check_gating((w, ids, aux), w_j, ids_j)
+    for name, want in aux_j.items():
+        assert abs(float(aux[name]) - float(want)) <= 1e-6 * abs(
+            float(want)), name
+    assert slot_of.shape == (nb, Tb, K) and tos.shape == (nb, E * cap + 1)
+    for g in range(nb):
+        want = j_dispatch_indices(ids_j[g * Tb:(g + 1) * Tb], E, cap)
+        for m, wm in zip((slot_of[g], tos[g], tks[g]), want):
+            assert m.dtype == torch.int64
+            np.testing.assert_array_equal(m.numpy(), np.asarray(wm))
+    return int((slot_of == E * cap).sum())
+
+
+@pytest.mark.parametrize("how", ["plain", "sliced-1", "sliced-3",
+                                 "sliced-8"])
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_moe_route_matches_jax(case, how):
+    """ops.moe_route (CPU: the plain version) and ref.moe_route_sliced, the
+    CUDA kernel's partition over 1, 3 and 8 CTAs, against JAX."""
+    T, E, K, cap, nb, kind = ROUTE_CASES[case]
+    lg = _route_logits(T, E, kind)
+    x = torch.from_numpy(lg)
+    if how == "plain":
+        got = ops.moe_route(x, K, cap=cap, nb=nb)
+    else:
+        got = ref.moe_route_sliced(x, K, cap, nb, int(how.split("-")[1]))
+    dropped = _check_route(got, lg, K, cap, nb)
+    if case.endswith("no-drops"):
+        assert dropped == 0
+    elif case.endswith("drops"):
+        assert dropped > 0
+
+
+@pytest.mark.parametrize("Tb,K,E,want", [
+    (8, 8, 32, 1),          # granite decode
+    (128, 8, 32, 1),
+    (129, 8, 32, 2),
+    (257, 8, 384, 3),
+    (1000, 2, 16, 8),       # jamba's 1000-token path prefill
+    (1024, 8, 32, 8),       # granite's serving prefill
+    (2048, 8, 32, 8),       # a max_seq prefill
+    (8192, 8, 32, 8),       # 1024 tokens x 8 a CTA: the shared-memory limit
+])
+def test_plan_route(Tb, K, E, want):
+    ctas = mg.plan_route(Tb, K, E)
+    assert ctas == want
+    assert -(-Tb // ctas) * K <= mg.MAX_CTA_ENTRIES
+
+
+def test_plan_route_raises_beyond_the_kernel():
+    for Tb, K, E in ((8193, 8, 32), (8, 8, 385), (8, 9, 32), (8, 4, 2)):
+        with pytest.raises(NotImplementedError):
+            mg.plan_route(Tb, K, E)
 
 
 def _moe_params(cfg, seed):
@@ -166,15 +249,38 @@ def cuda_device():
 @pytest.mark.cuda
 def test_cuda_moe_gating_matches_plain(cuda_device):
     """Kernel vs plain version on the card (chip_smoke.py runs the full
-    case list): ids equal, weights within 1e-6."""
+    case list): ids equal, weights within 1e-6, aux within 1e-6
+    relative."""
     cases = [(_logits(T, E, T), k) for T, E, k in GATING_SHAPES + [
         (8, 32, 8), (1024, 32, 8), (256, 16, 2)]]
     cases.append((_underflow_logits(), 8))
     for lg, k in cases:
         x = torch.from_numpy(lg).to(cuda_device)
         before = mg.launches
-        w, i, _ = ops.moe_gating(x, k)
+        w, i, aux = ops.moe_gating(x, k)
         assert mg.launches == before + 1
-        w_ref, i_ref, _ = ops.moe_gating(x, k, impl="plain")
+        w_ref, i_ref, aux_ref = ops.moe_gating(x, k, impl="plain")
         assert torch.equal(i.cpu(), i_ref.cpu())
         assert float((w - w_ref).abs().max()) < 1e-6
+        for name, want in aux_ref.items():
+            assert abs(float(aux[name]) - float(want)) <= 1e-6 * abs(
+                float(want)), name
+
+
+@pytest.mark.cuda
+def test_cuda_moe_route_matches_plain(cuda_device):
+    """The routing kernel vs its plain version on the card (chip_smoke.py
+    runs the served shapes): integers equal, weights within 1e-6, aux
+    within 1e-6 relative, one launch a call."""
+    for T, E, K, cap, nb, kind in ROUTE_CASES.values():
+        x = torch.from_numpy(_route_logits(T, E, kind)).to(cuda_device)
+        before = mg.launches
+        got = ops.moe_route(x, K, cap=cap, nb=nb)
+        assert mg.launches == before + 1
+        want = ops.moe_route(x, K, cap=cap, nb=nb, impl="plain")
+        for g, w in zip(got[1:5], want[1:5]):
+            assert torch.equal(g.cpu(), w.cpu())
+        assert float((got[0] - want[0]).abs().max()) < 1e-6
+        for name, w in want[5].items():
+            assert abs(float(got[5][name]) - float(w)) <= 1e-6 * abs(
+                float(w)), name

@@ -24,7 +24,7 @@ from repro_torch.serving import (BlockManager, EngineConfig, OutOfBlocks,
                                  Request, ServingEngine)
 # the reduced configs and the jitted JAX model entry points of the model
 # tests: the same config, shapes and jitted functions share XLA compiles
-from test_torch_model import PREFILL_LENS, _reduced, j_decode, j_prefill
+from test_torch_model import PREFILL_LENS, _reduced, j_decode, jax_prefill
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -94,13 +94,13 @@ def _jax_exact_prefill_greedy(cfg, params, prompts, max_batch, max_seq,
     its exact length into its slot, then committed decode steps over the
     whole slot batch, greedy. (The JAX engine pads prompts to a power of
     two, and its recurrent states then absorb the pad tokens: ROADMAP
-    C-ref-4.)"""
+    C-ref-4. RWKV6 prefills through JAX's sequential oracle: ROADMAP C1.)"""
     cache, _ = JT.init_cache(cfg, max_batch, max_seq)
     lengths = np.zeros(max_batch, np.int32)
     toks = np.zeros(max_batch, np.int32)
     out = []
     for slot, p in enumerate(prompts):
-        logits, pf = j_prefill(cfg, params, jnp.asarray([p], jnp.int32))
+        logits, pf = jax_prefill(cfg, params, jnp.asarray([p], jnp.int32))
         cache = JT.cache_insert(cfg, cache, pf, slot, len(p))
         out.append([int(jnp.argmax(logits[0, -1]))])
         lengths[slot] = len(p)

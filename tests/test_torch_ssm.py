@@ -48,16 +48,21 @@ def _err(a, b):
                                - np.asarray(b, np.float32))))
 
 
-def _rwkv_inputs(B, T, H, K, seed, strong_decay=False):
+def _rwkv_inputs(B, T, H, K, seed, strong_decay=False, decay_logit=None):
     """tests/test_kernels.py::test_rwkv6_kernel's distributions, in numpy;
     ``strong_decay`` draws w = exp(-exp(N(0, 1) + 2)) instead (down to
-    ~e^-20, the fast-decaying channels of trained RWKV-6 checkpoints)."""
+    ~e^-20, the fast-decaying channels of trained RWKV-6 checkpoints), and
+    ``decay_logit`` = (mu, sd) draws w = exp(-exp(N(mu, sd)))."""
     rng = np.random.default_rng(seed)
 
     def n(*shape):
         return rng.standard_normal(shape).astype(np.float32)
 
-    logit = n(B, T, H, K) + 2 if strong_decay else n(B, T, H, K) * 0.5 - 1
+    logit = n(B, T, H, K)
+    if decay_logit is not None:
+        logit = logit * decay_logit[1] + decay_logit[0]
+    else:
+        logit = logit + 2 if strong_decay else logit * 0.5 - 1
     w = np.exp(-np.exp(logit)).astype(np.float32)
     return (n(B, T, H, K) * 0.5, n(B, T, H, K) * 0.5, n(B, T, H, K) * 0.5,
             w, n(H, K) * 0.3, n(B, H, K, K) * 0.1)
@@ -96,7 +101,7 @@ def test_rwkv6_twins_match_jax(B, T, H, K):
     want = j_rwkv6["rwkv6_sequential"](*jargs)
     _check(ref.rwkv6_sequential(*targs), want)
     _check(ref.rwkv6_chunked(*targs), want)
-    _check(ops.rwkv6_scan(*targs), want)                 # CPU -> chunked
+    _check(ops.rwkv6_scan(*targs), want)         # CPU -> chunked_exact
     _check(ops.rwkv6_scan(*targs, impl="naive"), want)
     if T % 32 == 0:                 # the TPU kernel's own test shapes
         _check(ref.rwkv6_chunked(*targs),
@@ -128,6 +133,23 @@ def test_rwkv6_chunk_parallel_matches_jax(B, T, H, K, chunk, strong):
     _check(got, j_rwkv6[oracle](*jargs))
     if T % 32 == 0 and not strong:
         _check(got, jax_rwkv6_kernel(*jargs, interpret=True))
+
+
+@pytest.mark.parametrize("B,T,H,K,decay", [
+    (1, 96, 4, 32, "strong"),           # w = exp(-exp(N(2, 1))), median 6e-4
+    (1, 96, 4, 32, (1.5, 0.5)),         # median w 0.011: ROADMAP C1's worst
+    (2, 80, 2, 16, "strong"),           # T not whole chunks: the w = 1 pad
+], ids=["strong", "w~0.011", "strong-padded"])
+def test_plain_rwkv6_exact_under_strong_decays(B, T, H, K, decay):
+    """ROADMAP C1: the plain path (ops.rwkv6_scan on the CPU at T > 1,
+    ref.rwkv6_chunked_exact) against JAX's sequential oracle where the
+    clipped log-space ref.rwkv6_chunked is off by up to 13.7."""
+    strong = decay == "strong"
+    args = _rwkv_inputs(B, T, H, K, seed=T + H + 1, strong_decay=strong,
+                        decay_logit=None if strong else decay)
+    want = j_rwkv6["rwkv6_sequential"](*map(jnp.asarray, args))
+    _check(ops.rwkv6_scan(*map(torch.from_numpy, args)), want)
+    _check(ops.rwkv6_scan(*map(torch.from_numpy, args), impl="plain"), want)
 
 
 @pytest.mark.parametrize("B,T,H,sms,want", [
