@@ -35,14 +35,22 @@ Phases, each of which raises on failure (nothing is caught):
                hold the split-KV decode at its edges (G = 16, lengths 0
                and 1, a window under one split, int64 and int32 lengths)
                and the prefill at Sq = Skv = 64 k + 1 with a window under
-               one tile. Times with CUDA events and torch.profiler.
+               one tile. The decode kernel also in append mode (the new
+               token's k_new / v_new merged by its combine pass; lengths 0,
+               1 and S - 1, a window under one split and over several, a
+               window of 1, a softcap, G = 16, int32 and int64 lengths, the
+               served shapes) against its plain version and against the
+               committed kernel over the cache with the token written.
+               Times with CUDA events and torch.profiler, append mode
+               beside committed mode.
   3. serving — qwen2-1.5b, granite-moe-1b-a400m and rwkv6-1.6b at full
                width and depth, then jamba-1.5-large at full width on the
                first 4 layers of its period (bf16, seeded random weights)
-               behind ServingEngine(max_batch=8, max_seq=2048): 8 requests,
-               32 new tokens each. The launch counters, zeroed just before
-               each run, must show every prefill and decode step of every
-               layer going through its kernels, per layer kind.
+               behind ServingEngine(max_batch=8, max_seq=2048), which
+               decodes in append mode: 8 requests, 32 new tokens each. The
+               launch counters, zeroed just before each run, must show
+               every prefill and decode step of every layer going through
+               its kernels, per layer kind.
   4. path    — one prompt through prefill and 8 teacher-forced decode steps,
                once through the kernels and once with impl="plain": qwen2
                in bf16; granite in fp32 (gated, with no differing expert
@@ -51,10 +59,23 @@ Phases, each of which raises on failure (nothing is caught):
                equal) and in bf16 (reported); jamba in fp32 on layers 0-1
                (Mamba + dense, Mamba + MoE) and on layers 2-3 (Mamba +
                dense, attention + MoE), each gated with no differing expert
-               choice, and in bf16 on the 4 (reported).
-  5. trace   — torch.profiler over 5 serving-shaped decode steps (B=8) of
-               each model: step wall time, device busy time, top kernels,
-               launches by kernel name.
+               choice, and in bf16 on the 4 (reported). On each gated path
+               the kernel path's append-mode decode is also held to its
+               committed decode (qwen2 bf16 0.1, fp32 1e-4, the same route
+               and argmax gates).
+  5. trace   — torch.profiler over 5 serving-shaped append-mode decode steps
+               (B=8) of each model: step wall time, device busy time, top
+               kernels, launches by kernel name.
+  6. profile — repro_torch.launch.dryrun.run_cell for qwen2-1.5b at
+               decode_32k on the card (the batch cut to what fits), printed
+               on a dryrun: line; the H100 MaxTput row built from it by
+               profile_from_dryrun beside the analytic row, bucket by
+               bucket, and the engine model's step time beside the
+               measured one, on a profile: line.
+  7. cluster — qwen2-1.5b behind ServingCluster with {"H100": 2} (two
+               engines sharing one model on the card) under phase 6's
+               profile: phase 3's 8 requests, each of whose tokens must
+               equal the single engine's, exact launch counts.
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -102,6 +123,11 @@ PATH_TOL = 0.1
 # the chunked scans, which differ from the kernels' sequential sums by
 # ~1e-6 relative per layer (the case sweep above).
 PATH_TOL_FP32 = 1e-3
+# Append-mode decode vs committed decode on the kernel path, fp32: the two
+# differ only in where the decode kernel merges the new token (the combine
+# pass against the split pass), ~1e-7 per attention call at O(1) inputs.
+APPEND_TOL_FP32 = 1e-4
+SLO_TPOT_S = 0.12           # the repo's tests' TPOT SLO (Melange(..., 0.12))
 # The scans vs their sequential oracles: tests/test_kernels.py's 1e-4 for
 # fp32 outputs and states. With bf16 inputs both sides read the same bf16
 # values and compute in fp32, so the fp32 results differ by summation order
@@ -146,16 +172,24 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from repro_torch.configs import get_config
+    from repro_torch.core.accelerators import PAPER_GPUS
+    from repro_torch.core.engine_model import EngineModel, ModelPerf
+    from repro_torch.core.profiler import (
+        decode_bytes_per_step_base_from_record,
+        decode_flops_per_token_from_record, profile_catalog,
+        profile_from_dryrun)
+    from repro_torch.core.workload import bucket_grid
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gating as mg
     from repro_torch.kernels import rwkv6_scan as rk
     from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.launch import dryrun
     from repro_torch.models import transformer as T
     from repro_torch.models.moe import capacity
     from repro_torch.serving import (EngineConfig, LatencyStats, Request,
-                                     ServingEngine)
+                                     ServingCluster, ServingEngine)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -363,6 +397,71 @@ def main() -> int:
                                          "lengths 0: output not zero")
                 n_decode += 1
 
+    # append mode: the cache read-only with `lengths` old tokens, the new
+    # token's k_new / v_new merged by the combine pass. Against the plain
+    # version with k_new / v_new, and against the committed kernel over the
+    # cache with the token written at lengths and lengths + 1 (the
+    # reference's contract, tests/test_kernels.py::
+    # test_decode_append_mode_parity); lengths 0 must give exactly v_new.
+    append_cases = [  # B, S, H, KVH, Dh, window, softcap, lengths
+        (8, 2048, 12, 2, 128, None, None, None),        # qwen2 serving
+        (8, 2048, 16, 8, 64, None, None, None),         # granite serving
+        (3, 300, 12, 2, 128, None, None, [0, 1, 299]),  # lengths 0, 1, S-1
+        (4, 2048, 12, 2, 128, None, None, [2047, 0, 1, 1000]),
+        (8, 2048, 12, 2, 128, 50, None, None),          # window < one split
+        (4, 2048, 12, 2, 128, 600, None, [2047, 0, 1500, 700]),  # > splits
+        (4, 2048, 12, 2, 128, 1, None, [2047, 0, 1, 128]),   # self alone
+        (2, 512, 4, 2, 64, 128, 30.0, [0, 511]),        # window + softcap
+        (1, 256, 4, 4, 128, None, 30.0, [255]),         # softcap
+        (4, 2048, 32, 2, 128, None, None, [2047, 0, 1, 900]),   # G = 16
+        (4, 2048, 32, 2, 64, 40, 30.0, [0, 39, 40, 2047]),
+    ]
+    n_append = 0
+    sweep["decode_attention_append"] = {}
+    sweep["decode_attention_append_vs_committed"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).split(".")[-1]]
+        for B, S, H, KVH, Dh, window, cap, lens in append_cases:
+            q = rnd((B, H, Dh), dtype)
+            kc, vc = rnd((B, S, KVH, Dh), dtype), rnd((B, S, KVH, Dh), dtype)
+            kn, vn = rnd((B, KVH, Dh), dtype), rnd((B, KVH, Dh), dtype)
+            if lens is None:
+                lens = lrng.integers(0, S, size=B)
+                lens[0], lens[-1] = 0, S - 1              # both extremes
+            kw = dict(window=window, softcap=cap)
+            for ldt in (torch.int64, torch.int32):
+                ln = torch.tensor(lens, dtype=ldt, device=dev)
+                case = (B, S, H, KVH, Dh, window, cap, str(ldt), "append")
+                before = da.launches
+                got = ops.decode_attention(q, kc, vc, ln, k_new=kn, v_new=vn,
+                                           impl="cuda", **kw)
+                if da.launches != before + 1:
+                    raise AssertionError(f"decode append {case}: "
+                                         f"{da.launches - before} launches")
+                check("decode_attention_append", dtype, got,
+                      ops.decode_attention(q, kc, vc, ln, k_new=kn, v_new=vn,
+                                           impl="plain", **kw), case)
+                bidx = torch.arange(B, device=dev)
+                kc2, vc2 = kc.clone(), vc.clone()
+                kc2[bidx, ln.long()] = kn
+                vc2[bidx, ln.long()] = vn
+                committed = ops.decode_attention(q, kc2, vc2, ln + 1,
+                                                 impl="cuda", **kw)
+                e = err(got, committed)
+                if not e < tol:
+                    raise AssertionError(f"decode append {case}: {e} from "
+                                         f"the committed kernel >= {tol}")
+                key = str(dtype).split(".")[-1]
+                sweep["decode_attention_append_vs_committed"][key] = max(
+                    sweep["decode_attention_append_vs_committed"].get(key, 0),
+                    e)
+                zero = ln == 0
+                if not torch.equal(got[zero], vn[zero].repeat_interleave(
+                        H // KVH, dim=1)):
+                    raise AssertionError(f"decode append {case}: lengths 0 "
+                                         "rows are not v_new")
+                n_append += 1
+
     gating_cases = [  # T, E, k
         (100, 32, 4), (64, 8, 3), (257, 384, 8),        # tests/test_kernels
         (8, 32, 8), (1024, 32, 8),                      # granite serving
@@ -565,7 +664,8 @@ def main() -> int:
                    ops.rwkv6_scan(*args, impl="naive"),
                    (1, 100, 32, 64, "chunk 32", "in place"),
                    "rwkv6_sequential")
-    print(f"kernels: {n_flash} flash, {n_decode} decode, "
+    print(f"kernels: {n_flash} flash, {n_decode} decode, {n_append} "
+          f"append-mode decode, "
           f"{len(gating_cases) + 1} moe_gating, {len(route_cases)} moe_route "
           f"({dropped_total} entries dropped), {2 * len(rwkv_cases) + 2} "
           f"rwkv6_scan and {2 * len(ssm_cases) + 2} ssm_scan cases within "
@@ -654,6 +754,22 @@ def main() -> int:
     n_splits = da.plan_splits(B_D, KVH, S_D,
                               torch.cuda.get_device_properties(dev)
                               .multi_processor_count)
+    # append mode (the engine's) on the same caches and lengths: the new
+    # token's K/V read besides, the same bytes plus one token a sequence
+    a_sets = [s + (rnd((B_D, KVH, Dh), bf16), rnd((B_D, KVH, Dh), bf16))
+              for s in d_sets]
+
+    def decode_append(a, b, c, ln, kn, vn):
+        return ops.decode_attention(a, b, c, ln, k_new=kn, v_new=vn,
+                                    impl="cuda")
+
+    q, kc, vc, lens, kn, vn = a_sets[0]
+    append_err = err(decode_append(*a_sets[0]), ops.decode_attention(
+        q, kc, vc, lens, k_new=kn, v_new=vn, impl="plain"))
+    a_bytes = d_bytes + 2 * B_D * KVH * Dh * 2
+    a_flops = d_flops + 4 * B_D * H * Dh
+    a_bound = {"bytes": a_bytes / PEAK_BYTES * 1e3,
+               "operations": a_flops / PEAK_BF16_FLOPS * 1e3}
     decode_row = {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -674,7 +790,21 @@ def main() -> int:
         "flops": d_flops, "bytes": d_bytes,
         "n_splits": n_splits, "blocks": n_splits * B_D * KVH,
         "combine_blocks": B_D * H,
+        "append": {
+            "shape": "as above, k_new / v_new (B, KVH, Dh) merged by the "
+                     "combine pass, the cache read-only",
+            "ms": device_ms(decode_append, a_sets),
+            "call_ms": time_ms(decode_append, a_sets),
+            "plain_ms": time_ms(lambda *a: ops.decode_attention(
+                *a[:4], k_new=a[4], v_new=a[5], impl="plain"), a_sets),
+            "max_abs_err": append_err, "tol": TOL["bfloat16"],
+            "bound_ms": max(a_bound.values()),
+            "bound_by": max(a_bound, key=a_bound.get),
+            "flops": a_flops, "bytes": a_bytes},
     }
+    if not append_err < TOL["bfloat16"]:
+        raise AssertionError(f"decode append at the serving shape: "
+                             f"{append_err}")
     # device_ms's fallback beside the profiler on the same calls, for a
     # kernel longer and one shorter than its call's host time (reported)
     print("device timer check (ms, profiler vs events behind a spin): "
@@ -706,8 +836,10 @@ def main() -> int:
           f"{flash_row['call_ms']:.5f} ms, SDPA {flash_row['library_ms']:.5f}"
           f" ms; decode {n_splits} splits, {decode_row['blocks']} blocks, "
           f"device {decode_row['ms']:.5f} ms, call {decode_row['call_ms']:.5f}"
-          f" ms, SDPA + mask {decode_row['library_ms']:.5f} ms")
-    del pf_sets, lib_sets, d_sets, dlib_sets
+          f" ms, SDPA + mask {decode_row['library_ms']:.5f} ms; append "
+          f"mode device {decode_row['append']['ms']:.5f} ms, call "
+          f"{decode_row['append']['call_ms']:.5f} ms")
+    del pf_sets, lib_sets, d_sets, dlib_sets, a_sets
 
     def library_gating(lg, k):
         """One PyTorch composition of the same function (never called by
@@ -933,9 +1065,46 @@ def main() -> int:
               f"{time.perf_counter() - t0:.3f} s")
         return model
 
+    def zero_launches():
+        for mod in kernel_mods.values():
+            mod.launches = 0
+
+    def read_launches():
+        return {name: mod.launches for name, mod in kernel_mods.items()}
+
+    def expected_launches(cfg, prefills, decodes):
+        """Launches per kernel of ``prefills`` prefills and ``decodes``
+        decode steps, by layer kind."""
+        kinds = [spec.kind for spec in cfg.layer_specs()]
+        n_moe = sum(spec.mlp == "moe" for spec in cfg.layer_specs())
+        steps = prefills + decodes
+        return {"flash_attention": kinds.count("attn") * prefills,
+                "decode_attention": kinds.count("attn") * decodes,
+                "moe_gating": n_moe * steps,
+                "rwkv6_scan": kinds.count("rwkv") * steps,
+                "ssm_scan": kinds.count("mamba") * steps}
+
+    def serving_prompts(cfg):
+        """The 8 prompts of every serving run (default_rng(0))."""
+        rng = np.random.default_rng(0)
+        prompt_lens = rng.integers(64, 1025, size=N_REQUESTS)
+        return [list(map(int, rng.integers(0, cfg.vocab_size, size=L)))
+                for L in prompt_lens]
+
+    def latency(done):
+        stats = LatencyStats()
+        for r in done:
+            stats.observe(r.ttft, r.tpot)
+        return {"ttft_p50_s": stats.percentile("ttfts", 50),
+                "ttft_p99_s": stats.percentile("ttfts", 99),
+                "tpot_p50_s": stats.percentile("tpots", 50),
+                "tpot_p99_s": stats.percentile("tpots", 99)}
+
     def serve(cfg, model):
-        """8 requests x 32 new tokens; every kernel's launches are counted
-        from 0 over exactly this run and must match the layer counts."""
+        """8 requests x 32 new tokens through one engine (append-mode
+        decode); every kernel's launches are counted from 0 over exactly
+        this run and must match the layer counts. Returns the launches and
+        each request's tokens."""
         eng = ServingEngine(cfg, model, EngineConfig(max_batch=8,
                                                      max_seq=S_D))
         eng.submit(Request(rid=-1, prompt=list(range(1, 65)),
@@ -943,22 +1112,17 @@ def main() -> int:
         eng.run()                                # warm-up: cuBLAS, allocator
         eng.finished.clear()
         eng.prefills = eng.decodes = 0
-        rng = np.random.default_rng(0)
-        prompt_lens = rng.integers(64, 1025, size=N_REQUESTS)
-        prompts = [list(map(int, rng.integers(0, cfg.vocab_size, size=L)))
-                   for L in prompt_lens]
+        prompts = serving_prompts(cfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for mod in kernel_mods.values():
-            mod.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         for i, p in enumerate(prompts):
             eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
         done = eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {name: mod.launches for name, mod in kernel_mods.items()}
-        kinds = [spec.kind for spec in cfg.layer_specs()]
+        launches = read_launches()
         if len(done) != N_REQUESTS or any(len(r.generated) != NEW_TOKENS
                                           for r in done):
             raise AssertionError(f"serving {cfg.name}: {len(done)} finished,"
@@ -966,13 +1130,7 @@ def main() -> int:
         if eng.prefills != N_REQUESTS:
             raise AssertionError(f"serving {cfg.name}: {eng.prefills} "
                                  "prefills")
-        n_moe = sum(spec.mlp == "moe" for spec in cfg.layer_specs())
-        steps = eng.prefills + eng.decodes
-        expected = {"flash_attention": kinds.count("attn") * eng.prefills,
-                    "decode_attention": kinds.count("attn") * eng.decodes,
-                    "moe_gating": n_moe * steps,
-                    "rwkv6_scan": kinds.count("rwkv") * steps,
-                    "ssm_scan": kinds.count("mamba") * steps}
+        expected = expected_launches(cfg, eng.prefills, eng.decodes)
         if launches != expected:
             raise AssertionError(
                 f"serving {cfg.name}: launches {launches} for "
@@ -981,13 +1139,11 @@ def main() -> int:
         for r in done:
             if not all(0 <= t < cfg.vocab_size for t in r.generated):
                 raise AssertionError(f"request {r.rid}: token out of range")
-        stats = LatencyStats()
-        for r in done:
-            stats.observe(r.ttft, r.tpot)
         serving = {
             "model": cfg.name, "layers": cfg.n_layers,
-            "requests": len(done),
-            "new_tokens": NEW_TOKENS, "prompt_lens": prompt_lens.tolist(),
+            "requests": len(done), "decode_mode": "append",
+            "new_tokens": NEW_TOKENS,
+            "prompt_lens": [len(p) for p in prompts],
             "prefills": eng.prefills, "decode_steps": eng.decodes,
             "flash_launches": launches["flash_attention"],
             "decode_launches": launches["decode_attention"],
@@ -996,22 +1152,20 @@ def main() -> int:
             "ssm_scan_launches": launches["ssm_scan"],
             "wall_s": wall,
             "output_tok_per_s": N_REQUESTS * NEW_TOKENS / wall,
-            "ttft_p50_s": stats.percentile("ttfts", 50),
-            "ttft_p99_s": stats.percentile("ttfts", 99),
-            "tpot_p50_s": stats.percentile("tpots", 50),
-            "tpot_p99_s": stats.percentile("tpots", 99),
+            **latency(done),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         }
         print(f"serving: {json.dumps(serving)}")
-        return launches
+        return launches, {r.rid: list(r.generated) for r in done}
 
     P, STEPS = 1000, 8
     gating, route = ops.moe_gating, ops.moe_route
 
-    def drive(cfg, model, impl, prompt, forced):
-        """Prefill + teacher-forced decode steps; returns the logits rows,
-        times and, for every gating call, its expert ids and dispatch slots
-        (recorded by wrapping ops.moe_route, which the MoE layers call, and
+    def drive(cfg, model, impl, prompt, forced, append=False):
+        """Prefill + teacher-forced decode steps (committed, or with
+        ``append`` in append mode); returns the logits rows, times and, for
+        every gating call, its expert ids and dispatch slots (recorded by
+        wrapping ops.moe_route, which the MoE layers call, and
         ops.moe_gating, which the dense path calls, for this run only)."""
         routes = []
 
@@ -1036,7 +1190,7 @@ def main() -> int:
         lengths = torch.tensor([P], device=dev)
         for t in range(STEPS):
             step_logits, cache = model.decode_step(cache, forced[t], lengths,
-                                                   impl=impl)
+                                                   append=append, impl=impl)
             rows.append(step_logits[0])
             lengths = lengths + 1
         ev[2].record()
@@ -1046,26 +1200,19 @@ def main() -> int:
                 {"prefill_ms": ev[0].elapsed_time(ev[1]),
                  "decode_step_ms": ev[1].elapsed_time(ev[2]) / STEPS})
 
-    def path(cfg, model, tol, gate_argmax=False):
-        """Kernel path vs plain path on one prompt; gated on ``tol`` and,
-        when given, on zero differing expert choices (and with
-        ``gate_argmax`` on equal argmax at every position)."""
-        prng = np.random.default_rng(2)
-        prompt = torch.from_numpy(prng.integers(0, cfg.vocab_size,
-                                                size=(1, P))).to(dev)
-        forced = torch.from_numpy(prng.integers(0, cfg.vocab_size,
-                                                size=(STEPS, 1))).to(dev)
-        out_k, routes_k, t_k = drive(cfg, model, "cuda", prompt, forced)
-        out_p, routes_p, t_p = drive(cfg, model, "plain", prompt, forced)
+    def compare_routes(cfg, routes_a, routes_b, what):
+        """Expert choices and dispatch slots of two drives, call by call:
+        (choices, differing choices, reordered tokens, slots compared,
+        differing slots). Slots are compared where the routes are equal."""
         n_moe = sum(spec.mlp == "moe" for spec in cfg.layer_specs())
         calls = n_moe * (1 + STEPS)
         want_choices = n_moe * (P + STEPS) * cfg.moe_top_k
-        if not len(routes_k) == len(routes_p) == calls:
-            raise AssertionError(f"{cfg.name}: {len(routes_k)} kernel-path "
-                                 f"and {len(routes_p)} plain-path gating "
-                                 f"calls recorded, expected {calls}")
+        if not len(routes_a) == len(routes_b) == calls:
+            raise AssertionError(f"{cfg.name} {what}: {len(routes_a)} and "
+                                 f"{len(routes_b)} gating calls recorded, "
+                                 f"expected {calls}")
         choices = differing = reordered = slots = differing_slots = 0
-        for (a, sa), (b, sb) in zip(routes_k, routes_p):
+        for (a, sa), (b, sb) in zip(routes_a, routes_b):
             if sa is not None and torch.equal(a, b):
                 slots += sa.numel()
                 differing_slots += int((sa != sb).sum())
@@ -1079,17 +1226,39 @@ def main() -> int:
             differing += int((oh_a != oh_b).sum()) // 2
             reordered += int((same_set & (a != b).any(-1)).sum())
         if choices != want_choices:
-            raise AssertionError(f"{cfg.name}: {choices} expert choices "
-                                 f"recorded, expected {want_choices}")
+            raise AssertionError(f"{cfg.name} {what}: {choices} expert "
+                                 f"choices recorded, expected {want_choices}")
         if differing_slots:
-            raise AssertionError(f"{cfg.name}: {differing_slots} of {slots} "
-                                 "dispatch slots differ between the kernel "
-                                 "and plain paths where the routes are "
-                                 "equal")
+            raise AssertionError(f"{cfg.name} {what}: {differing_slots} of "
+                                 f"{slots} dispatch slots differ where the "
+                                 "routes are equal")
+        return choices, differing, reordered, slots, differing_slots
+
+    def path(cfg, model, tol, gate_argmax=False, append_tol=None):
+        """Kernel path vs plain path on one prompt (committed decode);
+        gated on ``tol`` and on zero differing expert choices (and with
+        ``gate_argmax`` on equal argmax at every position). Then the kernel
+        path's append-mode decode (the engine's) vs its committed decode,
+        gated on ``append_tol`` the same way."""
+        prng = np.random.default_rng(2)
+        prompt = torch.from_numpy(prng.integers(0, cfg.vocab_size,
+                                                size=(1, P))).to(dev)
+        forced = torch.from_numpy(prng.integers(0, cfg.vocab_size,
+                                                size=(STEPS, 1))).to(dev)
+        out_k, routes_k, t_k = drive(cfg, model, "cuda", prompt, forced)
+        out_p, routes_p, t_p = drive(cfg, model, "plain", prompt, forced)
+        out_a, routes_a, t_a = drive(cfg, model, "cuda", prompt, forced,
+                                     append=True)
+        choices, differing, reordered, slots, differing_slots = \
+            compare_routes(cfg, routes_k, routes_p, "kernel vs plain")
+        a_choices, a_differing, _, a_slots, _ = compare_routes(
+            cfg, routes_a, routes_k, "append vs committed")
         path_err = err(out_k, out_p)
-        if not bool(torch.isfinite(out_k).all()):
-            raise AssertionError(f"{cfg.name} kernel path logits are not "
-                                 "finite")
+        append_err = err(out_a, out_k)
+        for name, out in (("kernel path", out_k), ("append-mode", out_a)):
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{cfg.name} {name} logits are not "
+                                     "finite")
         res = {"model": cfg.name, "layers": cfg.n_layers,
                "layer_kinds": [f"{spec.kind}+{spec.mlp}"
                                for spec in cfg.layer_specs()],
@@ -1102,22 +1271,36 @@ def main() -> int:
                "differing_routes": differing,
                "reordered_tokens": reordered,
                "slots_compared": slots, "differing_slots": differing_slots,
+               "append_vs_committed": {
+                   "max_abs_err": append_err, "tol": append_tol,
+                   "argmax_agree": int((out_a.argmax(-1)
+                                        == out_k.argmax(-1)).sum()),
+                   "expert_choices": a_choices,
+                   "differing_routes": a_differing,
+                   "slots_compared": a_slots,
+                   "decode_step_ms": t_a["decode_step_ms"]},
                "prefill_ms": t_k["prefill_ms"],
                "plain_prefill_ms": t_p["prefill_ms"],
                "times": {"cuda": t_k, "plain": t_p}}
         print(f"path: {json.dumps(res)}")
+        gates = []
         if tol is not None:
-            if not path_err < tol:
-                raise AssertionError(f"{cfg.name} kernel path vs plain path "
-                                     f"logits: {path_err} >= {tol}")
-            if differing:
-                raise AssertionError(f"{cfg.name}: {differing} of {choices} "
-                                     "expert choices differ between the "
-                                     "kernel and plain paths")
-            if gate_argmax and res["argmax_agree"] != res["positions"]:
-                raise AssertionError(f"{cfg.name}: argmax differs at "
-                                     f"{res['positions'] - res['argmax_agree']}"
-                                     " positions")
+            gates.append(("kernel vs plain", path_err, tol, differing,
+                          res["argmax_agree"]))
+        if append_tol is not None:
+            gates.append(("append vs committed", append_err, append_tol,
+                          a_differing,
+                          res["append_vs_committed"]["argmax_agree"]))
+        for what, e, limit, n_diff, agree in gates:
+            if not e < limit:
+                raise AssertionError(f"{cfg.name} {what} logits: {e} >= "
+                                     f"{limit}")
+            if n_diff:
+                raise AssertionError(f"{cfg.name} {what}: {n_diff} of "
+                                     f"{choices} expert choices differ")
+            if gate_argmax and agree != res["positions"]:
+                raise AssertionError(f"{cfg.name} {what}: argmax differs at "
+                                     f"{res['positions'] - agree} positions")
         return res
 
     def trace(cfg, model, n_steps=5):
@@ -1125,14 +1308,14 @@ def main() -> int:
         cache = T.init_cache(cfg, B_D, S_D)
         toks = torch.zeros(B_D, dtype=torch.int64, device=dev)
         for _ in range(3):
-            model.decode_step(cache, toks, d_lens)
+            model.decode_step(cache, toks, d_lens, append=True)
         torch.cuda.synchronize()
         for _ in range(3):      # a session without device records is retried
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 for _ in range(n_steps):
-                    model.decode_step(cache, toks, d_lens)
+                    model.decode_step(cache, toks, d_lens, append=True)
                 torch.cuda.synchronize()
                 step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
             dev_events = [e for e in prof.key_averages()
@@ -1144,7 +1327,7 @@ def main() -> int:
                           for e in dev_events), key=lambda kv: -kv[1])
         busy_ms = sum(ms for _, ms in kernels)
         res = {"model": cfg.name, "layers": cfg.n_layers, "batch": B_D,
-               "lengths": d_lens.tolist(),
+               "lengths": d_lens.tolist(), "decode_mode": "append",
                "step_wall_ms": step_ms, "traced": True,
                "kernels_per_step": sum(e.count for e in dev_events) / n_steps,
                "device_busy_ms": busy_ms if kernels else "not measured",
@@ -1161,8 +1344,8 @@ def main() -> int:
     launches_by_path = {}
     cfg = get_config("qwen2-1.5b")
     model = build(cfg)
-    launches_by_path[cfg.name] = serve(cfg, model)
-    path(cfg, model, PATH_TOL)
+    launches_by_path[cfg.name], qwen2_tokens = serve(cfg, model)
+    path(cfg, model, PATH_TOL, append_tol=PATH_TOL)
     trace(cfg, model)
     del model
     free()
@@ -1170,10 +1353,10 @@ def main() -> int:
     # -- 3-5. granite-moe-1b-a400m: serving, path (fp32 gated, bf16), trace --
     cfg = get_config("granite-moe-1b-a400m")
     model = build(cfg)
-    launches_by_path[cfg.name] = serve(cfg, model)
+    launches_by_path[cfg.name], _ = serve(cfg, model)
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     model32 = build(cfg32)
-    path(cfg32, model32, PATH_TOL_FP32)
+    path(cfg32, model32, PATH_TOL_FP32, append_tol=APPEND_TOL_FP32)
     del model32
     free()
     path(cfg, model, None)          # bf16: reported, not gated
@@ -1184,14 +1367,15 @@ def main() -> int:
     # -- 3-5. rwkv6-1.6b: serving, path (bf16, fp32 gated), trace ----------
     cfg = get_config("rwkv6-1.6b")
     model = build(cfg)
-    launches_by_path[cfg.name] = serve(cfg, model)
+    launches_by_path[cfg.name], _ = serve(cfg, model)
     path(cfg, model, None)          # bf16: reported, not gated
     trace(cfg, model)
     del model
     free()
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     model32 = build(cfg32)
-    path(cfg32, model32, PATH_TOL_FP32, gate_argmax=True)
+    path(cfg32, model32, PATH_TOL_FP32, gate_argmax=True,
+         append_tol=APPEND_TOL_FP32)
     del model32
     free()
 
@@ -1209,8 +1393,8 @@ def main() -> int:
 
     cfg = layers(0, 4)
     model = build(cfg)
-    launches_by_path[f"{cfg.name} ({cfg.n_layers} layers)"] = serve(cfg,
-                                                                     model)
+    launches_by_path[f"{cfg.name} ({cfg.n_layers} layers)"], _ = serve(
+        cfg, model)
     path(cfg, model, None)          # bf16: reported, not gated
     trace(cfg, model)
     del model
@@ -1219,9 +1403,146 @@ def main() -> int:
         cfg32 = dataclasses.replace(layers(lo, lo + 2), dtype="float32",
                                     param_dtype="float32")
         model32 = build(cfg32)
-        path(cfg32, model32, PATH_TOL_FP32)
+        path(cfg32, model32, PATH_TOL_FP32, append_tol=APPEND_TOL_FP32)
         del model32
         free()
+
+    # -- 6. profile: the one-card dry-run record of qwen2-1.5b's decode step
+    # at decode_32k, and the H100 MaxTput row it gives against the analytic
+    # row ----------------------------------------------------------------
+    cfg = get_config("qwen2-1.5b")
+    zero_launches()
+    rec = dryrun.run_cell("qwen2-1.5b", "decode_32k",
+                          ROOT / "results" / "dryrun_torch")
+    free()
+    # every step it ran (a profiler session that saw no device time is
+    # run again)
+    dry_steps = rec["decode_steps"]
+    launches = read_launches()
+    expected = expected_launches(cfg, 0, dry_steps)
+    min_steps = 1 + dryrun.WARMUP_STEPS + dryrun.TIMED_STEPS \
+        + dryrun.PROFILED_STEPS
+    if launches != expected or dry_steps < min_steps:
+        raise AssertionError(f"dry-run: launches {launches} for {dry_steps} "
+                             f"decode steps, expected {expected}")
+    launches_by_path[f"{cfg.name} dry-run decode_32k"] = launches
+    print(f"dryrun: {json.dumps(rec)}")
+    # the decode kernel alone at the record's shape (one layer's cache,
+    # append mode, every sequence at seq_len - 1 old tokens), against its
+    # byte bound, at the planned split count and at more splits. A call
+    # takes ~2 ms, far above its host time, so back-to-back CUDA events
+    # time the device; torch.profiler beside them (it has dropped launches
+    # of these long kernels from short sessions)
+    B_rec, S_rec = rec["global_batch"], rec["seq_len"]
+    q = rnd((B_rec, cfg.n_heads, cfg.head_dim), bf16)
+    kc = rnd((B_rec, S_rec, cfg.n_kv_heads, cfg.head_dim), bf16)
+    vc = rnd((B_rec, S_rec, cfg.n_kv_heads, cfg.head_dim), bf16)
+    kn = rnd((B_rec, cfg.n_kv_heads, cfg.head_dim), bf16)
+    vn = rnd((B_rec, cfg.n_kv_heads, cfg.head_dim), bf16)
+    ln = torch.full((B_rec,), S_rec - 1, dtype=torch.int64, device=dev)
+    kv_bytes = 2 * B_rec * S_rec * cfg.n_kv_heads * cfg.head_dim * 2
+    planned = da.plan_splits(B_rec, cfg.n_kv_heads, S_rec, sms)
+    long_ctx = {"shape": f"B={B_rec} S={S_rec} H={cfg.n_heads} KVH="
+                         f"{cfg.n_kv_heads} Dh={cfg.head_dim} bf16 append",
+                "bound_ms": kv_bytes / PEAK_BYTES * 1e3, "bytes": kv_bytes,
+                "events_ms_by_splits": {}, "profiler_ms_by_splits": {}}
+    for n in sorted({planned, 2 * planned, 4 * planned}):
+        def long_call(n=n):
+            return da.decode_attention(q, kc, vc, ln, k_new=kn, v_new=vn,
+                                       n_splits=n)
+        key = f"{n}{'*' if n == planned else ''}"
+        long_ctx["events_ms_by_splits"][key] = time_ms(long_call, [()],
+                                                       iters=10)
+        long_ctx["profiler_ms_by_splits"][key] = device_ms(long_call, [()],
+                                                           iters=10)
+    print(f"dryrun decode kernel: {json.dumps(long_ctx)}")
+    del q, kc, vc, kn, vn, ln
+    free()
+    weight_bytes = sum(p.numel() * p.element_size() for p in
+                       T.Transformer(cfg, device="meta").parameters())
+    if not (rec["ok"] is True and rec["devices"] == 1 and rec["flops"] > 0
+            and rec["bytes_accessed"] >= weight_bytes):
+        raise AssertionError(f"dry-run record fails its gates: ok "
+                             f"{rec['ok']}, devices {rec['devices']}, flops "
+                             f"{rec['flops']}, bytes {rec['bytes_accessed']}"
+                             f" against {weight_bytes} weight bytes")
+    h100 = {"H100": PAPER_GPUS["H100"]}
+    buckets = bucket_grid()
+    perf = ModelPerf.from_config(cfg)
+    profile = profile_from_dryrun(h100, buckets, cfg, rec, SLO_TPOT_S)
+    analytic = profile_catalog(h100, buckets, perf, SLO_TPOT_S)
+    row, row_a = profile.max_tput["H100"], analytic.max_tput["H100"]
+    if not (np.isfinite(row).all() and (row >= 0).all() and row.any()):
+        raise AssertionError(f"record-derived H100 row: {row.tolist()}")
+    em_rec = EngineModel(
+        perf, flops_per_token=decode_flops_per_token_from_record(rec),
+        bytes_per_step_base=decode_bytes_per_step_base_from_record(rec,
+                                                                   perf))
+    em_ana = EngineModel(perf)
+    B_rec, S_rec = rec["global_batch"], rec["seq_len"]
+    print("profile: " + json.dumps({
+        "gpu": "H100", "slo_tpot_s": SLO_TPOT_S, "model": cfg.name,
+        "record": f"{rec['arch']} {rec['shape']} global_batch {B_rec} "
+                  f"seq_len {S_rec}",
+        "buckets": [[b.i_lo, b.i_hi, b.o_lo, b.o_hi, float(r), float(a),
+                     float(r / a) if a > 0 else None]
+                    for b, r, a in zip(buckets, row, row_a)],
+        "columns": "i_lo, i_hi, o_lo, o_hi, record-derived req/s, analytic "
+                   "req/s, ratio",
+        "feasible_buckets": [int((row > 0).sum()), int((row_a > 0).sum())],
+        "engine_model_step_ms": {
+            "record": em_rec.decode_step_time(PAPER_GPUS["H100"], B_rec,
+                                              S_rec) * 1e3,
+            "analytic": em_ana.decode_step_time(PAPER_GPUS["H100"], B_rec,
+                                                S_rec) * 1e3},
+        "measured_step_ms": rec["step_ms"],
+        "measured_device_busy_ms": rec["device_busy_ms"],
+        "card": rec["card"]}))
+
+    # -- 7. cluster: qwen2-1.5b behind ServingCluster, two H100 instances
+    # sharing one model on the card, routed under phase 6's profile --------
+    model = build(cfg)
+    cluster = ServingCluster(cfg, model, {"H100": 2}, profile,
+                             EngineConfig(max_batch=8, max_seq=S_D))
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    for i, p in enumerate(serving_prompts(cfg)):
+        cluster.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+    stats = cluster.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    prefills = sum(e.prefills for e in cluster.engines)
+    decodes = sum(e.decodes for e in cluster.engines)
+    expected = expected_launches(cfg, prefills, decodes)
+    done = [r for e in cluster.engines for r in e.finished]
+    tokens = {r.rid: list(r.generated) for r in done}
+    differing = sorted(rid for rid in qwen2_tokens
+                       if tokens.get(rid) != qwen2_tokens[rid])
+    print("cluster: " + json.dumps({
+        "model": cfg.name, "allocation": {"H100": 2},
+        "routed": cluster.routed, "per_instance": stats.per_instance,
+        "completed": stats.completed, "rejected": stats.rejected,
+        "mean_tokens": stats.mean_tokens, "prefills": prefills,
+        "decode_steps": decodes, "launches": launches, "wall_s": wall,
+        "output_tok_per_s": N_REQUESTS * NEW_TOKENS / wall,
+        **latency(done),
+        "requests_with_tokens_as_single_engine":
+            N_REQUESTS - len(differing)}))
+    if stats.completed != N_REQUESTS or stats.rejected or \
+            sum(stats.per_instance.values()) != N_REQUESTS:
+        raise AssertionError(f"cluster: {stats}")
+    if prefills != N_REQUESTS or launches != expected:
+        raise AssertionError(f"cluster: launches {launches} for {prefills} "
+                             f"prefills and {decodes} decode steps, "
+                             f"expected {expected}")
+    if differing:
+        raise AssertionError(f"cluster: requests {differing} generated other "
+                             "tokens than the single engine of phase 3")
+    launches_by_path[f"{cfg.name} cluster"] = launches
+    del model, cluster
+    free()
 
     for row in kernel_rows:
         row["launches_by_path"] = {m: n[row["name"]]

@@ -34,10 +34,11 @@ SIGNATURES = {
     # scale, stream
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _F, _F, _P),
-    # q, k_cache, v_cache, lengths, o, partials, B, S, H, KVH, Dh, dtype,
-    # lengths dtype, n_splits, window, softcap, scale, stream
-    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _F, _F, _P),
+    # q, k_cache, v_cache, lengths, k_new, v_new (null in committed mode),
+    # o, partials, B, S, H, KVH, Dh, dtype, lengths dtype, n_splits, window,
+    # softcap, scale, stream
+    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _F, _F, _P),
     # logits, weights, ids, slot_of, token_of_slot, tk_of_slot (the three
     # maps null for gating alone), aux, partial, ticket, T, E, k, groups,
     # ctas, cap, stream

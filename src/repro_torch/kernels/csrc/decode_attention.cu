@@ -1,15 +1,20 @@
 // Single-token GQA decode attention for Hopper (sm_90a), split-KV.
 //
 // Replaces: src/repro/kernels/decode_attention.py::decode_attention (Pallas
-// body `_kernel`), the TPU kernel behind ops.decode_attention on the
-// committed decode path (models/layers.py attention_decode).
+// body `_kernel`), the TPU kernel behind ops.decode_attention
+// (models/layers.py attention_decode).
 //
 // What it computes: for each sequence b and query head h, one new token
-// attends over its cache k/v[b, :lengths[b], h // G] (the token's own K/V is
-// already written at lengths[b] - 1). The optional sliding window is anchored
-// at lengths[b] - 1 (keys j > lengths[b] - 1 - window), the optional softcap
-// is applied before the mask, sums are fp32, and lengths[b] == 0 gives zeros.
-// lengths are int32 or int64, read as the engine hands them over.
+// attends over its cache k/v[b, :, h // G]. Committed mode: the token's own
+// K/V is already written at lengths[b] - 1, the keys are j < lengths[b], the
+// optional sliding window is anchored at lengths[b] - 1 (keys j > lengths[b]
+// - 1 - window), and lengths[b] == 0 gives zeros. Append mode (the serving
+// engine's; k_new and v_new given, (B, KVH, Dh)): the cache is read-only with
+// lengths[b] old tokens, the window is anchored at the new token's position
+// lengths[b] (keys j > lengths[b] - window), and the new token is one more
+// key, always kept, merged in the combine pass; lengths[b] == 0 gives v_new.
+// The optional softcap is applied to every score before the mask, sums are
+// fp32, and lengths are int32 or int64, read as the engine hands them over.
 //
 // What bounds it here. Decode attention reads the live cache once and does
 // ~2 flops per byte, so the card's bound is memory bandwidth (3.35 TB/s).
@@ -37,9 +42,13 @@
 // partial. Pass 2,
 // decode_combine_kernel, on the same stream, merges the splits of each
 // (b, h): each is rescaled by exp(m_s - m), empty ones are skipped through
-// the m_safe guard, and the sum is divided by max(l, 1e-30). The partials
-// are fp32 scratch that the wrapper allocates. Both dtypes share the
-// design: memory-bound decode has no use for tensor cores.
+// the m_safe guard, and the sum is divided by max(l, 1e-30). In append mode
+// the combine block first takes the new token as one more partial: m_self =
+// softcap(scale * q . k_new) (q scaled first, as in the split pass; a block
+// reduction over Dh), l_self = 1, o_self = v_new. So append mode is still two
+// launches, with no extra pass and no host sync. The partials are fp32
+// scratch that the wrapper allocates. Both dtypes share the design:
+// memory-bound decode has no use for tensor cores.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -120,7 +129,8 @@ __global__ void __launch_bounds__(NT)
                         const T* __restrict__ vc, const L* __restrict__ lengths,
                         float* __restrict__ m_part, float* __restrict__ l_part,
                         float* __restrict__ o_part, int S, int H, int KVH,
-                        int chunk, int window, float softcap, float scale) {
+                        int chunk, int window, int append, float softcap,
+                        float scale) {
   constexpr int N = repro::Chunk<T>::N;   // elements of one 16-byte load
   constexpr int LPR = DH / N;             // lanes that share a K row
   constexpr int RPW = 32 / LPR;           // K rows a warp reads per step
@@ -142,7 +152,9 @@ __global__ void __launch_bounds__(NT)
 
   const long long raw_len = static_cast<long long>(lengths[b]);
   const int len = int(min(max(raw_len, 0LL), static_cast<long long>(S)));
-  const int lo = window > 0 ? max(0, len - window) : 0;   // first key kept
+  // first key kept: the window ends at the new token, which sits at len - 1
+  // in committed mode and at len (outside the cache) in append mode
+  const int lo = window > 0 ? max(0, len - window + append) : 0;
   const int ra = max(split * chunk, lo);
   const int re = min(split * chunk + chunk, len);
   // partial of head g of this block: (b, kvh * G + g, split)
@@ -316,13 +328,17 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// One block of DH threads per (b, h): merges the n_splits partials.
+// One block of DH threads per (b, h): merges the n_splits partials and, in
+// append mode (k_new non-null), the new token as one more partial.
 template <typename T, int DH>
 __global__ void __launch_bounds__(DH)
     decode_combine_kernel(const float* __restrict__ m_part,
                           const float* __restrict__ l_part,
-                          const float* __restrict__ o_part, T* __restrict__ o,
-                          int n_splits) {
+                          const float* __restrict__ o_part,
+                          const T* __restrict__ q, const T* __restrict__ k_new,
+                          const T* __restrict__ v_new, T* __restrict__ o,
+                          int n_splits, int H, int KVH, float softcap,
+                          float scale) {
   const size_t bh = blockIdx.x;
   const int d = threadIdx.x;
   const float* mp = m_part + bh * n_splits;
@@ -330,6 +346,24 @@ __global__ void __launch_bounds__(DH)
   const float* op = o_part + bh * n_splits * DH;
   float mx = kNegInf;
   for (int s = 0; s < n_splits; ++s) mx = fmaxf(mx, mp[s]);
+  float m_self = kNegInf, v_self = 0.f;
+  if (k_new != nullptr) {   // uniform over the block
+    __shared__ float red[DH / 32];
+    const size_t b = bh / H;
+    const int h = int(bh % H);
+    const size_t kv = (b * KVH + h / (H / KVH)) * DH;
+    float x = to_f32(q[bh * DH + d]) * scale * to_f32(k_new[kv + d]);
+    x = repro::warp_sum(x, 32);
+    if (d % 32 == 0) red[d / 32] = x;
+    __syncthreads();
+    float dot = 0.f;
+#pragma unroll
+    for (int w = 0; w < DH / 32; ++w) dot += red[w];
+    if (softcap > 0.f) dot = softcap * tanhf(dot / softcap);
+    m_self = dot;
+    v_self = to_f32(v_new[kv + d]);
+    mx = fmaxf(mx, m_self);
+  }
   const float m_safe = mx <= kNegInf / 2 ? 0.f : mx;
   float l = 0.f, acc = 0.f;
   for (int s = 0; s < n_splits; ++s) {
@@ -339,14 +373,20 @@ __global__ void __launch_bounds__(DH)
       acc += wt * op[size_t(s) * DH + d];
     }
   }
+  if (k_new != nullptr) {
+    const float wt = expf(m_self - m_safe);
+    l += wt;
+    acc += wt * v_self;
+  }
   o[bh * DH + d] = from_f32<T>(acc / fmaxf(l, 1e-30f));
 }
 
 template <typename T, int DH, typename L>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const void* lengths, void* o, float* partials, int B,
-                   int S, int H, int KVH, int n_splits, int window,
-                   float softcap, float scale, cudaStream_t stream) {
+                   const void* lengths, const void* k_new, const void* v_new,
+                   void* o, float* partials, int B, int S, int H, int KVH,
+                   int n_splits, int window, float softcap, float scale,
+                   cudaStream_t stream) {
   const int G = H / KVH;
   if (G < 1 || G > MAX_G || n_splits < 1) return cudaErrorInvalidValue;
   auto split_kern = decode_split_kernel<T, DH, L>;
@@ -364,36 +404,41 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
   split_kern<<<grid, NT, smem_bytes(G, DH, sizeof(T)), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), static_cast<const L*>(lengths), m_part,
-      l_part, o_part, S, H, KVH, chunk, window, softcap, scale);
+      l_part, o_part, S, H, KVH, chunk, window, k_new != nullptr ? 1 : 0,
+      softcap, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_combine_kernel<T, DH><<<B * H, DH, 0, stream>>>(
-      m_part, l_part, o_part, static_cast<T*>(o), n_splits);
+      m_part, l_part, o_part, static_cast<const T*>(q),
+      static_cast<const T*>(k_new), static_cast<const T*>(v_new),
+      static_cast<T*>(o), n_splits, H, KVH, softcap, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int DH>
 cudaError_t launch_len(int len_dtype, const void* q, const void* kc,
-                       const void* vc, const void* lengths, void* o,
-                       float* partials, int B, int S, int H, int KVH,
-                       int n_splits, int window, float softcap, float scale,
-                       cudaStream_t stream) {
+                       const void* vc, const void* lengths, const void* k_new,
+                       const void* v_new, void* o, float* partials, int B,
+                       int S, int H, int KVH, int n_splits, int window,
+                       float softcap, float scale, cudaStream_t stream) {
   if (len_dtype == kInt32)
-    return launch<T, DH, int32_t>(q, kc, vc, lengths, o, partials, B, S, H,
-                                  KVH, n_splits, window, softcap, scale,
-                                  stream);
+    return launch<T, DH, int32_t>(q, kc, vc, lengths, k_new, v_new, o,
+                                  partials, B, S, H, KVH, n_splits, window,
+                                  softcap, scale, stream);
   if (len_dtype == kInt64)
-    return launch<T, DH, int64_t>(q, kc, vc, lengths, o, partials, B, S, H,
-                                  KVH, n_splits, window, softcap, scale,
-                                  stream);
+    return launch<T, DH, int64_t>(q, kc, vc, lengths, k_new, v_new, o,
+                                  partials, B, S, H, KVH, n_splits, window,
+                                  softcap, scale, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// k_new / v_new: null in committed mode, (B, KVH, Dh) in append mode
 extern "C" int repro_decode_attention(const void* q, const void* k_cache,
                                       const void* v_cache,
-                                      const void* lengths, void* o,
+                                      const void* lengths, const void* k_new,
+                                      const void* v_new, void* o,
                                       void* partials, int B, int S, int H,
                                       int KVH, int Dh, int dtype,
                                       int len_dtype, int n_splits, int window,
@@ -401,22 +446,25 @@ extern "C" int repro_decode_attention(const void* q, const void* k_cache,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partials);
+  if ((k_new == nullptr) != (v_new == nullptr))
+    return int(cudaErrorInvalidValue);
   if (dtype == repro::kFloat32 && Dh == 64)
-    return launch_len<float, 64>(len_dtype, q, k_cache, v_cache, lengths, o,
-                                 part, B, S, H, KVH, n_splits, window,
-                                 softcap, scale, s);
+    return launch_len<float, 64>(len_dtype, q, k_cache, v_cache, lengths,
+                                 k_new, v_new, o, part, B, S, H, KVH,
+                                 n_splits, window, softcap, scale, s);
   if (dtype == repro::kFloat32 && Dh == 128)
-    return launch_len<float, 128>(len_dtype, q, k_cache, v_cache, lengths, o,
-                                  part, B, S, H, KVH, n_splits, window,
-                                  softcap, scale, s);
+    return launch_len<float, 128>(len_dtype, q, k_cache, v_cache, lengths,
+                                  k_new, v_new, o, part, B, S, H, KVH,
+                                  n_splits, window, softcap, scale, s);
   if (dtype == repro::kBFloat16 && Dh == 64)
     return launch_len<__nv_bfloat16, 64>(len_dtype, q, k_cache, v_cache,
-                                         lengths, o, part, B, S, H, KVH,
-                                         n_splits, window, softcap, scale, s);
+                                         lengths, k_new, v_new, o, part, B, S,
+                                         H, KVH, n_splits, window, softcap,
+                                         scale, s);
   if (dtype == repro::kBFloat16 && Dh == 128)
     return launch_len<__nv_bfloat16, 128>(len_dtype, q, k_cache, v_cache,
-                                          lengths, o, part, B, S, H, KVH,
-                                          n_splits, window, softcap, scale,
-                                          s);
+                                          lengths, k_new, v_new, o, part, B,
+                                          S, H, KVH, n_splits, window,
+                                          softcap, scale, s);
   return int(cudaErrorInvalidValue);
 }

@@ -5,7 +5,9 @@
 Takes CUDA tensors only; ``ops.decode_attention`` sends CPU tensors to the
 plain version (``ref.decode_attention_direct``; ``ref.decode_attention_split``
 mirrors the kernels' split and combine). One call launches the split pass
-and the combine pass; ``launches`` counts such calls and nothing else.
+and the combine pass, in committed and in append mode alike (the combine
+pass merges the new token); ``launches`` counts such calls and nothing
+else.
 """
 from __future__ import annotations
 
@@ -46,9 +48,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
                      window: Optional[int] = None,
                      softcap: Optional[float] = None,
+                     k_new: Optional[torch.Tensor] = None,
+                     v_new: Optional[torch.Tensor] = None,
                      n_splits: Optional[int] = None) -> torch.Tensor:
     """q: (B, H, Dh); cache (B, S, KVH, Dh); lengths (B,) int32 or int64
-    cache lengths with the new token already written -> (B, H, Dh).
+    -> (B, H, Dh). Committed mode: ``lengths`` counts the new token, whose
+    K/V is already written. Append mode (``k_new``, ``v_new`` of shape
+    (B, KVH, Dh)): the cache is read-only with ``lengths`` old tokens and
+    the combine pass merges the new token (``ref.decode_attention_direct``).
     ``n_splits`` overrides ``plan_splits`` (chip_smoke.py sweeps it)."""
     global launches
     B, H, Dh = q.shape
@@ -63,17 +70,25 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             f"got H={H}, KVH={KVH}")
     if lengths.shape != (B,):
         raise ValueError(f"lengths shape {tuple(lengths.shape)} != ({B},)")
+    if (k_new is None) != (v_new is None):
+        raise ValueError("append mode takes both k_new and v_new")
+    news = () if k_new is None else (("k_new", k_new), ("v_new", v_new))
+    for name, t in news:
+        if t.shape != (B, KVH, Dh):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                             f"({B}, {KVH}, {Dh})")
     if lengths.dtype not in LENGTH_CODES:
         raise ValueError(f"lengths must be int32 or int64, got "
                          f"{lengths.dtype}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("lengths", lengths)):
+                    ("lengths", lengths), *news):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}")
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache), *news):
         if t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    *news):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              "aligned")
@@ -103,7 +118,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), o.data_ptr(), partials.data_ptr(), B, S, H,
+            lengths.data_ptr(), None if k_new is None else k_new.data_ptr(),
+            None if v_new is None else v_new.data_ptr(), o.data_ptr(),
+            partials.data_ptr(), B, S, H,
             KVH, Dh, DTYPE_CODES[q.dtype], LENGTH_CODES[lengths.dtype],
             n_splits, -1 if window is None else int(window),
             0.0 if softcap is None else float(softcap), Dh ** -0.5, stream)

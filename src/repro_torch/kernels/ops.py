@@ -63,18 +63,22 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
                      k_new: Optional[torch.Tensor] = None,
                      v_new: Optional[torch.Tensor] = None,
                      impl: Optional[str] = None):
-    """Single-token GQA decode over a committed cache.
-    q:(B,H,Dh) cache:(B,S,KVH,Dh) lengths:(B,) -> (B,H,Dh)."""
-    if k_new is not None or v_new is not None:
-        raise NotImplementedError(
-            "append-mode decode (k_new/v_new) is not ported: write the "
-            "token into the cache and decode in committed mode")
+    """Single-token GQA decode. q:(B,H,Dh) cache:(B,S,KVH,Dh) lengths:(B,)
+    -> (B,H,Dh).
+
+    Committed mode: the new token's K/V is in the cache and ``lengths``
+    counts it. Append mode (``k_new``, ``v_new`` of shape (B,KVH,Dh)): the
+    cache is read-only with ``lengths`` old tokens and the new token is
+    merged into the softmax; on CUDA tensors the kernel's combine pass
+    merges it, so append mode runs the kernel too."""
     if _kernel_path(impl, q):
         return da.decode_attention(q, k_cache, v_cache, lengths,
-                                   window=window, softcap=softcap)
+                                   window=window, softcap=softcap,
+                                   k_new=k_new, v_new=v_new)
     fn = (ref.decode_attention_naive if impl == "naive"
           else ref.decode_attention_direct)
-    return fn(q, k_cache, v_cache, lengths, window=window, softcap=softcap)
+    return fn(q, k_cache, v_cache, lengths, window=window, softcap=softcap,
+              k_new=k_new, v_new=v_new)
 
 
 def moe_gating(logits, top_k: int, *, impl: Optional[str] = None):

@@ -118,42 +118,74 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dh).to(q.dtype)
 
 
+def _check_append(k_new, v_new) -> bool:
+    """True in append mode; both or neither of k_new / v_new are given."""
+    if (k_new is None) != (v_new is None):
+        raise ValueError("append mode takes both k_new and v_new")
+    return k_new is not None
+
+
 def decode_attention_naive(q, k_cache, v_cache, lengths, *,
                            window: Optional[int] = None,
-                           softcap: Optional[float] = None) -> torch.Tensor:
+                           softcap: Optional[float] = None,
+                           k_new: Optional[torch.Tensor] = None,
+                           v_new: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Single-token decode oracle. q: (B, H, Dh); cache (B, S, KVH, Dh);
-    lengths (B,) valid cache lengths, the new token included."""
+    lengths (B,) valid cache lengths, the new token included. In append
+    mode (``k_new``, ``v_new`` of shape (B, KVH, Dh)) the cache holds
+    ``lengths`` old tokens and the new one is one more key, always kept."""
+    append = _check_append(k_new, v_new)
     B, H, Dh = q.shape
-    if window is None:
+    if window is None and not append:
         out = attention_naive(q[:, None], k_cache, v_cache, causal=False,
                               softcap=softcap, kv_lens=lengths)
         return out[:, 0]
-    # window anchored at position lengths-1
+    # window anchored at the new token's position: lengths-1 committed,
+    # lengths in append mode
     _, S, KVH, _ = k_cache.shape
     G = H // KVH
     qf = q.float().reshape(B, KVH, G, Dh) * (Dh ** -0.5)
     s = torch.einsum("bhgd,bshd->bhgs", qf, k_cache.float())
-    if softcap is not None:
-        s = softcap * torch.tanh(s / softcap)
+    vf = v_cache.float()
     k_pos = torch.arange(S, device=q.device)
     lens = lengths.to(q.device)[:, None]
-    valid = (k_pos[None] < lens) & (k_pos[None] > (lens - 1 - window))
+    valid = k_pos[None] < lens
+    if window is not None:
+        valid &= k_pos[None] > (lens - (0 if append else 1) - window)
+    if append:
+        s = torch.cat([s, torch.einsum("bhgd,bhd->bhg", qf,
+                                       k_new.float())[..., None]], -1)
+        vf = torch.cat([vf, v_new.float()[:, None]], 1)
+        valid = torch.cat([valid, torch.ones_like(valid[:, :1])], -1)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    o = torch.einsum("bhgs,bshd->bhgd", p, vf)
     return o.reshape(B, H, Dh).to(q.dtype)
 
 
 def decode_attention_direct(q, k_cache, v_cache, lengths, *,
                             window: Optional[int] = None,
-                            softcap: Optional[float] = None) -> torch.Tensor:
-    """Single-token decode as one masked softmax over a committed cache
-    (the new token's K/V already written; ``lengths`` counts it).
+                            softcap: Optional[float] = None,
+                            k_new: Optional[torch.Tensor] = None,
+                            v_new: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Single-token decode as one masked softmax over the cache.
+
+    Committed mode: the new token's K/V is already written and ``lengths``
+    counts it. Append mode (``k_new``, ``v_new`` of shape (B, KVH, Dh)):
+    the cache is read-only with ``lengths`` old tokens, the window is
+    anchored at the new token's position (keys ``k_pos > lengths -
+    window``), and the new token's score, softcapped too, is merged into
+    the softmax analytically, as ``repro/kernels/ref.py`` does.
 
     Mirrors the reference's rounding: q is scaled in its own dtype, scores
-    and sums are fp32, and the probabilities are cast to the cache dtype
-    before the PV product.
+    and sums are fp32, and the cache's probabilities are cast to the cache
+    dtype before the PV product.
     """
+    append = _check_append(k_new, v_new)
     B, H, Dh = q.shape
     _, S, KVH, _ = k_cache.shape
     G = H // KVH
@@ -165,15 +197,25 @@ def decode_attention_direct(q, k_cache, v_cache, lengths, *,
     lens = lengths.to(q.device)[:, None]
     valid = k_pos[None] < lens
     if window is not None:
-        valid &= k_pos[None] > (lens - 1 - window)
+        valid &= k_pos[None] > (lens - (0 if append else 1) - window)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
+    if append:
+        s_self = torch.einsum("bhgd,bhd->bhg", qf.float(),
+                              k_new.float())[..., None]
+        if softcap is not None:
+            s_self = softcap * torch.tanh(s_self / softcap)
+        m = torch.maximum(m, s_self)
     m_safe = torch.clamp(m, min=NEG_INF / 2)
     p = torch.exp(s - m_safe)
     p = torch.where(valid[:, None, None, :], p, 0.0)
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
+    if append:
+        p_self = torch.exp(s_self - m_safe)                  # (B,KVH,G,1)
+        l = l + p_self
+        out = out + p_self * v_new.float()[:, :, None]
     out = out / torch.clamp(l, min=1e-30)
     return out.reshape(B, H, Dh).to(q.dtype)
 
@@ -192,13 +234,20 @@ def split_chunk(S: int, n_splits: int, tile: int = DECODE_SPLIT_TILE) -> int:
 def decode_attention_split(q, k_cache, v_cache, lengths, *, n_splits: int,
                            window: Optional[int] = None,
                            softcap: Optional[float] = None,
+                           k_new: Optional[torch.Tensor] = None,
+                           v_new: Optional[torch.Tensor] = None,
                            tile: int = DECODE_SPLIT_TILE) -> torch.Tensor:
     """Split-KV decode as the CUDA kernel does it, in fp32: the cache is cut
     into ``n_splits`` chunks of ``split_chunk(S, n_splits, tile)`` rows; each
     chunk gives a partial (m, l, o) of its kept keys (an empty chunk gives
     m = NEG_INF, l = 0, o = 0); the combine rescales each partial by
     exp(m_s - m), skips empty ones through the m_safe guard and divides by
-    max(l, 1e-30). Used by the tests, which cannot run the CUDA combine."""
+    max(l, 1e-30). In append mode (``k_new``, ``v_new``) the chunks hold the
+    ``lengths`` old tokens, the window keeps keys ``k_pos > lengths -
+    window``, and the combine takes the new token as one more partial:
+    m = softcap(scale * q . k_new), l = 1, o = v_new. Used by the tests,
+    which cannot run the CUDA combine."""
+    append = _check_append(k_new, v_new)
     B, H, Dh = q.shape
     _, S, KVH, _ = k_cache.shape
     G = H // KVH
@@ -211,7 +260,7 @@ def decode_attention_split(q, k_cache, v_cache, lengths, *, n_splits: int,
     lens = lengths.to(q.device).long().clamp(0, S)[:, None]
     valid = k_pos[None] < lens
     if window is not None:
-        valid &= k_pos[None] >= lens - window
+        valid &= k_pos[None] >= lens - window + (1 if append else 0)
     vf = v_cache.float()
     parts = []
     for i in range(n_splits):
@@ -222,6 +271,12 @@ def decode_attention_split(q, k_cache, v_cache, lengths, *, n_splits: int,
         p = torch.where(keep, torch.exp(s_i - m_safe[..., None]), 0.0)
         parts.append((m_i, p.sum(dim=-1),
                       torch.einsum("bhgs,bshd->bhgd", p, vf)))
+    if append:
+        m_self = torch.einsum("bhgd,bhd->bhg", qf, k_new.float())
+        if softcap is not None:
+            m_self = softcap * torch.tanh(m_self / softcap)
+        parts.append((m_self, torch.ones_like(m_self),
+                      v_new.float()[:, :, None].expand(B, KVH, G, Dh)))
     m_s = torch.stack([m for m, _, _ in parts])
     m = m_s.amax(dim=0)
     m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)

@@ -107,13 +107,17 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: Params,
 
 def attention_decode(cfg: ModelConfig, spec: LayerSpec, p: Params,
                      x: torch.Tensor, cache: dict, lengths: torch.Tensor,
-                     *, impl: Optional[str] = None):
-    """One committed decode step. x: (B, 1, D); cache {"k", "v"} of shape
-    (B, Smax, KVH, Dh); lengths (B,) tokens already in the cache.
+                     *, append: bool = False, impl: Optional[str] = None):
+    """One decode step. x: (B, 1, D); cache {"k", "v"} of shape (B, Smax,
+    KVH, Dh); lengths (B,) tokens already in the cache.
 
-    The new token's K/V is written IN PLACE into ``cache`` at ``lengths``,
-    then the token attends over ``lengths + 1`` positions. Returns
-    (out (B, 1, D), cache).
+    ``append=False`` (committed): the new token's K/V is written IN PLACE
+    into ``cache`` at ``lengths``, then the token attends over ``lengths +
+    1`` positions; returns (out (B, 1, D), cache). ``append=True``: the
+    cache is read-only, the token attends over its ``lengths`` old tokens
+    and itself (``ops.decode_attention`` with ``k_new``/``v_new``), and the
+    deltas {"k_new", "v_new"} of shape (B, KVH, Dh) are returned for the
+    caller to commit, as in ``repro/models/layers.py``.
     """
     _check_self_attention(spec)
     B = x.shape[0]
@@ -121,10 +125,17 @@ def attention_decode(cfg: ModelConfig, spec: LayerSpec, p: Params,
     q, k_new, v_new = _qkv(p, x)
     q = rope(q, pos, cfg.rope_theta)
     k_new = rope(k_new, pos, cfg.rope_theta)
+    window = cfg.sliding_window if spec.attn_type == "local" else None
+    if append:
+        out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths,
+                                   window=window, softcap=cfg.attn_softcap,
+                                   k_new=k_new[:, 0], v_new=v_new[:, 0],
+                                   impl=impl)
+        return (_out_proj(out, p["wo"])[:, None],
+                {"k_new": k_new[:, 0], "v_new": v_new[:, 0]})
     bidx = torch.arange(B, device=x.device)
     cache["k"][bidx, lengths] = k_new[:, 0]
     cache["v"][bidx, lengths] = v_new[:, 0]
-    window = cfg.sliding_window if spec.attn_type == "local" else None
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths + 1,
                                window=window, softcap=cfg.attn_softcap,
                                impl=impl)

@@ -9,9 +9,12 @@ is the position in the group's period. A JAX params pytree therefore
 converts leaf for leaf (``from_jax_params``).
 
 PyTorch runs eagerly, so where the JAX stack scans over layers this one
-loops over views of the stacked tensors, and decode writes each layer's new
-K/V, and each recurrent layer's new state, into the cache in place
-(committed mode).
+loops over views of the stacked tensors. Decode writes each recurrent
+layer's new state into the cache in place. Attention K/V is written in
+place per layer in committed mode (``append=False``, the default, as in the
+reference), or, in append mode (the serving engine's), read-only in the
+layers and committed after each group with one batched write per stacked
+leaf.
 
 Caches mirror the JAX structure: ``{"g{i}": ({"mixer": {...}}, ...)}``.
 Attention layers hold ``k``/``v`` (L, B, S, KVH, Dh); Mamba layers ``h``
@@ -191,11 +194,13 @@ class Transformer(nn.Module):
         return logits
 
     def _layer(self, spec: LayerSpec, p: dict, x: torch.Tensor, *,
-               positions=None, cache=None, lengths=None, impl=None):
+               positions=None, cache=None, lengths=None, append=False,
+               impl=None):
         """One layer. ``cache`` None: prefill (attention returns its K/V,
         a recurrent layer starts from a zero state); else this layer's
-        cache views (decode: attention writes K/V into them). Returns (x,
-        the layer's new K/V or recurrent state)."""
+        cache views (decode: attention writes K/V into them, or with
+        ``append`` returns its {"k_new", "v_new"}). Returns (x, the layer's
+        new K/V, deltas or recurrent state)."""
         cfg = self.cfg
         h_in = L.rms_norm(x, p["norm1"], cfg.norm_eps)
         if spec.kind == "attn":
@@ -206,7 +211,7 @@ class Transformer(nn.Module):
             else:
                 mix_out, new = L.attention_decode(cfg, spec, p["mixer"],
                                                   h_in, cache, lengths,
-                                                  impl=impl)
+                                                  append=append, impl=impl)
         else:
             st = cache if cache is not None else SSM.init_state(
                 cfg, spec, x.shape[0], x.dtype, x.device)
@@ -279,14 +284,19 @@ class Transformer(nn.Module):
         new K/V and each recurrent layer's new state into ``cache`` IN
         PLACE and returns (logits (B, V), cache).
 
+        ``append=False`` (the default, as the reference's): each attention
+        layer writes its token's K/V before it attends. ``append=True`` (the
+        serving engine's mode): attention layers read the cache as it was
+        and merge the token analytically, and each group's K/V deltas are
+        committed after the group with one batched write per stacked leaf
+        (``k[:, b, lengths[b]]``); recurrent states are written in place
+        either way.
+
         Lengths given on the CPU are bounds-checked before anything is
         written (on the device an out-of-range write would be a device-side
         fault): never negative, and below the capacity of the first
         attention layer's cache where the config has one (a recurrent state
         has no capacity)."""
-        if append:
-            raise NotImplementedError(
-                "append-mode decode is not ported; use append=False")
         if lengths.device.type == "cpu":
             max_seq = _attention_capacity(self.cfg, cache)
             if bool(((lengths < 0) | (lengths >= max_seq)).any()):
@@ -294,18 +304,34 @@ class Transformer(nn.Module):
                                  f"cache's [0, {max_seq})")
         h = self._embed(tokens[:, None])
         lengths = lengths.to(device=h.device, dtype=torch.int64)
+        bidx = None          # batch rows of the append-mode commit
         for gi, period, rep, views in self._groups():
+            deltas = [[] for _ in period]
             for r in range(rep):
                 for li, spec in enumerate(period):
                     layer_cache = {name: t[r] for name, t in
                                    cache[f"g{gi}"][li]["mixer"].items()}
                     h, new = self._layer(spec, views[li][r], h,
                                          cache=layer_cache, lengths=lengths,
-                                         impl=impl)
-                    if spec.kind != "attn":
-                        for name, t in new.items():
-                            if t is not layer_cache[name]:  # in place
-                                layer_cache[name].copy_(t)
+                                         append=append, impl=impl)
+                    if spec.kind == "attn":
+                        if append:
+                            deltas[li].append(new)
+                        continue
+                    for name, t in new.items():
+                        if t is not layer_cache[name]:  # in place
+                            layer_cache[name].copy_(t)
+            if not append:
+                continue
+            for li, spec in enumerate(period):
+                if spec.kind != "attn":
+                    continue
+                leaves = cache[f"g{gi}"][li]["mixer"]
+                if bidx is None:
+                    bidx = torch.arange(h.shape[0], device=h.device)
+                for name in ("k", "v"):
+                    leaves[name][:, bidx, lengths] = torch.stack(
+                        [d[f"{name}_new"] for d in deltas[li]])
         h = L.rms_norm(h, self.final_norm, self.cfg.norm_eps)
         return self._unembed(h)[:, 0], cache
 

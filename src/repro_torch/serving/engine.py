@@ -8,8 +8,11 @@ two as the JAX engine does; configs with Mamba or RWKV layers prefill at the
 prompt's exact length, because a recurrent state taken at the padded end
 has also absorbed the pad tokens (the JAX engine's padded prefill does
 that, and its decode then departs from its own model's). Decode runs in
-committed mode: each step writes the new tokens' K/V and recurrent states
-into the slot cache in place (on CUDA, through the hand-written kernels).
+append mode, as the JAX engine's does: the attention layers read the slot
+cache as it was and the decode kernel merges each new token (on CUDA,
+through the hand-written kernels), then each group's new K/V is committed
+with one batched write per stacked leaf; recurrent states are written in
+place.
 Greedy sampling is one argmax over the batch on the device.
 """
 from __future__ import annotations
@@ -177,10 +180,10 @@ class ServingEngine:
         toks = np.zeros(self.ecfg.max_batch, np.int64)
         for r in active:
             toks[r.slot] = r.generated[-1]
-        # decode writes the new token's KV at position `lengths`
+        # decode commits the new token's KV at position `lengths`
         logits, self.cache = self.model.decode_step(
             self.cache, torch.from_numpy(toks).to(self.device),
-            torch.from_numpy(self.lengths.copy()))
+            torch.from_numpy(self.lengths.copy()), append=True)
         self.decodes += 1
         greedy = torch.argmax(logits, dim=-1).tolist()
         now = time.time()

@@ -158,6 +158,74 @@ def test_split_decode_mirror_matches_jax(B, S, H, KVH, Dh, win, cap,
             assert _err(o_split[lens > 0], o_oracle[lens > 0]) < TOL
 
 
+@pytest.mark.parametrize("win,cap", [(None, None), (64, None),
+                                     (None, 30.0), (32, 50.0)])
+def test_plain_append_decode_matches_jax(win, cap):
+    """Append mode (the new token's k_new / v_new merged, the cache
+    read-only with ``lengths`` old tokens) at the shapes and (window,
+    softcap) cases of tests/test_kernels.py::test_decode_append_mode_parity,
+    with lengths 0 too: the port's direct path, its ops dispatch (CPU:
+    plain), its naive oracle and its split mirror (one split; chunks of 32
+    rows, so the 32-row window sits under one split) against JAX's
+    ``ref.decode_attention_direct(k_new=...)``, and against committed decode
+    over the same cache with the token written at ``lengths`` and lengths
+    + 1 (the reference's contract). Lengths 0 give exactly v_new."""
+    B, S, H, KVH, Dh = 3, 128, 8, 2, 64
+    rng = np.random.default_rng(11)
+    q = _normal(rng, (B, H, Dh))
+    kc, vc = _normal(rng, (B, S, KVH, Dh)), _normal(rng, (B, S, KVH, Dh))
+    k_new, v_new = _normal(rng, (B, KVH, Dh)), _normal(rng, (B, KVH, Dh))
+    tq, tk, tv, tkn, tvn = map(torch.from_numpy, (q, kc, vc, k_new, v_new))
+    for lens in ([100, 37, S - 1], [0, 1, S - 1]):
+        lens = np.asarray(lens, np.int32)
+        tl = torch.from_numpy(lens)
+        o_jax = np.asarray(j_decode_direct(
+            *map(jnp.asarray, (q, kc, vc, lens)), window=win, softcap=cap,
+            k_new=jnp.asarray(k_new), v_new=jnp.asarray(v_new)))
+        kw = dict(window=win, softcap=cap, k_new=tkn, v_new=tvn)
+        outs = {
+            "direct": ref.decode_attention_direct(tq, tk, tv, tl, **kw),
+            "ops": ops.decode_attention(tq, tk, tv, tl, **kw),
+            "naive": ops.decode_attention(tq, tk, tv, tl, impl="naive", **kw),
+            "split 1": ref.decode_attention_split(tq, tk, tv, tl,
+                                                  n_splits=1, **kw),
+            "split 4 x 32": ref.decode_attention_split(
+                tq, tk, tv, tl, n_splits=4, tile=32, **kw),
+        }
+        at = torch.arange(S)[None, :, None, None] == tl.long()[:, None,
+                                                               None, None]
+        committed = ref.decode_attention_naive(
+            tq, torch.where(at, tkn[:, None], tk),
+            torch.where(at, tvn[:, None], tv), tl + 1, window=win,
+            softcap=cap)
+        for name, o in outs.items():
+            assert _err(o, o_jax) < 1e-5, (name, lens.tolist())
+            assert _err(o, committed) < 1e-5, (name, lens.tolist())
+        zero = lens == 0
+        if not zero.any():
+            continue
+        G = H // KVH
+        want = np.repeat(v_new[zero], G, axis=1)       # (b, H, Dh)
+        for name, o in outs.items():
+            assert _err(o.numpy()[zero], want) < 1e-6, name
+        assert np.array_equal(outs["direct"].numpy()[zero], want)
+
+
+def test_append_mode_needs_both_deltas():
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(_normal(rng, (1, 4, 64)))
+    kc = torch.from_numpy(_normal(rng, (1, 16, 2, 64)))
+    kn = torch.from_numpy(_normal(rng, (1, 2, 64)))
+    for fn in (ref.decode_attention_direct, ref.decode_attention_naive):
+        with pytest.raises(ValueError):
+            fn(q, kc, kc, torch.tensor([3]), k_new=kn)
+    with pytest.raises(ValueError):
+        ops.decode_attention(q, kc, kc, torch.tensor([3]), v_new=kn)
+    with pytest.raises(ValueError):
+        ref.decode_attention_split(q, kc, kc, torch.tensor([3]), n_splits=2,
+                                   k_new=kn)
+
+
 @pytest.mark.parametrize("B,KVH,S,sms,want", [
     (8, 2, 2048, 132, 16),      # qwen2 serving: 16 chunks of 128 rows
     (8, 8, 2048, 132, 8),       # granite / jamba: 8 chunks of 256 rows
@@ -209,10 +277,10 @@ def test_dispatch_rejects_what_it_cannot_run():
     qd = torch.zeros(1, 4, 64)
     with pytest.raises(ValueError):
         da.decode_attention(qd, k, k, torch.tensor([3]))
-    with pytest.raises(NotImplementedError):
-        ops.decode_attention(qd, k, k, torch.tensor([3]),
-                             k_new=torch.zeros(1, 2, 64),
-                             v_new=torch.zeros(1, 2, 64))
+    with pytest.raises(ValueError):                 # append mode too
+        da.decode_attention(qd, k, k, torch.tensor([3]),
+                            k_new=torch.zeros(1, 2, 64),
+                            v_new=torch.zeros(1, 2, 64))
     logits = torch.zeros(4, 32)
     with pytest.raises(ValueError):
         ops.moe_gating(logits, 8, impl="cuda")
@@ -283,3 +351,46 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
             assert _err(o.float().cpu(), o_ref.float().cpu()) < tol
             assert _err(o.float().cpu(), o_split.float().cpu()) < tol
             assert not o[ln == 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_append_decode_matches_plain(cuda_device, dtype):
+    """The decode kernel in append mode (the combine pass merges k_new /
+    v_new) vs its plain version, its split mirror and the committed kernel
+    over the cache with the token written at lengths (lengths + 1): lengths
+    0, 1 and S - 1, a window under one split and one over several, a
+    softcap, G = 16, int64 and int32 lengths. Lengths 0 give v_new."""
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device).to(dtype)
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for B, S, H, lens, window, cap in (
+            (3, 300, 12, [0, 1, 299], None, None),
+            (3, 300, 12, [0, 150, 299], 64, 30.0),
+            (4, 2048, 32, [2047, 0, 1000, 7], None, None),    # G = 16
+            (4, 2048, 12, [2047, 0, 1500, 129], 50, 30.0),
+            (4, 2048, 12, [2047, 1, 1500, 700], 600, None)):
+        qd, kc, vc = rnd(B, H, 128), rnd(B, S, 2, 128), rnd(B, S, 2, 128)
+        kn, vn = rnd(B, 2, 128), rnd(B, 2, 128)
+        for ldt in (torch.int64, torch.int32):
+            ln = torch.tensor(lens, dtype=ldt, device=cuda_device)
+            kw = dict(window=window, softcap=cap, k_new=kn, v_new=vn)
+            o = ops.decode_attention(qd, kc, vc, ln, **kw)
+            o_ref = ops.decode_attention(qd, kc, vc, ln, impl="plain", **kw)
+            o_split = ref.decode_attention_split(
+                qd, kc, vc, ln, n_splits=da.plan_splits(B, 2, S, sms), **kw)
+            bidx = torch.arange(B, device=cuda_device)
+            kc2, vc2 = kc.clone(), vc.clone()
+            kc2[bidx, ln.long()] = kn
+            vc2[bidx, ln.long()] = vn
+            o_com = ops.decode_attention(qd, kc2, vc2, ln + 1, window=window,
+                                         softcap=cap)
+            for want in (o_ref, o_split, o_com):
+                assert _err(o.float().cpu(), want.float().cpu()) < tol
+            zero = ln == 0
+            assert torch.equal(o[zero], vn[zero].repeat_interleave(
+                H // 2, dim=1))

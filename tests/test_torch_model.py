@@ -204,6 +204,54 @@ def test_prefill_then_decode_matches_jax(arch, router_margins):
                     (gi, li, name)
 
 
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma2-27b",
+                                  "granite-moe-1b-a400m"] + RECURRENT_ARCHS)
+def test_append_decode_matches_committed(arch):
+    """Append-mode decode_step (attention reads the cache as it was and
+    merges the token; one batched K/V commit per stacked leaf after each
+    group) against committed decode_step, token by token from the same
+    prefilled slot cache: logits within 1e-5 (fp32), and every cache leaf
+    within 1e-5 after each step's commit (a layer's K/V deltas depend on
+    the hidden state, which the two modes sum in different orders).
+    gemma2's local layers cross their 32-token window."""
+    _, cfg, _, model = _both(arch, seed=4)
+    rng = np.random.default_rng(5)
+    caches = [T.init_cache(cfg, 2, 48, device="cpu") for _ in range(2)]
+    for slot, L in enumerate(PREFILL_LENS):
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               size=(1, L)))
+        _, pf = model.prefill(prompt)
+        for cache in caches:
+            T.cache_insert(cfg, cache, pf, slot, L)
+    lengths = torch.tensor(PREFILL_LENS)
+    leaves = [torch.utils._pytree.tree_leaves(c) for c in caches]
+    for _ in range(4):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=2))
+        committed, _ = model.decode_step(caches[0], toks, lengths)
+        appended, _ = model.decode_step(caches[1], toks, lengths,
+                                        append=True)
+        assert _err(appended, committed) < 1e-5
+        for a, b in zip(*leaves):
+            assert _err(a, b) < 1e-5
+        lengths = lengths + 1
+
+
+def test_append_decode_matches_jax_forward():
+    """tests/test_models_smoke.py::test_decode_append_mode_exact for the
+    port: reduced gemma2 decoded token by token in append mode from an
+    empty cache equals JAX's full forward at 1e-4 (the tokens and weights of
+    test_forward_logits_match_jax, whose forward shape is compiled)."""
+    cfg_j, cfg_t, params_j, model = _both("gemma2-27b")
+    tokens = np.random.default_rng(1).integers(0, cfg_j.vocab_size,
+                                               size=(2, 40))
+    full = j_forward(cfg_j, params_j, jnp.asarray(tokens))
+    cache = T.init_cache(cfg_t, 2, 41, device="cpu")
+    steps = [model.decode_step(cache, torch.from_numpy(tokens[:, t]),
+                               torch.full((2,), t), append=True)[0]
+             for t in range(tokens.shape[1])]
+    assert _err(torch.stack(steps, dim=1), full) < TOL
+
+
 def test_param_names_and_count_match_jax():
     for arch in PARITY_ARCHS + ["granite-moe-1b-a400m"] + RECURRENT_ARCHS:
         assert get_config(arch).param_count() == \
@@ -241,12 +289,12 @@ def test_unported_configs_raise():
     cfg = get_config("qwen2-1.5b").reduced()
     model = T.Transformer(cfg, device="cpu")
     cache = T.init_cache(cfg, 1, 16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        model.decode_step(cache, torch.zeros(1, dtype=torch.int64),
-                          torch.zeros(1, dtype=torch.int64), append=True)
-    with pytest.raises(ValueError):             # past the cache's capacity
-        model.decode_step(cache, torch.zeros(1, dtype=torch.int64),
-                          torch.tensor([16]))
+    for append in (False, True):                # past the cache's capacity
+        with pytest.raises(ValueError):
+            model.decode_step(cache, torch.zeros(1, dtype=torch.int64),
+                              torch.tensor([16]), append=append)
+    assert not any(leaf.any() for layer in cache["g0"]
+                   for leaf in layer["mixer"].values())   # nothing written
     # attention-free: no capacity to pass, but lengths stay non-negative
     cfg = get_config("rwkv6-1.6b").reduced()
     model = T.Transformer(cfg, device="cpu")

@@ -1,5 +1,6 @@
 """Port serving (repro_torch.serving) vs the JAX package's engine and block
 manager, on the CPU; and the port's import and device boundaries."""
+import dataclasses
 import functools
 import subprocess
 import sys
@@ -12,16 +13,23 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.core import Melange, ModelPerf as JModelPerf
+from repro.core import PAPER_GPUS as J_PAPER_GPUS
 from repro.models import transformer as JT
 from repro.serving import EngineConfig as JEngineConfig
 from repro.serving import Request as JRequest
+from repro.serving import ServingCluster as JServingCluster
 from repro.serving import ServingEngine as JServingEngine
 from repro.serving.kv_cache import BlockManager as JBlockManager
 from repro.serving.kv_cache import OutOfBlocks as JOutOfBlocks
 from repro_torch.configs import get_config
+from repro_torch.core.accelerators import PAPER_GPUS
+from repro_torch.core.engine_model import ModelPerf
+from repro_torch.core.profiler import profile_catalog
+from repro_torch.core.workload import bucket_grid
 from repro_torch.models import transformer as T
 from repro_torch.serving import (BlockManager, EngineConfig, OutOfBlocks,
-                                 Request, ServingEngine)
+                                 Request, ServingCluster, ServingEngine)
 # the reduced configs and the jitted JAX model entry points of the model
 # tests: the same config, shapes and jitted functions share XLA compiles
 from test_torch_model import PREFILL_LENS, _reduced, j_decode, jax_prefill
@@ -61,10 +69,9 @@ def _prompts(vocab, lens=(5, 9, 13, 7)):
 
 def test_engine_greedy_matches_jax_engine():
     """Prompts of tests/test_serving.py::test_engine_matches_reference, for
-    reduced internlm2 and granite-moe; the JAX engine decodes in append
-    mode, the port in committed mode. Both decode the full slot batch, so
-    granite's MoE sees the empty slots too and its capacity and drops
-    match."""
+    reduced internlm2 and granite-moe; both engines decode in append mode.
+    Both decode the full slot batch, so granite's MoE sees the empty slots
+    too and its capacity and drops match."""
     for arch in ("internlm2-1.8b", "granite-moe-1b-a400m"):
         cfg_j, params_j, cfg_t, model = _models(arch)
         prompts = _prompts(cfg_j.vocab_size)
@@ -85,6 +92,44 @@ def test_engine_greedy_matches_jax_engine():
         assert eng_t.blocks.n_used == 0
         eng_t.blocks.check_invariants()
         assert eng_t.prefills == 4
+
+
+def test_cluster_routes_and_serves_as_jax_cluster():
+    """tests/test_serving.py::test_cluster_routes_and_serves for the port,
+    held to the JAX cluster: the same profile (the reference's Melange
+    profile and the port's profile_catalog agree exactly), allocation
+    {"A100": 1, "A10G": 1} and seed 0, 8 requests; equal routes, equal
+    ClusterStats and equal tokens per request. Reduced internlm2 at the
+    engine shape of test_engine_greedy_matches_jax_engine."""
+    cfg_j, params_j, cfg_t, model = _models("internlm2-1.8b")
+    profile_j = Melange(J_PAPER_GPUS, JModelPerf.llama2_7b(), 0.12).profile
+    profile_t = profile_catalog(PAPER_GPUS, bucket_grid(),
+                                ModelPerf.llama2_7b(), 0.12)
+    assert profile_t.to_json() == profile_j.to_json()
+    alloc = {"A100": 1, "A10G": 1}
+    cl_j = JServingCluster(cfg_j, params_j, alloc, profile_j,
+                           JEngineConfig(max_batch=4, max_seq=64), seed=0)
+    cl_t = ServingCluster(cfg_t, model, alloc, profile_t,
+                          EngineConfig(max_batch=4, max_seq=64), seed=0,
+                          device="cpu")
+    rng = np.random.default_rng(1)
+    for i in range(8):
+        prompt = list(map(int, rng.integers(1, cfg_j.vocab_size, size=6)))
+        assert cl_t.submit(Request(rid=i, prompt=prompt, max_new_tokens=4)) \
+            == cl_j.submit(JRequest(rid=i, prompt=prompt, max_new_tokens=4))
+    stats_j, stats_t = cl_j.run(), cl_t.run()
+    assert cl_t.routed == cl_j.routed and len(set(cl_t.routed.values())) == 2
+    assert dataclasses.astuple(stats_t) == dataclasses.astuple(stats_j)
+    assert stats_t.completed == 8 and stats_t.rejected == 0
+    assert sum(stats_t.per_instance.values()) == 8
+
+    def tokens(cluster):
+        return {r.rid: r.generated for e in cluster.engines
+                for r in e.finished}
+
+    assert tokens(cl_t) == tokens(cl_j)
+    assert all(e.model is model for e in cl_t.engines)
+    assert cl_t.engines[0].cache is not cl_t.engines[1].cache
 
 
 def _jax_exact_prefill_greedy(cfg, params, prompts, max_batch, max_seq,
@@ -229,4 +274,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     imported = set(proc.stdout.split())
     assert len(imported) >= 22         # every module was imported
     assert {"repro_torch.models.ssm", "repro_torch.kernels.rwkv6_scan",
-            "repro_torch.kernels.ssm_scan"} <= imported
+            "repro_torch.kernels.ssm_scan", "repro_torch.serving.cluster",
+            "repro_torch.launch.dryrun", "repro_torch.core.balancer",
+            "repro_torch.core.profiler", "repro_torch.configs.shapes"} \
+        <= imported
