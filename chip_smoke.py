@@ -76,6 +76,27 @@ Phases, each of which raises on failure (nothing is caught):
                engines sharing one model on the card) under phase 6's
                profile: phase 3's 8 requests, each of whose tokens must
                equal the single engine's, exact launch counts.
+  8. training — the flash kernel's lse output against
+               ref.blockwise_fwd_lse (qwen2's and granite's heads, S = 1024,
+               window and softcap, a case with fully masked rows; fp32 2e-5,
+               bf16 2e-2) and its out equal to the kernel's without lse;
+               the CUDA autograd.Function's dq, dk, dv against autograd
+               through ref.attention_naive (fp32, 1e-4); one train step's
+               loss (1e-5 relative), grad norm (1e-4 relative) and every
+               gradient (1e-3 of its leaf's largest magnitude) on the kernel
+               path against impl="plain", full width, 2 layers, fp32, seq
+               1024, granite with no differing expert choice or slot; then
+               train_loop.train at full size, bf16, remat, AdamW, seq 4096,
+               global batch 8: qwen2-1.5b (n_micro 4, 6 steps) and
+               granite-moe-1b-a400m (n_micro 8, 4 steps), every loss and
+               grad norm finite, the first step's cross-entropy within 10%
+               of ln V, launch counts exact (flash = attention layers x
+               microbatches x 2 a step, routing = MoE layers x
+               microbatches x 2, decode and scans 0), and one more step
+               under torch.profiler (a train: line each); last, qwen2 at 2
+               layers through a failure at step 4 and a resume from the
+               step-3 checkpoint, its losses equal to an uninterrupted
+               run's (1e-6 relative; bitwise or not is printed).
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -86,6 +107,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -164,6 +186,491 @@ def hot_logits(T: int, E: int) -> np.ndarray:
         np.float32)
     lg[:, :2] += 20.0
     return lg
+
+
+# ---------------------------------------------------------------------------
+# 8. training
+# ---------------------------------------------------------------------------
+TRAIN_SEQ, TRAIN_BATCH = 4096, 8   # train_4k's sequence, global batch 8
+TRAIN_RUNS = [("qwen2-1.5b", 4, 6), ("granite-moe-1b-a400m", 8, 4)]
+# tests/test_kernels.py::test_flash_vjp_matches_naive_autodiff
+GRAD_TOL = 1e-4
+LOSS_RTOL, GNORM_RTOL, LEAF_TOL = 1e-5, 1e-4, 1e-3
+RESUME_RTOL = 1e-6
+FIRST_LOSS_RTOL = 0.1
+CUBLAS_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
+# the kernel of torch.cuda._sleep, launched before and after each plain
+# attention backward call of the profiled train step to mark it in the trace
+BWD_MARKER = "spin_kernel"
+
+
+def library_flash_lse(torch, q, k, v):
+    """aten's flash attention, causal, with its lse: (B, H, S, Dh) q, k, v
+    -> (out, lse (B, H, S), ...). Timed beside the kernel, never used by
+    the port."""
+    return torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0,
+                                                               True)
+
+
+def kernel_times(prof, DeviceType) -> dict:
+    """{kernel name: (device ms, launches)} of a profiler session."""
+    return {e.key: (e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def is_cublas(name: str) -> bool:
+    return any(n in name.lower() for n in CUBLAS_NAMES)
+
+
+def step_breakdown(prof, DeviceType, wall_ms: float, step_ms: float,
+                   bwd_calls: int) -> dict:
+    """Device ms of one profiled train step by kind, all read from the
+    step's trace: the flash kernel, the plain attention backward (the
+    kernels between the two ``BWD_MARKER`` launches around each of its
+    ``bwd_calls`` calls; one stream, so the order of start times is the
+    order of launch), cuBLAS inside and outside that backward, the rest,
+    and the idle share against the profiled step's wall time and against
+    the unprofiled median step. The backward's span (first marker to
+    second, summed) shows how long the stream spent in it, idle gaps
+    included."""
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0),
+                 key=lambda e: e.time_range.start)
+    busy = flash = cublas = bwd = bwd_cublas = span = 0.0
+    inside, marks, opened, n, per = False, 0, 0.0, 0, {}
+    for e in evs:
+        if BWD_MARKER in e.name:
+            marks += 1
+            if inside:
+                span += (e.time_range.start - opened) / 1e3
+            opened = e.time_range.end
+            inside = not inside
+            continue
+        ms = e.self_device_time_total / 1e3
+        n += 1
+        busy += ms
+        per[e.name[:60]] = per.get(e.name[:60], 0.0) + ms
+        flash += ms if "flash_" in e.name else 0.0
+        cublas += ms if is_cublas(e.name) else 0.0
+        if inside:
+            bwd += ms
+            bwd_cublas += ms if is_cublas(e.name) else 0.0
+    res = {"wall_ms": wall_ms, "device_busy_ms": busy, "kernels": n,
+           "flash_kernel_ms": flash,
+           "idle_share": 1 - busy / wall_ms,
+           "idle_share_vs_unprofiled_step": 1 - busy / step_ms,
+           "top_kernels_ms": sorted(per.items(), key=lambda kv: -kv[1])[:8]}
+    if marks != 2 * bwd_calls or inside:
+        res["attention_backward_ms"] = (
+            f"not measured: {marks} markers in the trace for {bwd_calls} "
+            "calls")
+        return res
+    res.update({
+        "attention_backward_ms": bwd,
+        "attention_backward_calls": bwd_calls,
+        "attention_backward_share_of_busy": bwd / busy,
+        "attention_backward_span_ms": span,
+        "attention_backward_span_share_of_wall": span / wall_ms,
+        "cublas_in_attention_backward_ms": bwd_cublas,
+        "cublas_outside_attention_backward_ms": cublas - bwd_cublas,
+        "rest_ms": busy - flash - bwd - (cublas - bwd_cublas)})
+    return res
+
+
+def training_phase(torch, dev, rnd, err, time_ms, free, zero_launches,
+                   read_launches):
+    """Phase 8: the lse kernel, the attention gradient, one train step on
+    the kernel path against the plain path, full-size training of qwen2 and
+    granite through ``train_loop.train``, and resume after a failure.
+    Returns (the kernels line's lse row, {path: launches})."""
+    import statistics
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import build_train_step, value_and_grad
+    from repro_torch.models import transformer as T
+    from repro_torch.training.data import DataConfig, SyntheticDataset
+    from repro_torch.training.train_loop import TrainConfig, train
+
+    t_phase = time.perf_counter()
+    f32, bf16 = torch.float32, torch.bfloat16
+    launches_by_path = {}
+
+    # -- lse gate: the kernel's out and lse against ref.blockwise_fwd_lse --
+    lse_cases = [  # B, Sq, Skv, H, KVH, Dh, window, softcap
+        (1, 1024, 1024, 12, 2, 128, None, None),       # qwen2
+        (1, 1024, 1024, 12, 2, 128, 256, None),
+        (1, 1024, 1024, 12, 2, 128, None, 30.0),
+        (1, 1024, 1024, 12, 2, 128, 200, 50.0),
+        (1, 1024, 1024, 16, 8, 64, None, None),        # granite
+        (1, 1024, 1024, 16, 8, 64, 256, None),
+        (1, 1024, 1024, 16, 8, 64, None, 30.0),
+        (1, 1024, 1024, 16, 8, 64, 100, 50.0),
+        (1, 4096, 4096, 16, 8, 64, None, None),        # granite's micro batch
+        (1, 256, 64, 4, 2, 64, 16, None),              # rows 79.. masked
+    ]
+    lse_err = {}
+    for dtype in (f32, bf16):
+        key = str(dtype).split(".")[-1]
+        tol = TOL[key]
+        for B, Sq, Skv, H, KVH, Dh, window, cap in lse_cases:
+            case = (B, Sq, Skv, H, KVH, Dh, window, cap, key)
+            q = rnd((B, Sq, H, Dh), dtype)
+            k, v = rnd((B, Skv, KVH, Dh), dtype), rnd((B, Skv, KVH, Dh), dtype)
+            out, lse = fa.flash_attention(q, k, v, window=window,
+                                          softcap=cap, lse=True)
+            out_p, lse_p = ref.blockwise_fwd_lse(q, k, v, window=window,
+                                                 softcap=cap)
+            e_out, e_lse = err(out, out_p), err(lse, lse_p)
+            if not (e_out < tol and e_lse < tol):
+                raise AssertionError(f"flash lse {case}: out {e_out}, lse "
+                                     f"{e_lse} >= {tol}")
+            dead = lse_p == ref.NEG_INF
+            if Sq > Skv and not (bool(dead.any())
+                                 and torch.equal(lse == ref.NEG_INF, dead)
+                                 and not bool(out[:, Skv + window - 1:]
+                                              .any())):
+                raise AssertionError(f"flash lse {case}: fully masked rows")
+            if not torch.equal(out, fa.flash_attention(
+                    q, k, v, window=window, softcap=cap)):
+                raise AssertionError(f"flash lse {case}: out differs from "
+                                     "the kernel without lse")
+            lse_err[key] = max(lse_err.get(key, 0.0), e_out, e_lse)
+
+    # -- attention gradient gate: the CUDA autograd.Function against
+    # autograd through ref.attention_naive, fp32 --------------------------
+    grad_err = 0.0
+    for H, KVH, Dh in ((12, 2, 128), (16, 8, 64)):
+        q, do = rnd((1, 1024, H, Dh), f32), rnd((1, 1024, H, Dh), f32)
+        k, v = rnd((1, 1024, KVH, Dh), f32), rnd((1, 1024, KVH, Dh), f32)
+        got = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = fa.launches
+        out = ops.flash_attention(*got)
+        if fa.launches != before + 1 or type(out.grad_fn).__name__ != \
+                "FlashAttentionTrainableBackward":
+            raise AssertionError("the differentiable call did not launch "
+                                 "the kernel through the trainable path")
+        out.backward(do)
+        want = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref.attention_naive(*want).backward(do)
+        for name, a, b in zip("qkv", got, want):
+            e = err(a.grad, b.grad)
+            if not e < GRAD_TOL:
+                raise AssertionError(f"d{name} H={H} KVH={KVH} Dh={Dh}: "
+                                     f"{e} >= {GRAD_TOL}")
+            grad_err = max(grad_err, e)
+    print(f"train kernels: {2 * len(lse_cases)} lse cases, max abs err "
+          f"{json.dumps(lse_err)}; attention gradient max abs err "
+          f"{grad_err} (tol {GRAD_TOL}); "
+          f"{time.perf_counter() - t_phase:.1f} s into phase 8", flush=True)
+
+    # -- the lse variant's times at qwen2's training micro batch ---------
+    Bm, S, H, KVH, Dh = 2, TRAIN_SEQ, 12, 2, 128
+    G = H // KVH
+    sets = [(rnd((Bm, S, H, Dh), bf16), rnd((Bm, S, KVH, Dh), bf16),
+             rnd((Bm, S, KVH, Dh), bf16)) for _ in range(3)]
+    lib_sets = [(a.transpose(1, 2).contiguous(),
+                 b.repeat_interleave(G, dim=2).transpose(1, 2).contiguous(),
+                 c.repeat_interleave(G, dim=2).transpose(1, 2).contiguous())
+                for a, b, c in sets]
+
+    def with_lse(a, b, c):
+        return fa.flash_attention(a, b, c, lse=True)
+
+    def without_lse(a, b, c):
+        return fa.flash_attention(a, b, c)
+
+    def library(a, b, c):
+        return library_flash_lse(torch, a, b, c)
+
+    out, lse = with_lse(*sets[0])
+    out_p, lse_p = ref.blockwise_fwd_lse(*sets[0])
+    lib_out = library(*lib_sets[0])
+    do = rnd((Bm, S, H, Dh), bf16)
+    bwd_args = (*sets[0], out, lse, do)
+    pairs = Bm * S * (S + 1) // 2
+    flops = 4 * H * Dh * pairs
+    nbytes = 2 * (2 * Bm * S * H * Dh + 2 * Bm * S * KVH * Dh) \
+        + 4 * Bm * H * S
+    bound = {"operations": flops / PEAK_BF16_FLOPS * 1e3,
+             "bytes": nbytes / PEAK_BYTES * 1e3}
+    bwd_flops = 2.5 * flops     # dS, dP, dQ, dK, dV products with S again
+    lse_row = {
+        "name": "flash_attention_lse", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:92",
+        "tpu_kernel": "src/repro/kernels/flash_attention.py:92",
+        "entry": "ops.flash_attention under autograd (training forward and "
+                 "its recompute)",
+        "shape": f"B={Bm} Sq=Skv={S} H={H} KVH={KVH} Dh={Dh} bf16 causal, "
+                 "lse fp32",
+        "max_abs_err": max(err(out, out_p), err(lse, lse_p)),
+        "tol": TOL["bfloat16"],
+        # a call runs ~0.3 ms, far longer than it takes to issue, so CUDA
+        # events around calls back to back time the device; short profiler
+        # sessions dropped launches of it on an H100
+        "timer": "CUDA events, back to back",
+        "ms": time_ms(with_lse, sets, iters=20),
+        "no_lse_ms": time_ms(without_lse, sets, iters=20),
+        "plain_ms": time_ms(lambda a, b, c: ref.blockwise_fwd_lse(a, b, c),
+                            sets, iters=3),
+        "library_ms": time_ms(library, lib_sets, iters=20),
+        "library_max_abs_err": max(
+            err(lib_out[0].transpose(1, 2), out),
+            err(lib_out[1].reshape(lse.shape), lse)),
+        "library": "torch.ops.aten._scaled_dot_product_flash_attention "
+                   "(out and lse)",
+        "bound_ms": max(bound.values()),
+        "bound_by": max(bound, key=bound.get),
+        "flops": flops, "bytes": nbytes,
+        "attention_backward_plain_ms": time_ms(
+            lambda *a: ref.flash_attention_bwd(*a), [bwd_args], iters=3),
+        "attention_backward_bound_ms": bwd_flops / PEAK_BF16_FLOPS * 1e3,
+    }
+    lse_row["kernel_ms"] = lse_row["ms"]
+    if not lse_row["max_abs_err"] < lse_row["tol"]:
+        raise AssertionError(f"flash lse at the training shape: "
+                             f"{lse_row['max_abs_err']}")
+    del sets, lib_sets, bwd_args, out, lse, out_p, lse_p, lib_out, do
+    free()
+    print(f"lse timing (CUDA events): {lse_row['ms']:.5f} ms with lse, "
+          f"{lse_row['no_lse_ms']:.5f} without; plain backward "
+          f"{lse_row['attention_backward_plain_ms']:.3f} ms; "
+          f"{time.perf_counter() - t_phase:.1f} s into phase 8", flush=True)
+
+    def layers(cfg, n):
+        return dataclasses.replace(cfg, groups=((cfg.groups[0][0], n),))
+
+    def batch_of(cfg, B, S, step=0):
+        data = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=S, global_batch=B))
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(step).items()}
+
+    def expected_train(cfg, micro, steps):
+        """Launches per kernel of ``steps`` train steps of ``micro``
+        microbatches: every attention and MoE layer's forward and its
+        recompute."""
+        specs = list(cfg.layer_specs())
+        n_attn = sum(s.kind == "attn" for s in specs)
+        n_moe = sum(s.mlp == "moe" for s in specs)
+        per = 2 * micro * steps if cfg.remat else micro * steps
+        return {"flash_attention": n_attn * per, "decode_attention": 0,
+                "moe_gating": n_moe * per, "rwkv6_scan": 0, "ssm_scan": 0}
+
+    # -- path gate: one train step's loss and gradients, kernel vs plain --
+    path_res = []
+    for name in ("qwen2-1.5b", "granite-moe-1b-a400m"):
+        cfg = dataclasses.replace(layers(get_config(name), 2),
+                                  dtype="float32", param_dtype="float32")
+        model = T.Transformer(cfg, device="cuda", generator=torch.Generator(
+            device=dev).manual_seed(0))
+        batch = batch_of(cfg, 2, 1024)
+        runs = {}
+        for impl in ("cuda", "plain"):
+            routes = []
+            route = ops.moe_route
+
+            def recording_route(logits, top_k, **kw):
+                res = route(logits, top_k, **kw)
+                routes.append((res[1], res[2]))
+                return res
+
+            ops.moe_route = recording_route
+            zero_launches()
+            try:
+                loss, metrics, grads = value_and_grad(cfg, model, batch,
+                                                      impl=impl)
+            finally:
+                ops.moe_route = route
+            torch.cuda.synchronize()
+            runs[impl] = (loss, grads, routes, read_launches())
+        (lk, gk, rk_, nk), (lp, gp, rp, np_) = runs["cuda"], runs["plain"]
+        if nk != expected_train(cfg, 1, 1) or any(np_.values()):
+            raise AssertionError(f"path {name}: launches {nk} (kernel), "
+                                 f"{np_} (plain)")
+        gnorm = {i: float(torch.sqrt(sum((g.float() ** 2).sum()
+                                         for g in gr.values())))
+                 for i, gr in (("cuda", gk), ("plain", gp))}
+        leaf = max(err(gk[n], gp[n]) / max(float(gp[n].abs().max()), 1e-30)
+                   for n in gp)
+        choices = sum(a[0].numel() for a in rk_)
+        differing = sum(int((a[0] != b[0]).sum()) for a, b in zip(rk_, rp))
+        slots = sum(int((a[1] != b[1]).sum()) for a, b in zip(rk_, rp))
+        n_moe = sum(s.mlp == "moe" for s in cfg.layer_specs())
+        res = {"model": cfg.name, "layers": cfg.n_layers, "dtype": "float32",
+               "batch": [2, 1024], "loss": [float(lk), float(lp)],
+               "loss_rel_err": abs(float(lk) - float(lp)) / abs(float(lp)),
+               "grad_norm": [gnorm["cuda"], gnorm["plain"]],
+               "grad_norm_rel_err": abs(gnorm["cuda"] - gnorm["plain"])
+               / gnorm["plain"],
+               "max_leaf_err_over_leaf_max": leaf,
+               "routing_calls": len(rk_), "expert_choices": choices,
+               "differing_choices": differing, "differing_slots": slots,
+               "launches": nk}
+        res["seconds_into_phase"] = time.perf_counter() - t_phase
+        print(f"train path: {json.dumps(res)}", flush=True)
+        if not (res["loss_rel_err"] < LOSS_RTOL
+                and res["grad_norm_rel_err"] < GNORM_RTOL
+                and leaf < LEAF_TOL):
+            raise AssertionError(f"train path {name}: {res}")
+        if len(rk_) != 2 * n_moe or len(rp) != 2 * n_moe or differing \
+                or slots:
+            raise AssertionError(f"train path {name}: routes {res}")
+        path_res.append(res)
+        del model, batch, runs, gk, gp
+        free()
+
+    # -- training runs at full size ----------------------------------------
+    for name, micro, steps in TRAIN_RUNS:
+        cfg = get_config(name)
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        out = train(cfg, TrainConfig(steps=steps, global_batch=TRAIN_BATCH,
+                                     seq_len=TRAIN_SEQ, n_micro=micro,
+                                     log_every=1),
+                    device="cuda", log_fn=lambda s: print(f"  {s}"))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        wall = time.perf_counter() - t0
+        want = expected_train(cfg, micro, steps)
+        if launches != want:
+            raise AssertionError(f"train {name}: launches {launches}, "
+                                 f"expected {want}")
+        launches_by_path[f"{name} train"] = launches
+        # random embeddings of std 0.02 put the first cross-entropy near
+        # ln V; the loss adds 1e-2 lb_loss + 1e-3 z_loss summed over the
+        # MoE layers (~5 more for granite's 24), so the CE is gated
+        ce0 = out["metrics"][0]["ce"]
+        first_ok = abs(ce0 - math.log(cfg.vocab_size)) \
+            <= FIRST_LOSS_RTOL * math.log(cfg.vocab_size)
+        grad_norms = [m["grad_norm"] for m in out["metrics"]]
+        if not (all(map(math.isfinite, out["losses"] + grad_norms))
+                and first_ok):
+            raise AssertionError(f"train {name}: losses {out['losses']}, "
+                                 f"first ce {ce0}, grad norms {grad_norms}")
+        # one more step under the profiler (the device's kernels only: a
+        # trace of the host's ops would slow the step and its reading),
+        # its launches counted alone
+        step_ms = statistics.median(out["step_ms"][1:])
+        model, opt_state = out["model"], out["opt_state"]
+        step_fn = build_train_step(cfg, n_micro=micro)
+        batch = batch_of(cfg, TRAIN_BATCH, TRAIN_SEQ, steps)
+        # the plain attention backward's calls in that step are marked
+        # in its trace
+        n_attn = sum(s.kind == "attn" for s in cfg.layer_specs())
+        t_prof = time.perf_counter()
+        plain_bwd = ref.flash_attention_bwd
+
+        def marked_bwd(*a, **kw):
+            torch.cuda._sleep(1)
+            res = plain_bwd(*a, **kw)
+            torch.cuda._sleep(1)
+            return res
+
+        breakdown = "not measured"
+        for _ in range(3):   # a session without device records is retried
+            zero_launches()
+            ref.flash_attention_bwd = marked_bwd
+            try:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    h0 = time.perf_counter()
+                    opt_state, _ = step_fn(model, opt_state, batch)
+                    torch.cuda.synchronize()
+                    prof_wall = (time.perf_counter() - h0) * 1e3
+            finally:
+                ref.flash_attention_bwd = plain_bwd
+            if read_launches() != expected_train(cfg, micro, 1):
+                raise AssertionError(f"train {name}: profiled step "
+                                     f"launches {read_launches()}")
+            if kernel_times(prof, DeviceType):
+                breakdown = step_breakdown(prof, DeviceType, prof_wall,
+                                           step_ms, n_attn * micro)
+                break
+        del model, opt_state, step_fn, batch, prof
+        free()
+        print(f"  profiled step read in "
+              f"{time.perf_counter() - t_prof:.1f} s", flush=True)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        n_params = T.count_params(cfg, active_only=bool(cfg.n_experts))
+        attn_flops = 3 * 4 * TRAIN_BATCH * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2 \
+            * cfg.n_heads * cfg.head_dim * n_attn
+        model_flops = 6 * n_params * tokens + attn_flops
+        line = {
+            "model": name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+            "optimizer": cfg.optimizer, "remat": cfg.remat,
+            "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+            "n_micro": micro, "steps": steps, "losses": out["losses"],
+            "grad_norms": grad_norms,
+            "first_step": out["metrics"][0],
+            "first_ce_vs_ln_vocab": [ce0, math.log(cfg.vocab_size)],
+            "step_ms_all": out["step_ms"], "step_ms": step_ms,
+            "step_timer": out["step_timer"] + ", median of steps 2..",
+            "tokens_per_s": tokens / (step_ms / 1e3),
+            "peak_mem_gb": peak_gb,
+            "params_counted": n_params,
+            "model_flops_per_step": model_flops,
+            "mfu_6N_plus_causal_attn_vs_989tflops":
+                model_flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+            "launches": launches, "wall_s": wall,
+            "profiled_step": breakdown,
+        }
+        print(f"train: {json.dumps(line)}", flush=True)
+        del out
+        free()
+
+    # -- resume gate: qwen2 at full width, 2 layers --------------------------
+    cfg = layers(get_config("qwen2-1.5b"), 2)
+    tc = dict(steps=6, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+              n_micro=4, log_every=100, ckpt_every=3)
+    whole = train(cfg, TrainConfig(**tc), device="cuda",
+                  log_fn=lambda s: None)["losses"]
+    free()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    t0 = time.perf_counter()
+    try:
+        try:
+            train(cfg, TrainConfig(**tc, ckpt_dir=ckpt_dir), fail_at_step=4,
+                  device="cuda", log_fn=lambda s: None)
+            raise AssertionError("resume: the injected failure did not "
+                                 "happen")
+        except RuntimeError as e:
+            if "injected failure at step 4" not in str(e):
+                raise
+        free()
+        logs = []
+        resumed = train(cfg, TrainConfig(**tc, ckpt_dir=ckpt_dir),
+                        device="cuda", log_fn=logs.append)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(resumed["losses"], whole[3:]))
+    res = {"model": cfg.name, "layers": cfg.n_layers, "steps": 6,
+           "checkpoint_at": 3, "failure_at": 4,
+           "resumed_from": resumed["resumed_from"],
+           "losses_uninterrupted": whole, "losses_resumed": resumed["losses"],
+           "bitwise": resumed["losses"] == whole[3:], "max_rel_diff": rel,
+           "tol": RESUME_RTOL, "seconds": time.perf_counter() - t0}
+    print(f"train resume: {json.dumps(res)}", flush=True)
+    if resumed["resumed_from"] != 3 or len(resumed["losses"]) != 3 \
+            or logs != ["[train] resumed from step 3"] \
+            or not rel <= RESUME_RTOL:
+        raise AssertionError(f"resume: {res}")
+    del resumed
+    free()
+    print(f"phase 8 (training): {time.perf_counter() - t_phase:.1f} s")
+    return lse_row, launches_by_path
 
 
 def main() -> int:
@@ -1469,9 +1976,9 @@ def main() -> int:
     h100 = {"H100": PAPER_GPUS["H100"]}
     buckets = bucket_grid()
     perf = ModelPerf.from_config(cfg)
-    profile = profile_from_dryrun(h100, buckets, cfg, rec, SLO_TPOT_S)
+    h100_profile = profile_from_dryrun(h100, buckets, cfg, rec, SLO_TPOT_S)
     analytic = profile_catalog(h100, buckets, perf, SLO_TPOT_S)
-    row, row_a = profile.max_tput["H100"], analytic.max_tput["H100"]
+    row, row_a = h100_profile.max_tput["H100"], analytic.max_tput["H100"]
     if not (np.isfinite(row).all() and (row >= 0).all() and row.any()):
         raise AssertionError(f"record-derived H100 row: {row.tolist()}")
     em_rec = EngineModel(
@@ -1502,7 +2009,7 @@ def main() -> int:
     # -- 7. cluster: qwen2-1.5b behind ServingCluster, two H100 instances
     # sharing one model on the card, routed under phase 6's profile --------
     model = build(cfg)
-    cluster = ServingCluster(cfg, model, {"H100": 2}, profile,
+    cluster = ServingCluster(cfg, model, {"H100": 2}, h100_profile,
                              EngineConfig(max_batch=8, max_seq=S_D))
     torch.cuda.synchronize()
     zero_launches()
@@ -1544,9 +2051,21 @@ def main() -> int:
     del model, cluster
     free()
 
+    # -- 8. training: the lse kernel and the attention gradient, kernel vs
+    # plain train step, qwen2 and granite at full size, resume -------------
+    lse_row, train_launches = training_phase(
+        torch, dev, rnd, err, time_ms, free, zero_launches, read_launches)
+    launches_by_path.update(train_launches)
+    # the lse variant is the flash kernel's launches on the training paths
+    lse_row["counter"], lse_row["paths"] = "flash_attention", \
+        sorted(train_launches)
+    kernel_rows.append(lse_row)
+
     for row in kernel_rows:
-        row["launches_by_path"] = {m: n[row["name"]]
-                                   for m, n in launches_by_path.items()}
+        counter = row.get("counter", row["name"])
+        row["launches_by_path"] = {m: launches_by_path[m][counter]
+                                   for m in row.get("paths",
+                                                    launches_by_path)}
         row["launches"] = sum(row["launches_by_path"].values())
         if not row["launches"]:
             raise AssertionError(f"{row['name']} was never launched on the "

@@ -30,9 +30,9 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C entry points: name -> argtypes (each returns a cudaError_t as int)
 SIGNATURES = {
-    # q, k, v, o, B, Sq, Skv, H, KVH, Dh, dtype, causal, window, softcap,
-    # scale, stream
-    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    # q, k, v, o, lse (null without), B, Sq, Skv, H, KVH, Dh, dtype, causal,
+    # window, softcap, scale, stream
+    "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _F, _F, _P),
     # q, k_cache, v_cache, lengths, k_new, v_new (null in committed mode),
     # o, partials, B, S, H, KVH, Dh, dtype, lengths dtype, n_splits, window,

@@ -9,6 +9,12 @@
 // (j > i - window) allow, with k/v read from kv head h // (H / KVH). The
 // softcap is applied before the mask, scores and sums are fp32, and a fully
 // masked row gives zeros (the reference's m_safe guard and l >= 1e-30).
+// Given an lse pointer (training), each row also writes the log-sum-exp of
+// its kept scores, m + log(l) in fp32, at (b, h, i) of a (B, H, Sq) array
+// (the reference's (B, KVH, G, Sq) in memory, h = kvh * G + g), NEG_INF
+// for a fully masked row: the backward (ref.flash_attention_bwd) rebuilds P
+// from it. The lse is written from the final m and l only, so it costs one
+// store a row; serving passes no pointer.
 // Unlike the TPU kernel it takes any Sq and Skv: rows and columns past the
 // edge are masked, so the engine's power-of-two padding (>= 8) and ragged
 // tails both work.
@@ -70,9 +76,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int DH>
 __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int Sq,
-                     int Skv, int H, int KVH, int causal, int window,
-                     float softcap, float scale) {
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int Sq, int Skv, int H, int KVH,
+                     int causal, int window, float softcap, float scale) {
   constexpr int LD = DH + 1;
   constexpr int CPT = DH / TPR;   // output columns per thread
   extern __shared__ float smem[];
@@ -173,13 +179,18 @@ __global__ void __launch_bounds__(NT)
     T* orow = o + (size_t(b) * Sq + qpos) * q_stride + size_t(h) * DH + part;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) orow[TPR * c] = from_f32<T>(acc[c] / l_safe);
+    // the row's log-sum-exp (natural log), NEG_INF where nothing was kept
+    if (lse != nullptr && part == 0)
+      lse[(size_t(b) * H + h) * Sq + qpos] =
+          m_run <= kNegInf / 2 ? kNegInf : m_run + logf(l_safe);
   }
 }
 
 template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int Sq, int Skv, int H, int KVH, int causal, int window,
-                   float softcap, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int Sq, int Skv, int H, int KVH,
+                   int causal, int window, float softcap, float scale,
+                   cudaStream_t stream) {
   auto kern = flash_fwd_kernel<T, DH>;
   constexpr size_t smem = smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -188,8 +199,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H, KVH, causal,
-      window, softcap, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Skv, H, KVH,
+      causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -204,6 +215,7 @@ constexpr int BQ = 64;           // query rows per block: one warpgroup
 constexpr int BK = 64;           // kv rows per tile
 constexpr int NT = 128;          // threads per block: 4 warps, 16 rows each
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DH>
 constexpr size_t smem_bytes() {
@@ -371,9 +383,9 @@ __device__ __forceinline__ void load_tile(const bf16* __restrict__ base,
 template <int DH>
 __global__ void __launch_bounds__(NT, 2)
     flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
-                    int Skv, int H, int KVH, int causal, int window,
-                    float softcap, float scale) {
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    float* __restrict__ lse, int Sq, int Skv, int H, int KVH,
+                    int causal, int window, float softcap, float scale) {
   constexpr int KSTEPS = DH / 16;   // k-steps of Q K^T
   constexpr int NS = BK / 8;        // 8-column blocks of S
   constexpr int NO = DH / 8;        // 8-column blocks of O
@@ -555,14 +567,21 @@ __global__ void __launch_bounds__(NT, 2)
         *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t4) =
             __floats2bfloat162_rn(acc[4 * n + 2 * r] * inv,
                                   acc[4 * n + 2 * r + 1] * inv);
+      // the row's log-sum-exp: m_run is in log2 units, l in exp2's
+      if (lse != nullptr && t4 == 0)
+        lse[(size_t(b) * H + h) * Sq + qpos] =
+            m_run[r] <= kNegInf / 2
+                ? kNegInf
+                : m_run[r] * kLn2 + logf(fmaxf(l, 1e-30f));
     }
   }
 }
 
 template <int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int Sq, int Skv, int H, int KVH, int causal, int window,
-                   float softcap, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int Sq, int Skv, int H, int KVH,
+                   int causal, int window, float softcap, float scale,
+                   cudaStream_t stream) {
   auto kern = flash_tc_kernel<DH>;
   constexpr size_t smem = smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -571,8 +590,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Skv, H, KVH,
-      causal, window, softcap, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Skv, H,
+      KVH, causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -580,24 +599,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
+// lse: null, or (B, H, Sq) fp32 receiving each row's log-sum-exp
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int B, int Sq,
-                                     int Skv, int H, int KVH, int Dh,
+                                     const void* v, void* o, void* lse, int B,
+                                     int Sq, int Skv, int H, int KVH, int Dh,
                                      int dtype, int causal, int window,
                                      float softcap, float scale,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == repro::kFloat32 && Dh == 64)
-    return launch<float, 64>(q, k, v, o, B, Sq, Skv, H, KVH, causal, window,
-                             softcap, scale, s);
+    return launch<float, 64>(q, k, v, o, l, B, Sq, Skv, H, KVH, causal,
+                             window, softcap, scale, s);
   if (dtype == repro::kFloat32 && Dh == 128)
-    return launch<float, 128>(q, k, v, o, B, Sq, Skv, H, KVH, causal, window,
-                              softcap, scale, s);
+    return launch<float, 128>(q, k, v, o, l, B, Sq, Skv, H, KVH, causal,
+                              window, softcap, scale, s);
   if (dtype == repro::kBFloat16 && Dh == 64)
-    return tc::launch<64>(q, k, v, o, B, Sq, Skv, H, KVH, causal, window,
+    return tc::launch<64>(q, k, v, o, l, B, Sq, Skv, H, KVH, causal, window,
                           softcap, scale, s);
   if (dtype == repro::kBFloat16 && Dh == 128)
-    return tc::launch<128>(q, k, v, o, B, Sq, Skv, H, KVH, causal, window,
+    return tc::launch<128>(q, k, v, o, l, B, Sq, Skv, H, KVH, causal, window,
                            softcap, scale, s);
   return int(cudaErrorInvalidValue);
 }

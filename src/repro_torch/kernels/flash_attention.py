@@ -2,10 +2,13 @@
 the port of ``repro/kernels/flash_attention.py::flash_attention``.
 
 bf16 runs on the tensor cores (wgmma); fp32 keeps an fp32-FMA kernel,
-since TF32 products cannot meet the fp32 tolerance. Takes CUDA tensors
-only; ``ops.flash_attention`` sends CPU tensors to the plain version
-(``ref.blockwise_attention``). ``launches`` counts the kernel's launches
-and nothing else.
+since TF32 products cannot meet the fp32 tolerance. With ``lse=True`` (the
+training forward) the kernel also writes each query row's log-sum-exp, the
+residual of the plain backward (``ref.flash_attention_bwd``). Takes CUDA
+tensors only; ``ops.flash_attention`` sends CPU tensors to the plain
+versions (``ref.blockwise_attention``, ``ref.blockwise_fwd_lse``).
+``launches`` counts the kernel's launches, with or without the lse, and
+nothing else.
 """
 from __future__ import annotations
 
@@ -24,8 +27,10 @@ launches = 0
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
-    """q: (B, Sq, H, Dh); k, v: (B, Skv, KVH, Dh) -> (B, Sq, H, Dh)."""
+                    softcap: Optional[float] = None, lse: bool = False):
+    """q: (B, Sq, H, Dh); k, v: (B, Skv, KVH, Dh) -> out (B, Sq, H, Dh);
+    with ``lse``, (out, lse (B, KVH, H // KVH, Sq) fp32), NEG_INF on a
+    fully masked row (``ref.blockwise_fwd_lse``'s layout)."""
     global launches
     B, Sq, H, Dh = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
@@ -53,16 +58,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
     o = torch.empty_like(q)
+    lse_t = (torch.empty((B, KVH, H // KVH, Sq), dtype=torch.float32,
+                         device=q.device) if lse else None)
     if q.numel() == 0 or Skv == 0:
-        return o.zero_()
+        o.zero_()
+        if lse:
+            lse_t.fill_(-1e30)
+        return (o, lse_t) if lse else o
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, Sq, Skv, H, KVH, Dh, DTYPE_CODES[q.dtype], int(causal),
+            None if lse_t is None else lse_t.data_ptr(), B, Sq, Skv, H,
+            KVH, Dh, DTYPE_CODES[q.dtype], int(causal),
             -1 if window is None else int(window),
             0.0 if softcap is None else float(softcap), Dh ** -0.5, stream)
     _build.check(err, "flash_attention launch")
     launches += 1
-    return o
+    return (o, lse_t) if lse else o

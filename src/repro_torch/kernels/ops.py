@@ -14,9 +14,18 @@ that:
 
 Arguments a kernel does not take raise ``NotImplementedError`` on the kernel
 path; nothing falls back to the plain version behind the caller's back.
+
+Training: where grad mode is on and an input requires a gradient,
+``flash_attention`` goes through ``ref.FlashAttentionTrainable`` (its
+forward the kernel with the log-sum-exp on CUDA tensors, the plain
+``ref.blockwise_fwd_lse`` otherwise; its backward the plain
+``ref.flash_attention_bwd`` either way) and ``moe_route`` / ``moe_gating``
+through ``_Routed`` (the same one launch forward; the backward
+``ref.topk_gating_bwd``). Under ``torch.no_grad`` nothing of this runs.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -39,17 +48,46 @@ def _kernel_path(impl: Optional[str], x: torch.Tensor) -> bool:
     return impl == "cuda" or (impl is None and x.is_cuda)
 
 
+def _differentiable(*xs: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+# the trainable attention's blocks (the reference's ops.flash_attention)
+TRAIN_Q_BLOCK, TRAIN_KV_BLOCK = 512, 1024
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     kv_lens: Optional[torch.Tensor] = None,
                     q_offset: int = 0, impl: Optional[str] = None):
-    """GQA attention. q:(B,Sq,H,Dh) k/v:(B,Skv,KVH,Dh) -> (B,Sq,H,Dh)."""
-    if _kernel_path(impl, q):
-        if kv_lens is not None or q_offset != 0:
+    """GQA attention. q:(B,Sq,H,Dh) k/v:(B,Skv,KVH,Dh) -> (B,Sq,H,Dh).
+
+    Differentiable calls (see the module docstring) take the trainable
+    path: on the kernel path always, raising where Sq or Skv does not
+    divide into the blocks; on the plain path where the reference's jnp
+    dispatch takes its ``flash_attention_trainable`` (dense, the blocks
+    dividing the sequences), else autograd through the blockwise path."""
+    kernel = _kernel_path(impl, q)
+    if kernel and (kv_lens is not None or q_offset != 0):
+        raise NotImplementedError(
+            "the CUDA flash_attention kernel is dense prefill: kv_lens "
+            "and q_offset are not supported")
+    if _differentiable(q, k, v) and impl != "naive":
+        Sq, Skv = q.shape[1], k.shape[1]
+        fits = (Sq % min(TRAIN_Q_BLOCK, Sq) == 0
+                and Skv % min(TRAIN_KV_BLOCK, Skv) == 0)
+        if kernel and not fits:
             raise NotImplementedError(
-                "the CUDA flash_attention kernel is dense prefill: kv_lens "
-                "and q_offset are not supported")
+                f"trainable attention on the kernel path needs Sq={Sq} and "
+                f"Skv={Skv} divisible by their blocks")
+        if kernel or (fits and kv_lens is None and q_offset == 0):
+            fwd = functools.partial(fa.flash_attention, lse=True) \
+                if kernel else None
+            return ref.FlashAttentionTrainable.apply(
+                q, k, v, causal, window, softcap, TRAIN_Q_BLOCK,
+                TRAIN_KV_BLOCK, fwd)
+    if kernel:
         return fa.flash_attention(q, k, v, causal=causal, window=window,
                                   softcap=softcap)
     fn = ref.attention_naive if impl == "naive" else ref.blockwise_attention
@@ -81,6 +119,36 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
               k_new=k_new, v_new=v_new)
 
 
+class _Routed(torch.autograd.Function):
+    """A gradient for the router logits through a routing call ``route(
+    logits) -> (weights, ids, *maps, aux)``: the forward is the call as it
+    is (on CUDA tensors, the routing kernel's one launch); the backward,
+    ``ref.topk_gating_bwd``, gives d logits from d weights, d lb_loss and
+    d z_loss, as autodiff of the reference's ``topk_gating`` does. The ids
+    and the maps carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, route):
+        weights, ids, *maps, aux = route(logits)
+        ctx.save_for_backward(logits, ids)
+        ctx.mark_non_differentiable(ids, *maps)
+        return (weights, ids, *maps, aux["lb_loss"], aux["z_loss"])
+
+    @staticmethod
+    def backward(ctx, d_weights, *rest):
+        logits, ids = ctx.saved_tensors
+        return ref.topk_gating_bwd(logits, ids, d_weights, rest[-2],
+                                   rest[-1]), None
+
+
+def _routed(route, logits):
+    """``route(logits)``, through ``_Routed`` when it is differentiable."""
+    if not _differentiable(logits):
+        return route(logits)
+    *out, lb_loss, z_loss = _Routed.apply(logits, route)
+    return (*out, {"lb_loss": lb_loss, "z_loss": z_loss})
+
+
 def moe_gating(logits, top_k: int, *, impl: Optional[str] = None):
     """Top-k softmax gating. logits (T, E) -> (weights (T, k) f32,
     ids (T, k) i32, aux {"lb_loss", "z_loss"}).
@@ -90,8 +158,9 @@ def moe_gating(logits, top_k: int, *, impl: Optional[str] = None):
     ``ref.topk_gating``.
     """
     if _kernel_path(impl, logits):
-        return mg.moe_gating(logits.float().contiguous(), top_k)
-    return ref.topk_gating(logits, top_k)
+        return _routed(lambda lg: mg.moe_gating(lg.float().contiguous(),
+                                                top_k), logits)
+    return _routed(lambda lg: ref.topk_gating(lg, top_k), logits)
 
 
 def moe_route(logits, top_k: int, *, cap: int, nb: int,
@@ -108,8 +177,9 @@ def moe_route(logits, top_k: int, *, cap: int, nb: int,
     ``"plain"`` and ``"naive"`` take ``ref.moe_route`` (``ref.topk_gating``
     and ``ref.dispatch_indices``)."""
     if _kernel_path(impl, logits):
-        return mg.moe_route(logits.float().contiguous(), top_k, cap, nb)
-    return ref.moe_route(logits, top_k, cap, nb)
+        return _routed(lambda lg: mg.moe_route(lg.float().contiguous(),
+                                               top_k, cap, nb), logits)
+    return _routed(lambda lg: ref.moe_route(lg, top_k, cap, nb), logits)
 
 
 def _into(result, state_out):

@@ -118,6 +118,177 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dh).to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Trainable attention: forward with log-sum-exp, and its backward
+# ---------------------------------------------------------------------------
+def _train_blocks(Sq: int, Skv: int, q_block: int, kv_block: int):
+    """The trainable path's blocks, ``min(q_block, Sq)`` and ``min(kv_block,
+    Skv)``; raises where they do not divide the sequences (the reference
+    asserts it: training batches are dense and packed)."""
+    qb, kb = min(q_block, Sq), min(kv_block, Skv)
+    if Sq % qb or Skv % kb:
+        raise NotImplementedError(
+            f"trainable attention needs Sq={Sq} and Skv={Skv} divisible by "
+            f"their blocks ({qb}, {kb})")
+    return qb, kb
+
+
+def _block_mask(q0: int, bq: int, k0: int, bk: int, causal: bool,
+                window: Optional[int], device) -> Optional[torch.Tensor]:
+    """(bq, bk) mask of a block pair (True = attend), or None where the
+    pair is wholly masked: it adds nothing, forward or backward."""
+    if causal and k0 > q0 + bq - 1:
+        return None
+    if window is not None and k0 + bk - 1 <= q0 - window:
+        return None
+    q_pos = q0 + torch.arange(bq, device=device)
+    k_pos = k0 + torch.arange(bk, device=device)
+    return _attn_mask(q_pos, k_pos, causal=causal, window=window,
+                      kv_lens=None)[0]
+
+
+def blockwise_fwd_lse(q, k, v, *, causal: bool = True,
+                      window: Optional[int] = None,
+                      softcap: Optional[float] = None, q_block: int = 512,
+                      kv_block: int = 1024):
+    """Port of the reference's ``_blockwise_fwd_impl``: blockwise attention
+    that also returns the log-sum-exp of each query row's masked scores.
+    Returns (out (B, Sq, H, Dh) in q's dtype, lse (B, KVH, G, Sq) fp32); a
+    fully masked row gets out 0 and lse ``NEG_INF``. No kv_lens or q_offset:
+    training batches are dense."""
+    B, Sq, H, Dh = q.shape
+    _, Skv, KVH, _ = k.shape
+    G = H // KVH
+    qb, kb = _train_blocks(Sq, Skv, q_block, kv_block)
+    dev = q.device
+    qf = (q.float() * (Dh ** -0.5)).reshape(B, Sq, KVH, G, Dh)
+    qf = qf.permute(0, 2, 3, 1, 4)                         # (B,KVH,G,Sq,Dh)
+    kf = k.float().permute(0, 2, 1, 3)                     # (B,KVH,Skv,Dh)
+    vf = v.float().permute(0, 2, 1, 3)
+    out = torch.empty((B, KVH, G, Sq, Dh), dtype=torch.float32, device=dev)
+    lse = torch.empty((B, KVH, G, Sq), dtype=torch.float32, device=dev)
+    for q0 in range(0, Sq, qb):
+        q_blk = qf[:, :, :, q0:q0 + qb]
+        m_run = torch.full((B, KVH, G, qb), NEG_INF, device=dev)
+        l_run = torch.zeros((B, KVH, G, qb), device=dev)
+        acc = torch.zeros((B, KVH, G, qb, Dh), device=dev)
+        for k0 in range(0, Skv, kb):
+            mask = _block_mask(q0, qb, k0, kb, causal, window, dev)
+            if mask is None:
+                continue
+            s = torch.einsum("bhgqd,bhkd->bhgqk", q_blk,
+                             kf[:, :, k0:k0 + kb])
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(dim=-1))
+            m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
+            p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+            scale = torch.where(m_run <= NEG_INF / 2, 0.0,
+                                torch.exp(m_run - m_safe))
+            l_run = l_run * scale + p.sum(dim=-1)
+            acc = acc * scale[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", p, vf[:, :, k0:k0 + kb])
+            m_run = m_new
+        l_safe = torch.clamp(l_run, min=1e-30)
+        out[:, :, :, q0:q0 + qb] = acc / l_safe[..., None]
+        lse[..., q0:q0 + qb] = torch.where(m_run <= NEG_INF / 2, NEG_INF,
+                                           m_run + torch.log(l_safe))
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dh).to(q.dtype)
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None, q_block: int = 512,
+                        kv_block: int = 1024):
+    """Port of the reference's ``_fat_bwd``: (dq, dk, dv) of blockwise
+    attention from the saved (q, k, v, out, lse (B, KVH, G, Sq)) and dout,
+    in fp32 and in the reference's blocks. Per block pair, P is recomputed
+    from the lse, ``delta = sum(dO * O)`` per row stands in for the softmax
+    Jacobian's row sum, and the softcap's derivative ``1 - tanh^2``
+    multiplies dS. Pairs that the causal mask or the window wholly remove
+    are skipped: they add exact zeros."""
+    B, Sq, H, Dh = q.shape
+    _, Skv, KVH, _ = k.shape
+    G = H // KVH
+    qb, kb = _train_blocks(Sq, Skv, q_block, kv_block)
+    dev = q.device
+    scale = Dh ** -0.5
+
+    def heads(x):                                          # (B,KVH,G,S,Dh)
+        return x.float().reshape(B, -1, KVH, G, Dh).permute(0, 2, 3, 1, 4)
+
+    qf = heads(q.float() * scale)
+    kf = k.float().permute(0, 2, 1, 3)                     # (B,KVH,Skv,Dh)
+    vf = v.float().permute(0, 2, 1, 3)
+    dof, of = heads(dout), heads(out)
+    delta = (dof * of).sum(dim=-1)                         # (B,KVH,G,Sq)
+    lse_safe = torch.where(lse <= NEG_INF / 2, 0.0, lse)
+    dq = torch.empty((B, KVH, G, Sq, Dh), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, KVH, Skv, Dh), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, KVH, Skv, Dh), dtype=torch.float32, device=dev)
+    for q0 in range(0, Sq, qb):
+        q_blk = qf[:, :, :, q0:q0 + qb]
+        do_blk = dof[:, :, :, q0:q0 + qb]
+        ls = lse_safe[..., q0:q0 + qb, None]
+        dl = delta[..., q0:q0 + qb, None]
+        dq_acc = torch.zeros_like(q_blk)
+        for k0 in range(0, Skv, kb):
+            mask = _block_mask(q0, qb, k0, kb, causal, window, dev)
+            if mask is None:
+                continue
+            k_blk, v_blk = kf[:, :, k0:k0 + kb], vf[:, :, k0:k0 + kb]
+            s = torch.einsum("bhgqd,bhkd->bhgqk", q_blk, k_blk)
+            dcap = None
+            if softcap is not None:
+                t = torch.tanh(s / softcap)
+                s = softcap * t
+                dcap = 1.0 - t * t
+            p = torch.where(mask, torch.exp(s - ls), 0.0)
+            dv[:, :, k0:k0 + kb] += torch.einsum("bhgqk,bhgqd->bhkd", p,
+                                                 do_blk)
+            dp = torch.einsum("bhgqd,bhkd->bhgqk", do_blk, v_blk)
+            ds = p * (dp - dl)
+            if dcap is not None:
+                ds = ds * dcap
+            dq_acc = dq_acc + torch.einsum("bhgqk,bhkd->bhgqd", ds, k_blk)
+            dk[:, :, k0:k0 + kb] += torch.einsum("bhgqk,bhgqd->bhkd", ds,
+                                                 q_blk)
+        dq[:, :, :, q0:q0 + qb] = dq_acc * scale
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dh).to(q.dtype)
+    dk = dk.permute(0, 2, 1, 3).to(k.dtype)
+    dv = dv.permute(0, 2, 1, 3).to(v.dtype)
+    return dq, dk, dv
+
+
+class FlashAttentionTrainable(torch.autograd.Function):
+    """Twin of the reference's ``flash_attention_trainable`` (a
+    ``jax.custom_vjp``): the forward keeps (q, k, v, out, lse) and the
+    backward is ``flash_attention_bwd``. ``fwd`` computes (out, lse (B, KVH,
+    G, Sq) fp32): ``blockwise_fwd_lse`` when None (the plain path), or the
+    CUDA kernel's wrapper (``ops.flash_attention`` passes it on CUDA
+    tensors). ``ops.flash_attention`` checks that the blocks divide the
+    sequences before it calls this."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_block, kv_block,
+                fwd=None):
+        fwd = blockwise_fwd_lse if fwd is None else fwd
+        out, lse = fwd(q, k, v, causal=causal, window=window,
+                       softcap=softcap)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        q_block=q_block, kv_block=kv_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def _check_append(k_new, v_new) -> bool:
     """True in append mode; both or neither of k_new / v_new are given."""
     if (k_new is None) != (v_new is None):
@@ -318,6 +489,36 @@ def gating_aux(logits: torch.Tensor, probs: torch.Tensor,
     lb_loss = E * torch.sum(counts / T * probs.mean(0))
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return {"lb_loss": lb_loss, "z_loss": z_loss}
+
+
+def topk_gating_bwd(logits: torch.Tensor, ids: torch.Tensor,
+                    d_weights: torch.Tensor, d_lb_loss: torch.Tensor,
+                    d_z_loss: torch.Tensor) -> torch.Tensor:
+    """d logits (T, E) of ``topk_gating``'s weights (T, k) and aux losses,
+    given the chosen ids (T, k) and the three upstream gradients, as JAX's
+    autodiff of the reference's ``topk_gating`` gives them: through the
+    renormalisation over the chosen probabilities (the 1e-9 floor passes
+    no gradient to the sum), the top-k gather and the softmax; the load
+    balance loss with the routed fraction f held constant (it is a count);
+    the z-loss through the logsumexp."""
+    lf = logits.float()
+    T, E = lf.shape
+    idx = ids.long()
+    probs = torch.softmax(lf, dim=-1)
+    vals = probs.gather(1, idx)
+    s = vals.sum(-1, keepdim=True)
+    s_safe = torch.clamp(s, min=1e-9)
+    dw = d_weights.float()
+    d_vals = dw / s_safe - torch.where(
+        s > 1e-9, (dw * vals).sum(-1, keepdim=True) / (s_safe * s_safe), 0.0)
+    d_probs = torch.zeros_like(probs).scatter_(1, idx, d_vals)
+    f = torch.zeros(E, dtype=torch.float32, device=lf.device).scatter_add_(
+        0, idx.reshape(-1), torch.ones(idx.numel(), device=lf.device)) / T
+    d_probs = d_probs + d_lb_loss * E * f / T
+    d_lf = probs * (d_probs - (d_probs * probs).sum(-1, keepdim=True))
+    lse = torch.logsumexp(lf, dim=-1, keepdim=True)
+    d_lf = d_lf + d_z_loss * (2.0 / T) * lse * probs
+    return d_lf.to(logits.dtype)
 
 
 # ---------------------------------------------------------------------------

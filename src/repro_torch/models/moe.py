@@ -1,4 +1,4 @@
-"""Mixture-of-Experts layer (port of ``repro/models/moe.py``), forward only.
+"""Mixture-of-Experts layer (port of ``repro/models/moe.py``).
 
 Three paths, as in the reference:
   * ``capacity`` — top-k gating, then capacity-bounded gather-only dispatch:
@@ -15,9 +15,13 @@ Three paths, as in the reference:
   * ``cfg.moe_impl = "dense"`` — the oracle: every expert on every token.
 
 Everything is on the device with capacities from static shapes, so a step
-never waits on the host. The reference's backward (gather-only custom VJPs
-of dispatch and combine) comes with training and is not ported: these
-functions serve inference under ``torch.no_grad``.
+never waits on the host.
+
+Training: ``_dispatch`` and ``_combine`` are ``autograd.Function``s with
+the reference's gather-only backwards (its custom VJPs), so no float
+scatter, and no atomic, runs in the backward either; ``ops.moe_route``
+gives the router logits their gradient (``ref.topk_gating_bwd``), and
+``moe_forward`` returns the aux losses for ``transformer.loss_fn``.
 """
 from __future__ import annotations
 
@@ -68,25 +72,78 @@ def build_dispatch_indices(idx: torch.Tensor, E: int, cap: int):
 
 
 # ---------------------------------------------------------------------------
-# Gather-only dispatch / combine (forward)
+# Gather-only dispatch / combine, with the reference's custom VJPs
 # ---------------------------------------------------------------------------
-def _dispatch(x_pad: torch.Tensor, token_of_slot: torch.Tensor) -> torch.Tensor:
-    """x_pad: (N, T+1, D) with a zero pad row per block -> (N, E*cap+1, D)."""
-    blk = torch.arange(x_pad.shape[0], device=x_pad.device)[:, None]
-    return x_pad[blk, token_of_slot]
+def _rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """x (N, R, ...) gathered per block at index (N, ...) -> (N, ..., ...)."""
+    blk = torch.arange(x.shape[0], device=x.device).reshape(
+        (-1,) + (1,) * (index.dim() - 1))
+    return x[blk, index]
 
 
-def _combine(y_pad: torch.Tensor, w: torch.Tensor,
-             slot_of: torch.Tensor) -> torch.Tensor:
-    """y_pad: (N, E*cap+1, D) zero pad row; w: (N, T, K) in the activation
-    dtype -> (N, T, D). The K terms are summed one by one in w's dtype, as
-    the reference's ``sum`` over k does."""
-    blk = torch.arange(y_pad.shape[0], device=y_pad.device)[:, None, None]
-    terms = w[..., None] * y_pad[blk, slot_of].to(w.dtype)     # (N, T, K, D)
+def _sum_k(terms: torch.Tensor) -> torch.Tensor:
+    """terms (N, T, K, ...) summed over k one by one, as the reference's
+    ``sum`` over k does."""
     out = terms[:, :, 0]
-    for k in range(1, w.shape[-1]):
+    for k in range(1, terms.shape[2]):
         out = out + terms[:, :, k]
     return out
+
+
+def _pad_row(x: torch.Tensor) -> torch.Tensor:
+    """x (N, R, ...) with one zero row appended to each block."""
+    return torch.cat([x, x.new_zeros((x.shape[0], 1) + x.shape[2:])], 1)
+
+
+class _Dispatch(torch.autograd.Function):
+    """x_pad (N, T+1, D), zero pad row per block -> (N, E*cap+1, D), the
+    rows ``token_of_slot`` names. Backward (the reference's
+    ``_dispatch_bwd``): a token's gradient is the sum of its K slots'
+    (``slot_of`` (N, T, K); a dropped entry's slot is the zero pad row)."""
+
+    @staticmethod
+    def forward(ctx, x_pad, token_of_slot, slot_of):
+        ctx.save_for_backward(slot_of)
+        return _rows(x_pad, token_of_slot)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (slot_of,) = ctx.saved_tensors
+        return _pad_row(_sum_k(_rows(dy, slot_of))), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """y_pad (N, E*cap+1, D) zero pad row, w (N, T, K) in the activation
+    dtype -> (N, T, D): each token's K expert outputs weighted and summed
+    in w's dtype. Backward (the reference's ``_combine_bwd``): dw from the
+    gathered outputs, and a slot's dy from its one token's dout times its
+    entry's weight (``token_of_slot``, ``tk_of_slot``); gathers only."""
+
+    @staticmethod
+    def forward(ctx, y_pad, w, slot_of, token_of_slot, tk_of_slot):
+        ctx.save_for_backward(y_pad, w, slot_of, token_of_slot, tk_of_slot)
+        return _sum_k(w[..., None] * _rows(y_pad, slot_of).to(w.dtype))
+
+    @staticmethod
+    def backward(ctx, dout):
+        y_pad, w, slot_of, token_of_slot, tk_of_slot = ctx.saved_tensors
+        N, T, K = w.shape
+        dw = (dout[:, :, None] * _rows(y_pad, slot_of).to(dout.dtype)).sum(-1)
+        w_flat = _pad_row(w.reshape(N, T * K))
+        dy = (_rows(w_flat, tk_of_slot)[..., None].to(dout.dtype)
+              * _rows(_pad_row(dout), token_of_slot)).to(y_pad.dtype)
+        return dy, dw.to(w.dtype), None, None, None
+
+
+def _dispatch(x_pad: torch.Tensor, token_of_slot: torch.Tensor,
+              slot_of: torch.Tensor) -> torch.Tensor:
+    return _Dispatch.apply(x_pad, token_of_slot, slot_of)
+
+
+def _combine(y_pad: torch.Tensor, w: torch.Tensor, slot_of: torch.Tensor,
+             token_of_slot: torch.Tensor,
+             tk_of_slot: torch.Tensor) -> torch.Tensor:
+    return _Combine.apply(y_pad, w, slot_of, token_of_slot, tk_of_slot)
 
 
 def _expert_ffn(p: Params, xs: torch.Tensor) -> torch.Tensor:
@@ -125,13 +182,13 @@ def moe_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         nb = 1                       # capacity path: one block of T tokens
     Tb = T // nb
     cap = capacity(cfg, Tb)
-    weights, _, slot_of, token_of_slot, _, aux = ops.moe_route(
+    weights, _, slot_of, token_of_slot, tk_of_slot, aux = ops.moe_route(
         logits, K, cap=cap, nb=nb, impl=impl)
-    x_pad = torch.cat([x_flat.reshape(nb, Tb, D), x.new_zeros(nb, 1, D)], 1)
-    disp = _dispatch(x_pad, token_of_slot)[:, :-1]        # (nb, E*cap, D)
+    x_pad = _pad_row(x_flat.reshape(nb, Tb, D))
+    disp = _dispatch(x_pad, token_of_slot, slot_of)[:, :-1]  # (nb,E*cap,D)
     disp = disp.reshape(nb, E, cap, D).transpose(0, 1).reshape(E, nb * cap, D)
     y = _expert_ffn(p, disp)                              # (E, nb*cap, D)
     y = y.reshape(E, nb, cap, D).transpose(0, 1).reshape(nb, E * cap, D)
-    y_pad = torch.cat([y, y.new_zeros(nb, 1, D)], 1)
-    out = _combine(y_pad, weights.reshape(nb, Tb, K).to(x.dtype), slot_of)
+    out = _combine(_pad_row(y), weights.reshape(nb, Tb, K).to(x.dtype),
+                   slot_of, token_of_slot, tk_of_slot)
     return out.reshape(B, S, D), aux

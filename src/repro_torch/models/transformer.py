@@ -20,6 +20,14 @@ Caches mirror the JAX structure: ``{"g{i}": ({"mixer": {...}}, ...)}``.
 Attention layers hold ``k``/``v`` (L, B, S, KVH, Dh); Mamba layers ``h``
 (L, B, Din, N) fp32 and ``conv`` (L, B, K-1, Din); RWKV layers ``wkv``
 (L, B, H, K, K) fp32, ``shift_tm`` and ``shift_cm`` (L, B, D).
+
+Training (``train_forward``, ``loss_fn``) runs attention and MoE configs:
+grad mode on, no cache, the MoE aux losses summed over layers, and under
+``cfg.remat`` each period of a group recomputed in the backward
+(``torch.utils.checkpoint``, the counterpart of the reference's
+``jax.checkpoint`` with ``nothing_saveable`` over its scan body).
+Parameters are created with ``requires_grad=False``; the train step
+(``launch/steps.py``) turns gradients on.
 """
 from __future__ import annotations
 
@@ -28,7 +36,9 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.tree import named, nest
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -62,6 +72,16 @@ def check_supported(cfg: ModelConfig) -> None:
         if spec.mlp not in ("dense", "moe", "none"):
             raise NotImplementedError(f"{cfg.name}: {spec.mlp} MLP layers "
                                       "are not ported")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise unless the port can train ``cfg``: Mamba and RWKV layers have
+    no backward through their scans yet, on any device."""
+    check_supported(cfg)
+    kinds = sorted({spec.kind for spec in cfg.layer_specs()} - {"attn"})
+    if kinds:
+        raise NotImplementedError(f"{cfg.name}: training through {kinds} "
+                                  "layers is not ported (no scan backward)")
 
 
 def is_recurrent(cfg: ModelConfig) -> bool:
@@ -200,7 +220,7 @@ class Transformer(nn.Module):
         a recurrent layer starts from a zero state); else this layer's
         cache views (decode: attention writes K/V into them, or with
         ``append`` returns its {"k_new", "v_new"}). Returns (x, the layer's
-        new K/V, deltas or recurrent state)."""
+        new K/V, deltas or recurrent state, its MoE aux losses or None)."""
         cfg = self.cfg
         h_in = L.rms_norm(x, p["norm1"], cfg.norm_eps)
         if spec.kind == "attn":
@@ -227,20 +247,21 @@ class Transformer(nn.Module):
                 h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
                 cm_out, cm_new = SSM.rwkv_channel_mix(cfg, p["mixer"], h2,
                                                       st)
-                return x + cm_out, {**new, **cm_new}
+                return x + cm_out, {**new, **cm_new}, None
         if cfg.use_post_norms:
             mix_out = L.rms_norm(mix_out, p["post_norm1"], cfg.norm_eps)
         x = x + mix_out
         if spec.mlp == "none":
-            return x, new
+            return x, new, None
         h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-        if spec.mlp == "moe":      # aux losses are for training: dropped
-            mlp_out, _ = MOE.moe_forward(cfg, p["mlp"], h2, impl=impl)
+        aux = None
+        if spec.mlp == "moe":
+            mlp_out, aux = MOE.moe_forward(cfg, p["mlp"], h2, impl=impl)
         else:
             mlp_out = L.mlp_forward(cfg, p["mlp"], h2)
         if cfg.use_post_norms:
             mlp_out = L.rms_norm(mlp_out, p["post_norm2"], cfg.norm_eps)
-        return x + mlp_out, new
+        return x + mlp_out, new, aux
 
     def _groups(self):
         for gi, (period, rep) in enumerate(self.cfg.groups):
@@ -260,8 +281,8 @@ class Transformer(nn.Module):
             per_pos = [[] for _ in period]
             for r in range(rep):
                 for li, spec in enumerate(period):
-                    h, new = self._layer(spec, views[li][r], h,
-                                         positions=positions, impl=impl)
+                    h, new, _ = self._layer(spec, views[li][r], h,
+                                            positions=positions, impl=impl)
                     per_pos[li].append(new)
             caches[f"g{gi}"] = tuple(
                 {"mixer": {name: torch.stack([st[name] for st in sts])
@@ -272,8 +293,55 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor, *,
                 impl: Optional[str] = None) -> torch.Tensor:
-        """Logits (B, S, V) of a full-sequence pass."""
+        """Logits (B, S, V) of a full-sequence pass, under ``torch.no_grad``
+        (it is ``prefill``'s). The differentiable pass is ``train_forward``
+        (through ``loss_fn``)."""
         return self.prefill(tokens, impl=impl)[0]
+
+    def _period(self, period, views: list, h: torch.Tensor,
+                positions: torch.Tensor, impl: Optional[str]):
+        """One repeat of a group's period in training: (h, lb_loss, z_loss),
+        the aux losses summed over its MoE layers (the reference's scan
+        body)."""
+        lb = torch.zeros((), dtype=torch.float32, device=h.device)
+        z = torch.zeros((), dtype=torch.float32, device=h.device)
+        for spec, p in zip(period, views):
+            h, _, aux = self._layer(spec, p, h, positions=positions,
+                                    impl=impl)
+            if aux is not None:
+                lb, z = lb + aux["lb_loss"], z + aux["z_loss"]
+        return h, lb, z
+
+    def train_forward(self, tokens: torch.Tensor, *,
+                      impl: Optional[str] = None):
+        """The training pass over tokens (B, S): differentiable, no cache
+        (the reference's ``forward(mode="train")``). Returns (logits (B, S,
+        V), {"lb_loss", "z_loss"} summed over the MoE layers). Under
+        ``cfg.remat`` every period is recomputed in the backward, so each
+        attention layer's kernel runs twice a step. Raises for configs with
+        recurrent layers (``check_trainable``)."""
+        cfg = self.cfg
+        check_trainable(cfg)
+        h = self._embed(tokens)
+        B, S = tokens.shape
+        positions = torch.arange(S, device=h.device).expand(B, S)
+        lb_tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        z_tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        for _, period, rep, views in self._groups():
+            lbs, zs = [], []
+            for r in range(rep):
+                args = (period, [v[r] for v in views], h, positions, impl)
+                if cfg.remat:
+                    h, lb, z = checkpoint(self._period, *args,
+                                          use_reentrant=False)
+                else:
+                    h, lb, z = self._period(*args)
+                lbs.append(lb)
+                zs.append(z)
+            lb_tot = lb_tot + torch.stack(lbs).sum()
+            z_tot = z_tot + torch.stack(zs).sum()
+        h = L.rms_norm(h, self.final_norm, cfg.norm_eps)
+        return self._unembed(h), {"lb_loss": lb_tot, "z_loss": z_tot}
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor,
@@ -311,9 +379,10 @@ class Transformer(nn.Module):
                 for li, spec in enumerate(period):
                     layer_cache = {name: t[r] for name, t in
                                    cache[f"g{gi}"][li]["mixer"].items()}
-                    h, new = self._layer(spec, views[li][r], h,
-                                         cache=layer_cache, lengths=lengths,
-                                         append=append, impl=impl)
+                    h, new, _ = self._layer(spec, views[li][r], h,
+                                            cache=layer_cache,
+                                            lengths=lengths, append=append,
+                                            impl=impl)
                     if spec.kind == "attn":
                         if append:
                             deltas[li].append(new)
@@ -399,24 +468,13 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     return total
 
 
-def _flatten(tree, prefix: str = ""):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _flatten(v, f"{prefix}{k}.")
-    elif isinstance(tree, (tuple, list)):
-        for i, v in enumerate(tree):
-            yield from _flatten(v, f"{prefix}{i}.")
-    else:
-        yield prefix[:-1], tree
-
-
 def from_jax_params(cfg: ModelConfig, params, *, device="cuda") -> Transformer:
     """Build a Transformer from a JAX params pytree whose leaves are numpy
     arrays (``jax.tree.map(np.asarray, params)``). Names, shapes and dtypes
     must match leaf for leaf."""
     model = Transformer(cfg, device="meta")
     own = dict(model.named_parameters())
-    given = dict(_flatten(params))
+    given = named(params)
     if set(own) != set(given):
         raise ValueError(
             f"parameter names differ: missing {sorted(set(own) - set(given))}"
@@ -431,3 +489,41 @@ def from_jax_params(cfg: ModelConfig, params, *, device="cuda") -> Transformer:
             raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
         p.data.copy_(torch.from_numpy(np.ascontiguousarray(arr)).to(p.dtype))
     return model
+
+
+def param_tree(model: Transformer) -> dict:
+    """The model's parameters in the JAX params structure (``{"embed",
+    "final_norm", "g0": ({"mixer": {...}, ...}, ...), ...}``), as the
+    checkpoint saves them."""
+    return nest(dict(model.named_parameters()))
+
+
+def to_jax_params(model: Transformer) -> dict:
+    """The inverse of ``from_jax_params``: a JAX params pytree of numpy
+    arrays on the host. numpy has no bfloat16, so bf16 leaves come back as
+    float32 (exactly)."""
+    def host(p):
+        t = p.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return nest({name: host(p) for name, p in model.named_parameters()})
+
+
+def loss_fn(cfg: ModelConfig, model: Transformer, batch: dict, *,
+            impl: Optional[str] = None):
+    """Port of the reference's ``loss_fn``. batch: {"tokens", "labels"}
+    (B, S) integer tensors on the model's device. Returns (loss, {"ce",
+    "z", "lb_loss", "z_loss"}): next-token cross-entropy over fp32 logits
+    (padded vocab rows masked by ``_unembed``), plus 1e-4 x the mean squared
+    logsumexp z, 1e-2 x lb_loss and 1e-3 x the router z_loss. ``cfg`` must
+    be the model's."""
+    if cfg != model.cfg:
+        raise ValueError(f"loss_fn: cfg {cfg.name} is not the model's")
+    logits, aux = model.train_forward(batch["tokens"].long(), impl=impl)
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    ce = (lse - gold).mean()
+    z = (lse ** 2).mean()
+    loss = ce + 1e-4 * z + 1e-2 * aux["lb_loss"] + 1e-3 * aux["z_loss"]
+    return loss, {"ce": ce, "z": z, **aux}

@@ -276,5 +276,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert {"repro_torch.models.ssm", "repro_torch.kernels.rwkv6_scan",
             "repro_torch.kernels.ssm_scan", "repro_torch.serving.cluster",
             "repro_torch.launch.dryrun", "repro_torch.core.balancer",
-            "repro_torch.core.profiler", "repro_torch.configs.shapes"} \
-        <= imported
+            "repro_torch.core.profiler", "repro_torch.configs.shapes",
+            "repro_torch.training.data", "repro_torch.training.optimizer",
+            "repro_torch.training.train_loop", "repro_torch.launch.steps",
+            "repro_torch.checkpoint.checkpoint",
+            "repro_torch.tree"} <= imported
