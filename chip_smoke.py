@@ -14,7 +14,12 @@ Phases, each of which raises on failure (nothing is caught):
                fp32 and bf16, window/softcap and ragged cases, and both
                served attention models' shapes (qwen2-1.5b: H=12, KVH=2,
                Dh=128; granite-moe: H=16, KVH=8, Dh=64; bf16, prefill
-               Sq=Skv=1024, decode B=8, S=2048). MoE gating (the routing
+               Sq=Skv=1024, decode B=8, S=2048), and phase 9's: the
+               vision cross prefill (non-causal, Sq=1024 and 1000 over
+               Skv=1600, a ragged Skv=1601; H=32, KVH=8, Dh=128) and cross
+               decode (B=8, every length 1600; 1601), musicgen's prefill
+               and decode (H=KVH=32, Dh=64: G = 1), timed at those shapes
+               too (a `modality kernel shapes:` line). MoE gating (the routing
                kernel without its maps): the tests/test_kernels.py shapes,
                granite's decode and prefill and jamba's shapes, and an
                exp-underflow case; ids exactly equal. MoE routing (gating,
@@ -97,6 +102,18 @@ Phases, each of which raises on failure (nothing is caught):
                layers through a failure at step 4 and a resume from the
                step-3 checkpoint, its losses equal to an uninterrupted
                run's (1e-6 relative; bitwise or not is printed).
+  9. modality — llama-3.2-vision-11b (9.79 B parameters; every 5th layer
+               cross-attends over 1600 vision tokens, vision embeddings
+               (1, 1600, 4096) drawn from numpy's default_rng) and
+               musicgen-large (2.45 B; 4 codebook streams) at full size,
+               bf16, through the model's entry points (the engine serves
+               neither, as the reference's cannot): one 1024-token prompt
+               prefilled, then 32 greedy append-mode decode steps, launches
+               exact (a `generate:` line with TPOT at B=1); phase 4's path,
+               bf16 reported and fp32 gated (1e-3, argmax equal at every
+               position and codebook, append vs committed 1e-4); phase 5's
+               trace; phase 6's dryrun: record at decode_32k and profile:
+               row.
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -160,6 +177,7 @@ SCAN_TOL = 1e-4
 BF16_ULP = 2.0 ** -7
 N_REQUESTS, NEW_TOKENS = 8, 32
 B_D, S_D = 8, 2048          # serving decode batch and cache length
+GEN_PROMPT, GEN_STEPS = 1024, 32    # phase 9: one prompt, decode steps
 
 
 def smi() -> str:
@@ -853,6 +871,11 @@ def main() -> int:
         (1, 1000, 1000, 16, 8, 64, True, None, None),   # granite path
         (1, 1024, 1024, 64, 8, 128, True, None, None),  # jamba serving
         (1, 1000, 1000, 64, 8, 128, True, None, None),  # jamba path
+        (1, 1024, 1600, 32, 8, 128, False, None, None),  # vision cross
+        (1, 1000, 1600, 32, 8, 128, False, None, None),  # vision cross path
+        (1, 200, 1601, 32, 8, 128, False, None, None),  # ragged last kv tile
+        (1, 1024, 1024, 32, 32, 64, True, None, None),  # musicgen, G = 1
+        (1, 1000, 1000, 32, 32, 64, True, None, None),  # musicgen path
     ]
     n_flash = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -881,6 +904,9 @@ def main() -> int:
         (4, 2048, 12, 2, 128, None, None, [2048, 0, 700, 1]),   # a zero row
         (8, 2048, 12, 2, 128, 50, 30.0, None),          # window < one split
         (3, 300, 12, 2, 128, 64, None, [300, 0, 129]),  # ragged last tile
+        (8, 1600, 32, 8, 128, None, None, [1600] * 8),  # vision cross
+        (2, 1601, 32, 8, 128, None, None, [1601, 1601]),  # ragged, whole
+        (8, 2048, 32, 32, 64, None, None, None),        # musicgen, G = 1
     ]
     n_decode = 0
     lrng = np.random.default_rng(1)
@@ -922,6 +948,7 @@ def main() -> int:
         (1, 256, 4, 4, 128, None, 30.0, [255]),         # softcap
         (4, 2048, 32, 2, 128, None, None, [2047, 0, 1, 900]),   # G = 16
         (4, 2048, 32, 2, 64, 40, 30.0, [0, 39, 40, 2047]),
+        (8, 2048, 32, 32, 64, None, None, None),        # musicgen, G = 1
     ]
     n_append = 0
     sweep["decode_attention_append"] = {}
@@ -1348,6 +1375,97 @@ def main() -> int:
           f"{decode_row['append']['call_ms']:.5f} ms")
     del pf_sets, lib_sets, d_sets, dlib_sets, a_sets
 
+    # both attention kernels at the shapes phase 9's models give them
+    # (bf16): the vision cross prefill (non-causal, Sq=1024 over the 1600
+    # vision tokens) and musicgen's self prefill (G = 1, Dh 64); the
+    # vision cross decode (every length 1600) and musicgen's decode (G = 1,
+    # Dh 64, the serving lengths). Bounds: the bytes read and written once
+    # at the HBM rate, the products at the bf16 tensor-core rate.
+    def flash_shape(B, Sq, Skv, Hs, KVHs, Dhs, causal):
+        sets = [(rnd((B, Sq, Hs, Dhs), bf16), rnd((B, Skv, KVHs, Dhs), bf16),
+                 rnd((B, Skv, KVHs, Dhs), bf16)) for _ in range(4)]
+        Gs = Hs // KVHs
+        lsets = [(a.transpose(1, 2).contiguous(),
+                  b.repeat_interleave(Gs, dim=2).transpose(1, 2).contiguous(),
+                  c.repeat_interleave(Gs, dim=2).transpose(1, 2).contiguous())
+                 for a, b, c in sets]
+
+        def kern(a, b, c):
+            return ops.flash_attention(a, b, c, causal=causal, impl="cuda")
+
+        def plain(a, b, c):
+            return ops.flash_attention(a, b, c, causal=causal, impl="plain")
+
+        def lib(a, b, c):
+            return sdpa(a, b, c, is_causal=causal)
+
+        e = err(kern(*sets[0]), plain(*sets[0]))
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+        flops = 4 * B * Hs * Dhs * pairs
+        nbytes = 2 * B * (2 * Sq * Hs * Dhs + 2 * Skv * KVHs * Dhs)
+        bound = {"operations": flops / PEAK_BF16_FLOPS * 1e3,
+                 "bytes": nbytes / PEAK_BYTES * 1e3}
+        return {"max_abs_err": e, "tol": TOL["bfloat16"],
+                "ms": device_ms(kern, sets), "call_ms": time_ms(kern, sets),
+                "plain_ms": time_ms(plain, sets, iters=10),
+                "library_ms": time_ms(lib, lsets),
+                "library_max_abs_err": err(lib(*lsets[0]).transpose(1, 2),
+                                           kern(*sets[0])),
+                "bound_ms": max(bound.values()),
+                "bound_by": max(bound, key=bound.get),
+                "flops": flops, "bytes": nbytes}
+
+    def decode_shape(B, S, Hs, KVHs, Dhs, lens):
+        ln = torch.as_tensor(lens, dtype=torch.int64, device=dev)
+        sets = [(rnd((B, Hs, Dhs), bf16), rnd((B, S, KVHs, Dhs), bf16),
+                 rnd((B, S, KVHs, Dhs), bf16), ln) for _ in range(4)]
+        Gs = Hs // KVHs
+        posn = torch.arange(S, device=dev)
+        lsets = [(a[:, :, None],
+                  b.repeat_interleave(Gs, dim=2).transpose(1, 2).contiguous(),
+                  c.repeat_interleave(Gs, dim=2).transpose(1, 2).contiguous(),
+                  (posn[None] < l[:, None])[:, None, None])
+                 for a, b, c, l in sets]
+        e = err(decode_kernel(*sets[0]), ops.decode_attention(
+            *sets[0], impl="plain"))
+        live = int(ln.sum())
+        flops = 4 * live * Hs * Dhs
+        nbytes = 2 * live * KVHs * Dhs * 2 + 2 * B * Hs * Dhs * 2 + 8 * B
+        bound = {"bytes": nbytes / PEAK_BYTES * 1e3,
+                 "operations": flops / PEAK_BF16_FLOPS * 1e3}
+        return {"max_abs_err": e, "tol": TOL["bfloat16"],
+                "ms": device_ms(decode_kernel, sets),
+                "call_ms": time_ms(decode_kernel, sets),
+                "plain_ms": time_ms(lambda a, b, c, l: ops.decode_attention(
+                    a, b, c, l, impl="plain"), sets),
+                "library_ms": time_ms(sdpa_masked, lsets),
+                "library_max_abs_err": err(sdpa_masked(*lsets[0])[:, :, 0],
+                                           decode_kernel(*sets[0])),
+                "n_splits": da.plan_splits(B, KVHs, S, sms),
+                "bound_ms": max(bound.values()),
+                "bound_by": max(bound, key=bound.get),
+                "flops": flops, "bytes": nbytes}
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    flash_row["modality_shapes"] = {
+        "vision cross prefill B=1 Sq=1024 Skv=1600 H=32 KVH=8 Dh=128 bf16 "
+        "non-causal": flash_shape(1, 1024, 1600, 32, 8, 128, False),
+        "musicgen prefill B=1 Sq=Skv=1024 H=KVH=32 Dh=64 bf16 causal":
+            flash_shape(1, 1024, 1024, 32, 32, 64, True)}
+    decode_row["modality_shapes"] = {
+        "vision cross decode B=8 S=1600 H=32 KVH=8 Dh=128 bf16 lengths "
+        "1600": decode_shape(8, 1600, 32, 8, 128, [1600] * B_D),
+        f"musicgen decode B=8 S=2048 H=KVH=32 Dh=64 bf16 lengths "
+        f"{d_lens.tolist()}": decode_shape(8, S_D, 32, 32, 64, d_lens)}
+    for row in (flash_row, decode_row):
+        for shape, res in row["modality_shapes"].items():
+            if not res["max_abs_err"] < res["tol"]:
+                raise AssertionError(f"{row['name']} at {shape}: "
+                                     f"{res['max_abs_err']} >= {res['tol']}")
+    print("modality kernel shapes: " + json.dumps(
+        {row["name"]: row["modality_shapes"]
+         for row in (flash_row, decode_row)}))
+
     def library_gating(lg, k):
         """One PyTorch composition of the same function (never called by
         the port): softmax, topk, renormalise."""
@@ -1491,7 +1609,6 @@ def main() -> int:
                               + Din * N * 4 + Din * 4 + 2 * B * Din * N * 4,
                               n * (7 * N + 3))}
 
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # the SM clock the card can reach: the special-function-unit bound of
     # the Mamba scan (one accurate exponential per state and step, 16
     # results a clock per SM on Hopper) is taken at it
@@ -1668,9 +1785,10 @@ def main() -> int:
     P, STEPS = 1000, 8
     gating, route = ops.moe_gating, ops.moe_route
 
-    def drive(cfg, model, impl, prompt, forced, append=False):
-        """Prefill + teacher-forced decode steps (committed, or with
-        ``append`` in append mode); returns the logits rows, times and, for
+    def drive(cfg, model, impl, prompt, forced, append=False, vision=None):
+        """Prefill (with ``vision`` embeddings for a vision config) +
+        teacher-forced decode steps (committed, or with ``append`` in append
+        mode); returns the logits rows, times and, for
         every gating call, its expert ids and dispatch slots (recorded by
         wrapping ops.moe_route, which the MoE layers call, and
         ops.moe_gating, which the dense path calls, for this run only)."""
@@ -1690,7 +1808,7 @@ def main() -> int:
         cache = T.init_cache(cfg, 1, S_D)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
-        logits, pf = model.prefill(prompt, impl=impl)
+        logits, pf = model.prefill(prompt, vision_embeds=vision, impl=impl)
         T.cache_insert(cfg, cache, pf, 0, P)
         ev[1].record()
         rows = [logits[0, P - 1]]
@@ -1746,16 +1864,26 @@ def main() -> int:
         gated on ``tol`` and on zero differing expert choices (and with
         ``gate_argmax`` on equal argmax at every position). Then the kernel
         path's append-mode decode (the engine's) vs its committed decode,
-        gated on ``append_tol`` the same way."""
+        gated on ``append_tol`` the same way. Codebook configs take (1, P,
+        C) prompts and (1, C) decode tokens (argmax compared per codebook);
+        vision configs also take vision embeddings (1, Nv, D)."""
         prng = np.random.default_rng(2)
+        C = (cfg.n_codebooks,) if cfg.n_codebooks else ()
         prompt = torch.from_numpy(prng.integers(0, cfg.vocab_size,
-                                                size=(1, P))).to(dev)
+                                                size=(1, P) + C)).to(dev)
         forced = torch.from_numpy(prng.integers(0, cfg.vocab_size,
-                                                size=(STEPS, 1))).to(dev)
-        out_k, routes_k, t_k = drive(cfg, model, "cuda", prompt, forced)
-        out_p, routes_p, t_p = drive(cfg, model, "plain", prompt, forced)
+                                                size=(STEPS, 1) + C)).to(dev)
+        vision = None
+        if cfg.n_vision_tokens:
+            vision = torch.from_numpy(prng.standard_normal(
+                (1, cfg.n_vision_tokens, cfg.d_model)).astype(
+                    np.float32)).to(dev)
+        out_k, routes_k, t_k = drive(cfg, model, "cuda", prompt, forced,
+                                     vision=vision)
+        out_p, routes_p, t_p = drive(cfg, model, "plain", prompt, forced,
+                                     vision=vision)
         out_a, routes_a, t_a = drive(cfg, model, "cuda", prompt, forced,
-                                     append=True)
+                                     append=True, vision=vision)
         choices, differing, reordered, slots, differing_slots = \
             compare_routes(cfg, routes_k, routes_p, "kernel vs plain")
         a_choices, a_differing, _, a_slots, _ = compare_routes(
@@ -1773,7 +1901,8 @@ def main() -> int:
                "decode_steps": STEPS, "max_abs_err": path_err, "tol": tol,
                "argmax_agree": int((out_k.argmax(-1)
                                     == out_p.argmax(-1)).sum()),
-               "positions": STEPS + 1, "logit_std": float(out_p.std()),
+               "positions": int(out_k[..., 0].numel()),
+               "logit_std": float(out_p.std()),
                "gating_calls": len(routes_k), "expert_choices": choices,
                "differing_routes": differing,
                "reordered_tokens": reordered,
@@ -1810,13 +1939,21 @@ def main() -> int:
                                      f"{res['positions'] - agree} positions")
         return res
 
-    def trace(cfg, model, n_steps=5):
-        """Where a serving decode step's time goes (torch.profiler)."""
+    def trace(cfg, model, n_steps=5, extra=None):
+        """Where a serving decode step's time goes (torch.profiler), and
+        the same step's wall time untraced (its TPOT at B=8). ``extra`` is
+        added to the printed line."""
         cache = T.init_cache(cfg, B_D, S_D)
-        toks = torch.zeros(B_D, dtype=torch.int64, device=dev)
+        toks = torch.zeros((B_D, cfg.n_codebooks) if cfg.n_codebooks
+                           else B_D, dtype=torch.int64, device=dev)
         for _ in range(3):
             model.decode_step(cache, toks, d_lens, append=True)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            model.decode_step(cache, toks, d_lens, append=True)
+        torch.cuda.synchronize()
+        untraced_ms = (time.perf_counter() - t0) * 1e3 / n_steps
         for _ in range(3):      # a session without device records is retried
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -1836,6 +1973,7 @@ def main() -> int:
         res = {"model": cfg.name, "layers": cfg.n_layers, "batch": B_D,
                "lengths": d_lens.tolist(), "decode_mode": "append",
                "step_wall_ms": step_ms, "traced": True,
+               "untraced_step_wall_ms": untraced_ms,
                "kernels_per_step": sum(e.count for e in dev_events) / n_steps,
                "device_busy_ms": busy_ms if kernels else "not measured",
                "device_idle_share": 1 - busy_ms / step_ms if kernels
@@ -1844,7 +1982,8 @@ def main() -> int:
                # launches by kernel name over the n_steps traced steps: the
                # profiler can miss a launch at the window's edge (a count
                # one short of a multiple of n_steps)
-               "kernel_counts": {e.key: e.count for e in dev_events}}
+               "kernel_counts": {e.key: e.count for e in dev_events},
+               **(extra or {})}
         print(f"trace: {json.dumps(res)}")
 
     # -- 3-5. qwen2-1.5b: serving, path (bf16), trace ----------------------
@@ -1914,26 +2053,87 @@ def main() -> int:
         del model32
         free()
 
+    def dryrun_record(arch):
+        """repro_torch.launch.dryrun.run_cell for ``arch`` at decode_32k on
+        the card, its launches counted from zero over exactly that run and
+        equal to its decode steps' (a dryrun: line). Returns (cfg, rec)."""
+        cfg = get_config(arch)
+        zero_launches()
+        rec = dryrun.run_cell(arch, "decode_32k",
+                              ROOT / "results" / "dryrun_torch")
+        free()
+        # every step it ran (a profiler session that saw no device time is
+        # run again)
+        dry_steps = rec["decode_steps"]
+        launches = read_launches()
+        expected = expected_launches(cfg, 0, dry_steps)
+        min_steps = 1 + dryrun.WARMUP_STEPS + dryrun.TIMED_STEPS \
+            + dryrun.PROFILED_STEPS
+        if launches != expected or dry_steps < min_steps:
+            raise AssertionError(f"dry-run {arch}: launches {launches} for "
+                                 f"{dry_steps} decode steps, expected "
+                                 f"{expected}")
+        launches_by_path[f"{cfg.name} dry-run decode_32k"] = launches
+        print(f"dryrun: {json.dumps(rec)}")
+        return cfg, rec
+
+    def profile_rows(cfg, rec):
+        """The H100 MaxTput row profile_from_dryrun builds from ``rec``
+        beside the analytic row, bucket by bucket, and the engine model's
+        step time beside the measured one (a profile: line). Returns the
+        record-derived profile."""
+        weight_bytes = sum(p.numel() * p.element_size() for p in
+                           T.Transformer(cfg, device="meta").parameters())
+        if not (rec["ok"] is True and rec["devices"] == 1
+                and rec["flops"] > 0
+                and rec["bytes_accessed"] >= weight_bytes):
+            raise AssertionError(f"dry-run record fails its gates: ok "
+                                 f"{rec['ok']}, devices {rec['devices']}, "
+                                 f"flops {rec['flops']}, bytes "
+                                 f"{rec['bytes_accessed']} against "
+                                 f"{weight_bytes} weight bytes")
+        h100 = {"H100": PAPER_GPUS["H100"]}
+        buckets = bucket_grid()
+        perf = ModelPerf.from_config(cfg)
+        record_profile = profile_from_dryrun(h100, buckets, cfg, rec,
+                                             SLO_TPOT_S)
+        analytic = profile_catalog(h100, buckets, perf, SLO_TPOT_S)
+        row = record_profile.max_tput["H100"]
+        row_a = analytic.max_tput["H100"]
+        if not (np.isfinite(row).all() and (row >= 0).all() and row.any()):
+            raise AssertionError(f"record-derived H100 row of {cfg.name}: "
+                                 f"{row.tolist()}")
+        em_rec = EngineModel(
+            perf, flops_per_token=decode_flops_per_token_from_record(rec),
+            bytes_per_step_base=decode_bytes_per_step_base_from_record(
+                rec, perf))
+        em_ana = EngineModel(perf)
+        B_rec, S_rec = rec["global_batch"], rec["seq_len"]
+        print("profile: " + json.dumps({
+            "gpu": "H100", "slo_tpot_s": SLO_TPOT_S, "model": cfg.name,
+            "record": f"{rec['arch']} {rec['shape']} global_batch {B_rec} "
+                      f"seq_len {S_rec}",
+            "buckets": [[b.i_lo, b.i_hi, b.o_lo, b.o_hi, float(r), float(a),
+                         float(r / a) if a > 0 else None]
+                        for b, r, a in zip(buckets, row, row_a)],
+            "columns": "i_lo, i_hi, o_lo, o_hi, record-derived req/s, "
+                       "analytic req/s, ratio",
+            "feasible_buckets": [int((row > 0).sum()),
+                                 int((row_a > 0).sum())],
+            "engine_model_step_ms": {
+                "record": em_rec.decode_step_time(PAPER_GPUS["H100"], B_rec,
+                                                  S_rec) * 1e3,
+                "analytic": em_ana.decode_step_time(PAPER_GPUS["H100"],
+                                                    B_rec, S_rec) * 1e3},
+            "measured_step_ms": rec["step_ms"],
+            "measured_device_busy_ms": rec["device_busy_ms"],
+            "card": rec["card"]}))
+        return record_profile
+
     # -- 6. profile: the one-card dry-run record of qwen2-1.5b's decode step
     # at decode_32k, and the H100 MaxTput row it gives against the analytic
     # row ----------------------------------------------------------------
-    cfg = get_config("qwen2-1.5b")
-    zero_launches()
-    rec = dryrun.run_cell("qwen2-1.5b", "decode_32k",
-                          ROOT / "results" / "dryrun_torch")
-    free()
-    # every step it ran (a profiler session that saw no device time is
-    # run again)
-    dry_steps = rec["decode_steps"]
-    launches = read_launches()
-    expected = expected_launches(cfg, 0, dry_steps)
-    min_steps = 1 + dryrun.WARMUP_STEPS + dryrun.TIMED_STEPS \
-        + dryrun.PROFILED_STEPS
-    if launches != expected or dry_steps < min_steps:
-        raise AssertionError(f"dry-run: launches {launches} for {dry_steps} "
-                             f"decode steps, expected {expected}")
-    launches_by_path[f"{cfg.name} dry-run decode_32k"] = launches
-    print(f"dryrun: {json.dumps(rec)}")
+    cfg, rec = dryrun_record("qwen2-1.5b")
     # the decode kernel alone at the record's shape (one layer's cache,
     # append mode, every sequence at seq_len - 1 old tokens), against its
     # byte bound, at the planned split count and at more splits. A call
@@ -1965,46 +2165,7 @@ def main() -> int:
     print(f"dryrun decode kernel: {json.dumps(long_ctx)}")
     del q, kc, vc, kn, vn, ln
     free()
-    weight_bytes = sum(p.numel() * p.element_size() for p in
-                       T.Transformer(cfg, device="meta").parameters())
-    if not (rec["ok"] is True and rec["devices"] == 1 and rec["flops"] > 0
-            and rec["bytes_accessed"] >= weight_bytes):
-        raise AssertionError(f"dry-run record fails its gates: ok "
-                             f"{rec['ok']}, devices {rec['devices']}, flops "
-                             f"{rec['flops']}, bytes {rec['bytes_accessed']}"
-                             f" against {weight_bytes} weight bytes")
-    h100 = {"H100": PAPER_GPUS["H100"]}
-    buckets = bucket_grid()
-    perf = ModelPerf.from_config(cfg)
-    h100_profile = profile_from_dryrun(h100, buckets, cfg, rec, SLO_TPOT_S)
-    analytic = profile_catalog(h100, buckets, perf, SLO_TPOT_S)
-    row, row_a = h100_profile.max_tput["H100"], analytic.max_tput["H100"]
-    if not (np.isfinite(row).all() and (row >= 0).all() and row.any()):
-        raise AssertionError(f"record-derived H100 row: {row.tolist()}")
-    em_rec = EngineModel(
-        perf, flops_per_token=decode_flops_per_token_from_record(rec),
-        bytes_per_step_base=decode_bytes_per_step_base_from_record(rec,
-                                                                   perf))
-    em_ana = EngineModel(perf)
-    B_rec, S_rec = rec["global_batch"], rec["seq_len"]
-    print("profile: " + json.dumps({
-        "gpu": "H100", "slo_tpot_s": SLO_TPOT_S, "model": cfg.name,
-        "record": f"{rec['arch']} {rec['shape']} global_batch {B_rec} "
-                  f"seq_len {S_rec}",
-        "buckets": [[b.i_lo, b.i_hi, b.o_lo, b.o_hi, float(r), float(a),
-                     float(r / a) if a > 0 else None]
-                    for b, r, a in zip(buckets, row, row_a)],
-        "columns": "i_lo, i_hi, o_lo, o_hi, record-derived req/s, analytic "
-                   "req/s, ratio",
-        "feasible_buckets": [int((row > 0).sum()), int((row_a > 0).sum())],
-        "engine_model_step_ms": {
-            "record": em_rec.decode_step_time(PAPER_GPUS["H100"], B_rec,
-                                              S_rec) * 1e3,
-            "analytic": em_ana.decode_step_time(PAPER_GPUS["H100"], B_rec,
-                                                S_rec) * 1e3},
-        "measured_step_ms": rec["step_ms"],
-        "measured_device_busy_ms": rec["device_busy_ms"],
-        "card": rec["card"]}))
+    h100_profile = profile_rows(cfg, rec)
 
     # -- 7. cluster: qwen2-1.5b behind ServingCluster, two H100 instances
     # sharing one model on the card, routed under phase 6's profile --------
@@ -2060,6 +2221,109 @@ def main() -> int:
     lse_row["counter"], lse_row["paths"] = "flash_attention", \
         sorted(train_launches)
     kernel_rows.append(lse_row)
+
+    # -- 9. the modality configs at full size, bf16: llama-3.2-vision-11b
+    # (cross-attention over a static vision cache) and musicgen-large (4
+    # codebook streams). The engine serves neither (nor does the
+    # reference's), so each runs through the model's entry points: one
+    # prompt prefilled, then greedy append-mode decode steps; the path and
+    # trace of phases 4-5; its dry-run record and profile row -------------
+    def modality_inputs(cfg, rng, S):
+        """Tokens (1, S) or (1, S, C) on the card and, for a vision config,
+        vision embeddings (1, Nv, D) fp32 (else None), from ``rng``."""
+        C = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               size=(1, S) + C)).to(dev)
+        vision = None
+        if cfg.n_vision_tokens:
+            vision = torch.from_numpy(rng.standard_normal(
+                (1, cfg.n_vision_tokens, cfg.d_model)).astype(
+                    np.float32)).to(dev)
+        return tokens, vision
+
+    def generate(cfg, model):
+        """One GEN_PROMPT-token prompt prefilled into a batch-1 cache, then
+        GEN_STEPS greedy append-mode decode steps, each timed to its
+        synchronised end (the TPOT at B=1); the launches, counted from
+        zero over exactly this run, must be one flash launch a layer (a
+        cross layer's included) and one decode launch a layer a step."""
+        rng = np.random.default_rng(3)
+        warm, warm_vision = modality_inputs(cfg, rng, 64)
+        cache = T.init_cache(cfg, 1, GEN_PROMPT + GEN_STEPS + 1)
+        _, pf = model.prefill(warm, vision_embeds=warm_vision)  # warm-up
+        T.cache_insert(cfg, cache, pf, 0, 64)
+        model.decode_step(cache, warm[:, -1], torch.tensor([64]),
+                          append=True)
+        prompt, vision = modality_inputs(cfg, rng, GEN_PROMPT)
+        cache = T.init_cache(cfg, 1, GEN_PROMPT + GEN_STEPS + 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        logits, pf = model.prefill(prompt, vision_embeds=vision)
+        T.cache_insert(cfg, cache, pf, 0, GEN_PROMPT)
+        tok = logits[:, -1].argmax(-1)                 # (1,) or (1, C)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        del pf
+        lengths = torch.tensor([GEN_PROMPT])
+        tokens, step_ms = [tok], []
+        for _ in range(GEN_STEPS):
+            t1 = time.perf_counter()
+            step_logits, cache = model.decode_step(cache, tok, lengths,
+                                                   append=True)
+            tok = step_logits.argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            tokens.append(tok)
+            lengths = lengths + 1
+        launches = read_launches()
+        expected = expected_launches(cfg, 1, GEN_STEPS)
+        if launches != expected:
+            raise AssertionError(f"generate {cfg.name}: launches {launches}"
+                                 f", expected {expected}")
+        out = torch.stack(tokens, dim=1)[0]            # (steps + 1[, C])
+        if not bool(((out >= 0) & (out < cfg.vocab_size)).all()) or \
+                not bool(torch.isfinite(step_logits[..., :cfg.vocab_size])
+                         .all()):
+            raise AssertionError(f"generate {cfg.name}: tokens out of range"
+                                 " or logits not finite")
+        res = {"model": cfg.name, "layers": cfg.n_layers,
+               "cross_layers": sum(spec.attn_type == "cross"
+                                   for spec in cfg.layer_specs()),
+               "codebooks": cfg.n_codebooks,
+               "vision_tokens": cfg.n_vision_tokens,
+               "params": sum(p.numel() for p in model.parameters()),
+               "prompt": GEN_PROMPT, "decode_steps": GEN_STEPS,
+               "decode_mode": "append", "prefill_ms": prefill_ms,
+               "tpot_p50_ms": float(np.percentile(step_ms, 50)),
+               "tpot_p99_ms": float(np.percentile(step_ms, 99)),
+               "launches": launches, "tokens_head": out[:4].tolist(),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"generate: {json.dumps(res)}")
+        launches_by_path[f"{cfg.name} generate"] = launches
+        return res
+
+    for arch in ("llama-3.2-vision-11b", "musicgen-large"):
+        t_phase = time.perf_counter()
+        cfg = get_config(arch)
+        model = build(cfg)
+        gen = generate(cfg, model)
+        path(cfg, model, None)          # bf16: reported, not gated
+        trace(cfg, model, extra={"tpot_p50_ms_b1": gen["tpot_p50_ms"]})
+        del model
+        free()
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    param_dtype="float32")
+        model32 = build(cfg32)
+        path(cfg32, model32, PATH_TOL_FP32, gate_argmax=True,
+             append_tol=APPEND_TOL_FP32)
+        del model32
+        free()
+        cfg, rec = dryrun_record(arch)
+        profile_rows(cfg, rec)
+        free()
+        print(f"phase 9 ({arch}): {time.perf_counter() - t_phase:.1f} s")
 
     for row in kernel_rows:
         counter = row.get("counter", row["name"])

@@ -21,16 +21,20 @@ as they mean something on one card, so the port's copy of
     stated in ``bytes_source``: every weight as stored, read once (the
     capacity MoE path reads every expert); each sequence's K/V read at the
     context length (the cached tokens and the new one; a sliding window's
-    layers read the window) and written for one token; each recurrent state
-    read and written; and the logits written;
+    layers read the window; a cross layer its vision tokens, writing none)
+    and written for one token; each recurrent state read and written; and
+    the logits written (C rows a sequence with C codebooks);
   * measured on the card: ``step_ms`` (CUDA events, the median of the timed
     append-mode steps on the kernel path, after a warm-up),
     ``device_busy_ms`` (torch.profiler) and ``card`` (``nvidia-smi``'s name
     and power limit). A CPU run records none of these and says so.
 
-Training shapes raise: training is not ported (ROADMAP A8), and a record
-must never say that a training step ran. Prefill shapes are not ported
-either. Run from the repository root, with ``PYTHONPATH=src``, as
+The record is of the decode step only: training shapes raise (a one-card
+train record is ROADMAP A9), and a record must never say that a training
+step ran. Prefill shapes are not ported either. Codebook configs decode
+tokens (batch, C) into logits (batch, C, V); a vision config's cross layers
+read a cache of its n_vision_tokens, part of each sequence's bytes. Run
+from the repository root, with ``PYTHONPATH=src``, as
 
     python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape decode_32k
 
@@ -63,9 +67,10 @@ SEED = 0            # of the random weights and tokens
 BYTES_SOURCE = (
     "model of the append-mode decode step: every weight as stored, read "
     "once; per sequence, each attention layer's K/V read at the context "
-    "length (cached tokens and the new one; a local layer the window) and "
-    "one token written; each recurrent state read and written; the logits "
-    "written")
+    "length (cached tokens and the new one; a local layer the window; a "
+    "cross layer its vision tokens, none written) and one token written; "
+    "each recurrent state read and written; the logits written, one row a "
+    "codebook")
 
 
 def _nbytes(tree) -> int:
@@ -81,7 +86,9 @@ def step_traffic(cfg, model: T.Transformer, batch: int,
     kv_tok = 2 * cfg.n_kv_heads * cfg.head_dim * elem       # K and V
     kv = state = 0
     for spec in cfg.layer_specs():
-        if spec.kind == "attn":
+        if spec.kind == "attn" and spec.attn_type == "cross":
+            kv += max(cfg.n_vision_tokens, 1) * kv_tok      # read only
+        elif spec.kind == "attn":
             read = seq_len
             if spec.attn_type == "local" and cfg.sliding_window:
                 read = min(seq_len, cfg.sliding_window)
@@ -92,17 +99,25 @@ def step_traffic(cfg, model: T.Transformer, batch: int,
             if spec.kind != "attn":
                 state += 2 * _nbytes(one[f"g{gi}"][li])
     weights = _nbytes(list(model.parameters()))
-    logits = T._padded_vocab(cfg) * elem
+    logits = max(cfg.n_codebooks, 1) * T._padded_vocab(cfg) * elem
     return {"weights": weights, "kv": batch * kv, "states": batch * state,
             "logits": batch * logits}
 
 
+def decode_tokens(cfg, batch: int, generator=None) -> torch.Tensor:
+    """Random decode tokens on the CPU: (batch,), or (batch, C) with
+    codebooks."""
+    shape = (batch, cfg.n_codebooks) if cfg.n_codebooks else (batch,)
+    return torch.randint(0, cfg.vocab_size, shape, generator=generator)
+
+
 def count_flops(cfg, batch: int, seq_len: int) -> int:
     """One append-mode decode step's operations (FlopCounterMode) on the
-    plain path, on the meta device: nothing is allocated or run."""
+    plain path, on the meta device: nothing is allocated or run. A cross
+    layer's cache holds its n_vision_tokens, so its read counts those."""
     model = T.Transformer(cfg, device="meta")
     cache = T.init_cache(cfg, batch, seq_len, device="meta")
-    tokens = torch.zeros(batch, dtype=torch.int64, device="meta")
+    tokens = decode_tokens(cfg, batch).to("meta")
     lengths = torch.full((batch,), seq_len - 1, dtype=torch.int64,
                          device="meta")
     with FlopCounterMode(display=False) as counter:
@@ -152,8 +167,9 @@ def run_cell(arch: str, shape: str, out_dir: Path = DEFAULT_OUT, *,
     case = get_shape(shape)
     if case.kind == "train":
         raise NotImplementedError(
-            f"{shape}: training is not ported (ROADMAP A8); no record may "
-            "say that a training step ran")
+            f"{shape}: the one-card record is of the decode step only; a "
+            "train record is ROADMAP A9, and no record may say that a "
+            "training step ran")
     if case.kind != "decode":
         raise NotImplementedError(f"{shape}: only decode records are "
                                   "ported")
@@ -199,9 +215,8 @@ def run_cell(arch: str, shape: str, out_dir: Path = DEFAULT_OUT, *,
     rec["bytes_by_part"] = traffic
     rec["bytes_source"] = BYTES_SOURCE
 
-    gen = torch.Generator().manual_seed(SEED)
-    tokens = torch.randint(0, cfg.vocab_size, (batch,), generator=gen)
-    tokens = tokens.to(dev)
+    tokens = decode_tokens(cfg, batch,
+                           torch.Generator().manual_seed(SEED)).to(dev)
     # lengths on the host, as the engine passes them: bounds-checked there
     lengths = torch.full((batch,), S - 1, dtype=torch.int64)
     cache = T.init_cache(cfg, batch, S, device=dev)
@@ -213,8 +228,10 @@ def run_cell(arch: str, shape: str, out_dir: Path = DEFAULT_OUT, *,
         return model.decode_step(cache, tokens, lengths, append=True)[0]
 
     logits = step()
-    if tuple(logits.shape) != (batch, T._padded_vocab(cfg)) or not bool(
-            torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+    C = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    want = (batch,) + C + (T._padded_vocab(cfg),)
+    if tuple(logits.shape) != want or not bool(
+            torch.isfinite(logits[..., :cfg.vocab_size]).all()):
         raise AssertionError(f"{arch} at {shape}: decode logits of shape "
                              f"{tuple(logits.shape)} are not all finite")
     if dev.type == "cuda":

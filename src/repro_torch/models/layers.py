@@ -1,10 +1,12 @@
 """Core transformer layers (port of ``repro/models/layers.py``): norms, RoPE,
-GQA attention (global / sliding-window), dense MLP variants.
+GQA attention (global / sliding-window / cross), dense MLP variants.
 
 Layers are plain functions over a dict of one layer's parameter tensors,
 laid out as in the JAX package (``wq (D, H, Dh)``, ``wo (H, Dh, D)``, ...).
 Attention goes through ``kernels/ops.py``, so CUDA tensors run the
-hand-written kernels. Cross-attention is not ported.
+hand-written kernels. A cross layer attends, without RoPE or a mask, over
+K/V projected from the vision tokens; its cache holds them and is static
+across decode.
 """
 from __future__ import annotations
 
@@ -18,11 +20,6 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops
 
 Params = dict
-
-
-def _check_self_attention(spec: LayerSpec) -> None:
-    if spec.attn_type == "cross":
-        raise NotImplementedError("cross-attention layers are not ported")
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -51,14 +48,17 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(D, -1)).view(B, S, *w.shape[1:])
 
 
-def _qkv(p: Params, x: torch.Tensor):
-    dt = x.dtype
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
-    if "bq" in p:
-        q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
-    return q, k, v
+def _q(p: Params, x: torch.Tensor) -> torch.Tensor:
+    q = _proj(x, p["wq"])
+    return q + p["bq"].to(x.dtype) if "bq" in p else q
+
+
+def _kv(p: Params, src: torch.Tensor):
+    k, v = _proj(src, p["wk"]), _proj(src, p["wv"])
+    if "bk" in p:
+        k = k + p["bk"].to(src.dtype)
+        v = v + p["bv"].to(src.dtype)
+    return k, v
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -74,7 +74,6 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 def init_attention(cfg: ModelConfig, spec: LayerSpec, rep: int, init) -> Params:
     """Stacked (leading ``rep`` dim) attention parameters. ``init(shape,
     std)`` draws normal weights; biases start at zero as in the JAX init."""
-    _check_self_attention(spec)
     D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s_q = (2.0 / (D + H * Dh)) ** 0.5
     p: Params = {
@@ -92,11 +91,19 @@ def init_attention(cfg: ModelConfig, spec: LayerSpec, rep: int, init) -> Params:
 
 def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: Params,
                       x: torch.Tensor, *, positions: torch.Tensor,
+                      vision_kv: Optional[torch.Tensor] = None,
                       impl: Optional[str] = None):
-    """Full-sequence (prefill) attention. x: (B, S, D); positions: (B, S).
-    Returns (out (B, S, D), {"k", "v"} of shape (B, S, KVH, Dh))."""
-    _check_self_attention(spec)
-    q, k, v = _qkv(p, x)
+    """Full-sequence (prefill) attention. x: (B, S, D); positions: (B, S);
+    vision_kv (B, Nv, D) for cross layers. Returns (out (B, S, D), {"k",
+    "v"} of shape (B, S, KVH, Dh), or (B, Nv, KVH, Dh) for a cross layer,
+    whose K/V is static across decode)."""
+    q = _q(p, x)
+    if spec.attn_type == "cross":
+        k, v = _kv(p, vision_kv)
+        out = ops.flash_attention(q, k, v, causal=False, window=None,
+                                  softcap=cfg.attn_softcap, impl=impl)
+        return _out_proj(out, p["wo"]), {"k": k, "v": v}
+    k, v = _kv(p, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     window = cfg.sliding_window if spec.attn_type == "local" else None
@@ -118,11 +125,22 @@ def attention_decode(cfg: ModelConfig, spec: LayerSpec, p: Params,
     and itself (``ops.decode_attention`` with ``k_new``/``v_new``), and the
     deltas {"k_new", "v_new"} of shape (B, KVH, Dh) are returned for the
     caller to commit, as in ``repro/models/layers.py``.
+
+    A cross layer attends over its whole static cache (every row's length
+    the cache's vision tokens), with no RoPE and no new K/V; it returns
+    the cache in committed mode and no deltas ({}) in append mode.
     """
-    _check_self_attention(spec)
     B = x.shape[0]
+    q = _q(p, x)
+    if spec.attn_type == "cross":
+        nv = cache["k"].shape[1]
+        out = ops.decode_attention(
+            q[:, 0], cache["k"], cache["v"],
+            torch.full((B,), nv, dtype=torch.int64, device=x.device),
+            softcap=cfg.attn_softcap, impl=impl)
+        return _out_proj(out, p["wo"])[:, None], ({} if append else cache)
     pos = lengths[:, None]                                     # (B,1)
-    q, k_new, v_new = _qkv(p, x)
+    k_new, v_new = _kv(p, x)
     q = rope(q, pos, cfg.rope_theta)
     k_new = rope(k_new, pos, cfg.rope_theta)
     window = cfg.sliding_window if spec.attn_type == "local" else None
@@ -145,9 +163,11 @@ def attention_decode(cfg: ModelConfig, spec: LayerSpec, p: Params,
 def init_attention_cache(cfg: ModelConfig, spec: LayerSpec, rep: int,
                          batch: int, max_seq: int, dtype,
                          device: torch.device) -> dict:
-    """Zeroed stacked cache {"k", "v"}: (rep, batch, max_seq, KVH, Dh)."""
-    _check_self_attention(spec)
-    shape = (rep, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    """Zeroed stacked cache {"k", "v"}: (rep, batch, max_seq, KVH, Dh); a
+    cross layer's holds max(n_vision_tokens, 1) positions instead."""
+    seq = max(cfg.n_vision_tokens, 1) if spec.attn_type == "cross" \
+        else max_seq
+    shape = (rep, batch, seq, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

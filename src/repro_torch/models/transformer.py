@@ -1,12 +1,14 @@
 """Period-grouped decoder stack (port of ``repro/models/transformer.py``) for
-attention, Mamba and RWKV-6 layers with dense, MoE or no MLPs: qwen2,
-internlm2, minitron, gemma2, granite-moe, kimi-k2, jamba and rwkv6.
+attention (self and cross), Mamba and RWKV-6 layers with dense, MoE or no
+MLPs: all ten configs of ``configs/archs.py``.
 
-Parameters keep the JAX names and shapes: ``embed (V, D)``, ``final_norm``,
-``lm_head (D, V)`` when untied, and per group ``g{i}.{j}.<leaf>`` stacked
-with a leading layer dim (e.g. ``g0.0.mixer.wq (L, D, H, Dh)``), where ``j``
-is the position in the group's period. A JAX params pytree therefore
-converts leaf for leaf (``from_jax_params``).
+Parameters keep the JAX names and shapes: ``embed (V, D)`` (``(C, V, D)``
+with C codebooks), ``final_norm``, ``lm_head (D, V)`` when untied (``(C, D,
+V)``), ``vision_proj (D, D)`` with vision tokens, and per group
+``g{i}.{j}.<leaf>`` stacked with a leading layer dim (e.g.
+``g0.0.mixer.wq (L, D, H, Dh)``), where ``j`` is the position in the
+group's period. A JAX params pytree therefore converts leaf for leaf
+(``from_jax_params``).
 
 PyTorch runs eagerly, so where the JAX stack scans over layers this one
 loops over views of the stacked tensors. Decode writes each recurrent
@@ -16,14 +18,21 @@ reference), or, in append mode (the serving engine's), read-only in the
 layers and committed after each group with one batched write per stacked
 leaf.
 
-Caches mirror the JAX structure: ``{"g{i}": ({"mixer": {...}}, ...)}``.
-Attention layers hold ``k``/``v`` (L, B, S, KVH, Dh); Mamba layers ``h``
-(L, B, Din, N) fp32 and ``conv`` (L, B, K-1, Din); RWKV layers ``wkv``
-(L, B, H, K, K) fp32, ``shift_tm`` and ``shift_cm`` (L, B, D).
+Codebook models (musicgen) take tokens (B, S, C), sum the C embeddings
+and give logits (B, S, C, V). Vision models (llama-3.2-vision) take
+``vision_embeds`` (B, Nv, D) in ``prefill``; their cross layers attend over
+``vision_embeds @ vision_proj`` and keep its K/V as a static cache that
+decode reads whole and never writes.
 
-Training (``train_forward``, ``loss_fn``) runs attention and MoE configs:
-grad mode on, no cache, the MoE aux losses summed over layers, and under
-``cfg.remat`` each period of a group recomputed in the backward
+Caches mirror the JAX structure: ``{"g{i}": ({"mixer": {...}}, ...)}``.
+Attention layers hold ``k``/``v`` (L, B, S, KVH, Dh), cross layers (L, B,
+Nv, KVH, Dh); Mamba layers ``h`` (L, B, Din, N) fp32 and ``conv`` (L, B,
+K-1, Din); RWKV layers ``wkv`` (L, B, H, K, K) fp32, ``shift_tm`` and
+``shift_cm`` (L, B, D).
+
+Training (``train_forward``, ``loss_fn``) runs the self-attention and MoE
+configs: grad mode on, no cache, the MoE aux losses summed over layers, and
+under ``cfg.remat`` each period of a group recomputed in the backward
 (``torch.utils.checkpoint``, the counterpart of the reference's
 ``jax.checkpoint`` with ``nothing_saveable`` over its scan body).
 Parameters are created with ``requires_grad=False``; the train step
@@ -59,16 +68,10 @@ def resolve_device(device) -> torch.device:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.n_codebooks or cfg.n_vision_tokens:
-        raise NotImplementedError(f"{cfg.name}: codebook / vision frontends "
-                                  "are not ported")
     for spec in cfg.layer_specs():
         if spec.kind not in ("attn", "mamba", "rwkv"):
             raise NotImplementedError(f"{cfg.name}: {spec.kind} layers are "
                                       "not ported")
-        if spec.kind == "attn" and spec.attn_type == "cross":
-            raise NotImplementedError(f"{cfg.name}: cross-attention is not "
-                                      "ported")
         if spec.mlp not in ("dense", "moe", "none"):
             raise NotImplementedError(f"{cfg.name}: {spec.mlp} MLP layers "
                                       "are not ported")
@@ -76,8 +79,13 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise unless the port can train ``cfg``: Mamba and RWKV layers have
-    no backward through their scans yet, on any device."""
+    no backward through their scans yet, on any device, and the codebook
+    and vision configs are served, not trained (ROADMAP A7b)."""
     check_supported(cfg)
+    if cfg.n_codebooks or cfg.n_vision_tokens:
+        raise NotImplementedError(f"{cfg.name}: training the codebook and "
+                                  "vision configs is not ported (ROADMAP "
+                                  "A7b)")
     kinds = sorted({spec.kind for spec in cfg.layer_specs()} - {"attn"})
     if kinds:
         raise NotImplementedError(f"{cfg.name}: training through {kinds} "
@@ -180,10 +188,15 @@ class Transformer(nn.Module):
 
         self.cfg = cfg
         D, V = cfg.d_model, _padded_vocab(cfg)
-        self.embed = nn.Parameter(init((V, D), 0.02), requires_grad=False)
+        C = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+        self.embed = nn.Parameter(init(C + (V, D), 0.02),
+                                  requires_grad=False)
+        if cfg.n_vision_tokens:
+            self.vision_proj = nn.Parameter(init((D, D), D ** -0.5),
+                                            requires_grad=False)
         self.final_norm = nn.Parameter(init((D,), None), requires_grad=False)
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(init((D, V), 0.02),
+            self.lm_head = nn.Parameter(init(C + (D, V), 0.02),
                                         requires_grad=False)
         for gi, (period, rep) in enumerate(cfg.groups):
             self.add_module(f"g{gi}", nn.ModuleList(
@@ -195,12 +208,23 @@ class Transformer(nn.Module):
 
     # -- pieces ----------------------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed.to(getattr(torch, self.cfg.dtype))[tokens]
+        """tokens (B, S), or (B, S, C) with codebooks: the C embeddings
+        summed in codebook order."""
+        emb = self.embed.to(getattr(torch, self.cfg.dtype))
+        if self.cfg.n_codebooks:
+            return sum(emb[c][tokens[..., c]]
+                       for c in range(self.cfg.n_codebooks))
+        return emb[tokens]
 
     def _unembed(self, h: torch.Tensor) -> torch.Tensor:
+        """Logits (B, S, Vp), or (B, S, C, Vp) with codebooks; padded vocab
+        rows masked to -1e30."""
         cfg = self.cfg
         if cfg.tie_embeddings:
             logits = h @ self.embed.to(h.dtype).T
+        elif cfg.n_codebooks:
+            logits = torch.einsum("bsd,cdv->bscv", h,
+                                  self.lm_head.to(h.dtype))
         else:
             logits = h @ self.lm_head.to(h.dtype)
         if cfg.final_softcap is not None:
@@ -215,19 +239,20 @@ class Transformer(nn.Module):
 
     def _layer(self, spec: LayerSpec, p: dict, x: torch.Tensor, *,
                positions=None, cache=None, lengths=None, append=False,
-               impl=None):
+               vision_kv=None, impl=None):
         """One layer. ``cache`` None: prefill (attention returns its K/V,
-        a recurrent layer starts from a zero state); else this layer's
-        cache views (decode: attention writes K/V into them, or with
-        ``append`` returns its {"k_new", "v_new"}). Returns (x, the layer's
-        new K/V, deltas or recurrent state, its MoE aux losses or None)."""
+        a cross layer that of ``vision_kv``, a recurrent layer starts from
+        a zero state); else this layer's cache views (decode: attention
+        writes K/V into them, or with ``append`` returns its {"k_new",
+        "v_new"}). Returns (x, the layer's new K/V, deltas or recurrent
+        state, its MoE aux losses or None)."""
         cfg = self.cfg
         h_in = L.rms_norm(x, p["norm1"], cfg.norm_eps)
         if spec.kind == "attn":
             if cache is None:
                 mix_out, new = L.attention_forward(
                     cfg, spec, p["mixer"], h_in, positions=positions,
-                    impl=impl)
+                    vision_kv=vision_kv, impl=impl)
             else:
                 mix_out, new = L.attention_decode(cfg, spec, p["mixer"],
                                                   h_in, cache, lengths,
@@ -269,20 +294,38 @@ class Transformer(nn.Module):
             yield gi, period, rep, [s.per_layer() for s in stacks]
 
     # -- entry points ------------------------------------------------------------
+    def _vision_kv(self, vision_embeds: Optional[torch.Tensor],
+                   dtype: torch.dtype) -> Optional[torch.Tensor]:
+        """``vision_embeds @ vision_proj`` in the compute dtype for a
+        vision config (which must be given them), else None."""
+        if not self.cfg.n_vision_tokens:
+            return None
+        if vision_embeds is None:
+            raise ValueError(f"{self.cfg.name}: a vision model needs "
+                             "vision_embeds (B, n_vision_tokens, d_model)")
+        return vision_embeds.to(device=self.device, dtype=dtype) \
+            @ self.vision_proj.to(dtype)
+
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, *, impl: Optional[str] = None):
-        """Full-sequence pass over tokens (B, S). Returns (logits (B, S, V),
-        cache) with cache capacity == S."""
+    def prefill(self, tokens: torch.Tensor, *,
+                vision_embeds: Optional[torch.Tensor] = None,
+                impl: Optional[str] = None):
+        """Full-sequence pass over tokens (B, S), or (B, S, C) with
+        codebooks; a vision config also takes ``vision_embeds`` (B, Nv, D).
+        Returns (logits (B, S, V) or (B, S, C, V), cache) with cache
+        capacity == S (a cross layer's: Nv)."""
         h = self._embed(tokens)
-        B, S = tokens.shape
+        B, S = tokens.shape[:2]
         positions = torch.arange(S, device=h.device).expand(B, S)
+        vision_kv = self._vision_kv(vision_embeds, h.dtype)
         caches = {}
         for gi, period, rep, views in self._groups():
             per_pos = [[] for _ in period]
             for r in range(rep):
                 for li, spec in enumerate(period):
                     h, new, _ = self._layer(spec, views[li][r], h,
-                                            positions=positions, impl=impl)
+                                            positions=positions,
+                                            vision_kv=vision_kv, impl=impl)
                     per_pos[li].append(new)
             caches[f"g{gi}"] = tuple(
                 {"mixer": {name: torch.stack([st[name] for st in sts])
@@ -292,11 +335,13 @@ class Transformer(nn.Module):
         return self._unembed(h), caches
 
     def forward(self, tokens: torch.Tensor, *,
+                vision_embeds: Optional[torch.Tensor] = None,
                 impl: Optional[str] = None) -> torch.Tensor:
-        """Logits (B, S, V) of a full-sequence pass, under ``torch.no_grad``
-        (it is ``prefill``'s). The differentiable pass is ``train_forward``
-        (through ``loss_fn``)."""
-        return self.prefill(tokens, impl=impl)[0]
+        """Logits (B, S, V) (or (B, S, C, V)) of a full-sequence pass, under
+        ``torch.no_grad`` (it is ``prefill``'s). The differentiable pass is
+        ``train_forward`` (through ``loss_fn``)."""
+        return self.prefill(tokens, vision_embeds=vision_embeds,
+                            impl=impl)[0]
 
     def _period(self, period, views: list, h: torch.Tensor,
                 positions: torch.Tensor, impl: Optional[str]):
@@ -347,10 +392,12 @@ class Transformer(nn.Module):
     def decode_step(self, cache: dict, tokens: torch.Tensor,
                     lengths: torch.Tensor, *, append: bool = False,
                     impl: Optional[str] = None):
-        """One decode step. tokens (B,); lengths (B,) tokens already in the
-        cache (the position of the new token). Writes each attention layer's
-        new K/V and each recurrent layer's new state into ``cache`` IN
-        PLACE and returns (logits (B, V), cache).
+        """One decode step. tokens (B,), or (B, C) with codebooks; lengths
+        (B,) tokens already in the cache (the position of the new token).
+        Writes each self-attention layer's new K/V and each recurrent
+        layer's new state into ``cache`` IN PLACE and returns (logits (B, V)
+        or (B, C, V), cache). Cross layers read their static cache whole
+        and write nothing.
 
         ``append=False`` (the default, as the reference's): each attention
         layer writes its token's K/V before it attends. ``append=True`` (the
@@ -363,8 +410,8 @@ class Transformer(nn.Module):
         Lengths given on the CPU are bounds-checked before anything is
         written (on the device an out-of-range write would be a device-side
         fault): never negative, and below the capacity of the first
-        attention layer's cache where the config has one (a recurrent state
-        has no capacity)."""
+        self-attention layer's cache where the config has one (a recurrent
+        state has no capacity)."""
         if lengths.device.type == "cpu":
             max_seq = _attention_capacity(self.cfg, cache)
             if bool(((lengths < 0) | (lengths >= max_seq)).any()):
@@ -393,8 +440,8 @@ class Transformer(nn.Module):
             if not append:
                 continue
             for li, spec in enumerate(period):
-                if spec.kind != "attn":
-                    continue
+                if spec.kind != "attn" or spec.attn_type == "cross":
+                    continue           # cross: static, nothing to commit
                 leaves = cache[f"g{gi}"][li]["mixer"]
                 if bidx is None:
                     bidx = torch.arange(h.shape[0], device=h.device)
@@ -406,19 +453,20 @@ class Transformer(nn.Module):
 
 
 def _attention_capacity(cfg: ModelConfig, cache: dict) -> float:
-    """Positions the first attention layer's cache holds; unbounded in an
-    attention-free config."""
+    """Positions the first self-attention layer's cache holds; unbounded in
+    a config without one."""
     for gi, (period, _) in enumerate(cfg.groups):
         for li, spec in enumerate(period):
-            if spec.kind == "attn":
+            if spec.kind == "attn" and spec.attn_type != "cross":
                 return cache[f"g{gi}"][li]["mixer"]["k"].shape[2]
     return float("inf")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device="cuda") -> dict:
-    """Zeroed decode cache: attention K/V in the model dtype, recurrent
-    states as ``ssm.init_state``."""
+    """Zeroed decode cache: attention K/V in the model dtype (a cross
+    layer's over its n_vision_tokens positions, filled by ``cache_insert``
+    from a prefill), recurrent states as ``ssm.init_state``."""
     check_supported(cfg)
     dev = resolve_device(device)
     cdt = getattr(torch, cfg.dtype)
@@ -437,15 +485,15 @@ def cache_insert(cfg: ModelConfig, cache: dict, prefill_cache: dict,
                  slot: int, length: int) -> dict:
     """Write a single-sequence prefill cache (batch == 1) into batch slot
     ``slot`` of a decode cache, IN PLACE: the first ``length`` positions of
-    every attention layer's K/V, and every recurrent state whole (the
-    prefill must have run on exactly ``length`` tokens for that state to be
-    the prompt's). Returns ``cache``."""
+    every self-attention layer's K/V, and every cross layer's K/V and
+    recurrent state whole (the prefill must have run on exactly ``length``
+    tokens for a recurrent state to be the prompt's). Returns ``cache``."""
     for gi, (period, _) in enumerate(cfg.groups):
         for li, spec in enumerate(period):
             dst = cache[f"g{gi}"][li]["mixer"]
             src = prefill_cache[f"g{gi}"][li]["mixer"]
             for name, d in dst.items():
-                if spec.kind == "attn":
+                if spec.kind == "attn" and spec.attn_type != "cross":
                     d[:, slot, :length] = src[name][:, 0, :length].to(d.dtype)
                 else:
                     d[:, slot] = src[name][:, 0].to(d.dtype)

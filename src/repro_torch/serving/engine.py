@@ -71,10 +71,22 @@ class EngineConfig:
 class ServingEngine:
     """Serves ``model`` (a ``transformer.Transformer``) on ``device``, CUDA
     by default; raises when CUDA is missing and no device was given. The
-    model must already live on that device."""
+    model must already live on that device.
+
+    Vision and codebook configs raise ``NotImplementedError``, as the
+    reference engine cannot serve them either: its prefill passes no
+    ``vision_embeds`` (which the model requires) and it samples one token
+    a step where a codebook model gives C. Their entry points are the
+    model's ``prefill`` / ``decode_step`` and ``launch/dryrun.py``."""
 
     def __init__(self, cfg: ModelConfig, model: T.Transformer,
                  ecfg: EngineConfig, *, device="cuda"):
+        if cfg.n_vision_tokens or cfg.n_codebooks:
+            raise NotImplementedError(
+                f"{cfg.name}: the engine serves one token stream without "
+                "vision inputs, as the reference engine does (its prefill "
+                "takes no vision_embeds and it samples one token a step, "
+                "not one per codebook)")
         self.device = T.resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "

@@ -8,6 +8,7 @@ to its original's, outside the docstring and the top-level imports.
 """
 import ast
 import dataclasses
+import functools
 import json
 from pathlib import Path
 
@@ -32,8 +33,6 @@ from repro_torch.launch import dryrun
 from repro_torch.models import transformer as T
 
 SLO = 0.12
-PERF_ARCHS = ["qwen2-1.5b", "granite-moe-1b-a400m", "rwkv6-1.6b",
-              "jamba-1.5-large-398b"]
 COPIES = {"accelerators": (j_acc, p_acc), "workload": (j_wl, p_wl),
           "engine_model": (j_em, p_em), "profiler": (j_prof, p_prof),
           "balancer": (j_bal, p_bal), "shapes": (j_shapes, p_shapes)}
@@ -93,11 +92,39 @@ def test_buckets_and_edges_equal():
                 int(j_wl.edge_bucket(v, edges))
 
 
-@pytest.mark.parametrize("arch", PERF_ARCHS)
+@functools.lru_cache(maxsize=None)
+def _jax_perf(arch):
+    """The JAX package's ModelPerf of ``arch`` (its parameter count traces
+    the init, ~1 s a config, so each is made once)."""
+    return j_em.ModelPerf.from_config(jax_get_config(arch))
+
+
+@pytest.mark.parametrize("arch", list_archs())
 def test_model_perf_from_config_equal(arch):
     got = p_em.ModelPerf.from_config(get_config(arch))
-    want = j_em.ModelPerf.from_config(jax_get_config(arch))
-    assert _fields(got) == _fields(want)
+    assert _fields(got) == _fields(_jax_perf(arch))
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_param_counts_equal(arch):
+    """The port's meta-device count against the JAX package's, total and
+    active, for every config (the vision projection and the codebook
+    embed and head included)."""
+    cfg, cfg_j = get_config(arch), jax_get_config(arch)
+    assert cfg.param_count() == cfg_j.param_count()
+    assert cfg.active_param_count() == cfg_j.active_param_count()
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_analytic_profile_row_equal(arch):
+    """The analytic MaxTput rows the solver reads, for every config and
+    paper GPU: equal numbers and equal JSON (rows of configs that fit no
+    single paper GPU, jamba's and kimi-k2's, are zero in both)."""
+    jp, pp = _catalog_profiles(_jax_perf(arch),
+                               p_em.ModelPerf.from_config(get_config(arch)))
+    for gpu, row in jp.max_tput.items():
+        assert np.array_equal(pp.max_tput[gpu], row), gpu
+    assert pp.to_json() == jp.to_json()
 
 
 def _catalog_profiles(j_perf, p_perf):
@@ -255,7 +282,7 @@ def test_run_cell_feeds_both_profilers_alike(qwen2_record):
 
 
 def test_run_cell_refuses_training_and_skips_like_reference(tmp_path):
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="decode step only.*A9"):
         dryrun.run_cell("qwen2-1.5b", "train_4k", tmp_path, device="cpu",
                         reduced=True)
     rec = dryrun.run_cell("qwen2-1.5b", "long_500k", tmp_path,

@@ -34,10 +34,13 @@ ROUTER_MARGIN = 1e-5     # >> the ~1e-7 the packages' router probs differ by
 PARITY_ARCHS = ["qwen2-1.5b", "internlm2-1.8b", "gemma2-27b", "minitron-4b"]
 MOE_ARCHS = ["granite-moe-1b-a400m", "kimi-k2-1t-a32b"]
 RECURRENT_ARCHS = ["rwkv6-1.6b", "jamba-1.5-large-398b"]
+# cross-attention over vision tokens; codebook streams (JAX decode parity:
+# tests/test_torch_modality.py)
+MODALITY_ARCHS = ["llama-3.2-vision-11b", "musicgen-large"]
 PREFILL_LENS = (40, 23)   # prompt lengths of the slot-cache tests
 # the JAX entry points, jitted (config static): one compile per shape
-j_forward = jax.jit(lambda cfg, p, t: JT.forward(cfg, p, t)[0],
-                    static_argnums=0)
+j_forward = jax.jit(lambda cfg, p, t, v=None: JT.forward(
+    cfg, p, t, vision_embeds=v)[0], static_argnums=0)
 j_prefill = jax.jit(JT.prefill, static_argnums=0)
 j_decode = jax.jit(lambda cfg, p, c, t, l: JT.decode_step(
     cfg, p, c, t, l, append=False), static_argnums=0)
@@ -114,6 +117,17 @@ def _err(a, b):
     return float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
 
 
+def _inputs(cfg, rng, B, S):
+    """Tokens (B, S), or (B, S, C) with codebooks, and for a vision config
+    vision embeddings (B, Nv, D) fp32 (else None), drawn from ``rng`` in
+    that order."""
+    shape = (B, S, cfg.n_codebooks) if cfg.n_codebooks else (B, S)
+    tokens = rng.integers(0, cfg.vocab_size, size=shape)
+    vision = (rng.standard_normal((B, cfg.n_vision_tokens, cfg.d_model))
+              .astype(np.float32) if cfg.n_vision_tokens else None)
+    return tokens, vision
+
+
 @pytest.fixture
 def router_margins(monkeypatch):
     """Per gating call of the port (ops.moe_route on the capacity paths,
@@ -145,13 +159,16 @@ def _check_routes(cfg, margins):
             f"router near-tie: margins {sorted(margins)[:3]}"
 
 
-@pytest.mark.parametrize("arch", PARITY_ARCHS + MOE_ARCHS + RECURRENT_ARCHS)
+@pytest.mark.parametrize("arch", PARITY_ARCHS + MOE_ARCHS + RECURRENT_ARCHS
+                         + MODALITY_ARCHS)
 def test_forward_logits_match_jax(arch, router_margins):
     cfg_j, cfg_t, params_j, model = _both(arch)
     rng = np.random.default_rng(1)
-    tokens = rng.integers(0, cfg_j.vocab_size, size=(2, 40))
-    logits_j = j_forward(cfg_j, params_j, jnp.asarray(tokens))
-    logits_t = model(torch.from_numpy(tokens))
+    tokens, vision = _inputs(cfg_j, rng, 2, 40)
+    logits_j = j_forward(cfg_j, params_j, jnp.asarray(tokens),
+                         None if vision is None else jnp.asarray(vision))
+    logits_t = model(torch.from_numpy(tokens), vision_embeds=None
+                     if vision is None else torch.from_numpy(vision))
     _check_routes(cfg_t, router_margins)
     assert logits_t.shape == logits_j.shape
     assert _err(logits_t, logits_j) < TOL
@@ -205,7 +222,8 @@ def test_prefill_then_decode_matches_jax(arch, router_margins):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma2-27b",
-                                  "granite-moe-1b-a400m"] + RECURRENT_ARCHS)
+                                  "granite-moe-1b-a400m"] + RECURRENT_ARCHS
+                         + MODALITY_ARCHS)
 def test_append_decode_matches_committed(arch):
     """Append-mode decode_step (attention reads the cache as it was and
     merges the token; one batched K/V commit per stacked leaf after each
@@ -213,20 +231,24 @@ def test_append_decode_matches_committed(arch):
     prefilled slot cache: logits within 1e-5 (fp32), and every cache leaf
     within 1e-5 after each step's commit (a layer's K/V deltas depend on
     the hidden state, which the two modes sum in different orders).
-    gemma2's local layers cross their 32-token window."""
+    gemma2's local layers cross their 32-token window; the vision
+    config's cross layers read their static cache whole in both modes, and
+    musicgen decodes (2, C) tokens."""
     _, cfg, _, model = _both(arch, seed=4)
     rng = np.random.default_rng(5)
     caches = [T.init_cache(cfg, 2, 48, device="cpu") for _ in range(2)]
     for slot, L in enumerate(PREFILL_LENS):
-        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                               size=(1, L)))
-        _, pf = model.prefill(prompt)
+        prompt, vision = _inputs(cfg, rng, 1, L)
+        _, pf = model.prefill(torch.from_numpy(prompt), vision_embeds=None
+                              if vision is None else torch.from_numpy(vision))
         for cache in caches:
             T.cache_insert(cfg, cache, pf, slot, L)
     lengths = torch.tensor(PREFILL_LENS)
     leaves = [torch.utils._pytree.tree_leaves(c) for c in caches]
+    C = cfg.n_codebooks
     for _ in range(4):
-        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=2))
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             size=(2, C) if C else 2))
         committed, _ = model.decode_step(caches[0], toks, lengths)
         appended, _ = model.decode_step(caches[1], toks, lengths,
                                         append=True)
@@ -244,7 +266,7 @@ def test_append_decode_matches_jax_forward():
     cfg_j, cfg_t, params_j, model = _both("gemma2-27b")
     tokens = np.random.default_rng(1).integers(0, cfg_j.vocab_size,
                                                size=(2, 40))
-    full = j_forward(cfg_j, params_j, jnp.asarray(tokens))
+    full = j_forward(cfg_j, params_j, jnp.asarray(tokens), None)
     cache = T.init_cache(cfg_t, 2, 41, device="cpu")
     steps = [model.decode_step(cache, torch.from_numpy(tokens[:, t]),
                                torch.full((2,), t), append=True)[0]
@@ -253,14 +275,17 @@ def test_append_decode_matches_jax_forward():
 
 
 def test_param_names_and_count_match_jax():
-    for arch in PARITY_ARCHS + ["granite-moe-1b-a400m"] + RECURRENT_ARCHS:
+    for arch in PARITY_ARCHS + ["granite-moe-1b-a400m"] + RECURRENT_ARCHS \
+            + MODALITY_ARCHS:
         assert get_config(arch).param_count() == \
             jax_get_config(arch).param_count(), arch
     granite = "granite-moe-1b-a400m"
     assert get_config(granite).active_param_count() == \
         jax_get_config(granite).active_param_count()
-    # bf16: the router and the recurrent layers' constants stay fp32
-    for arch in ("gemma2-27b", granite) + tuple(RECURRENT_ARCHS):
+    # bf16: the router and the recurrent layers' constants stay fp32; the
+    # vision projection and the codebook embed and head keep their names
+    for arch in ("gemma2-27b", granite) + tuple(RECURRENT_ARCHS
+                                                + MODALITY_ARCHS):
         cfg = dataclasses.replace(_reduced(get_config(arch)),
                                   param_dtype="bfloat16")
         cfg_j = dataclasses.replace(_reduced(jax_get_config(arch)),
@@ -280,12 +305,32 @@ def test_param_names_and_count_match_jax():
 
 
 def test_unported_configs_raise():
-    ported = set(PARITY_ARCHS + MOE_ARCHS + RECURRENT_ARCHS)
-    for arch in list_archs():
-        if arch in ported:
-            continue
-        with pytest.raises(NotImplementedError):
-            T.Transformer(get_config(arch).reduced(), device="cpu")
+    """What the port still refuses: training the vision and codebook
+    configs (ROADMAP A7b) and the recurrent ones (no scan backward, A10),
+    through check_trainable and train_forward; decode lengths outside the
+    self-attention cache (a vision config's capacity is its self-attention
+    cache's, not its cross cache's Nv rows)."""
+    assert set(PARITY_ARCHS + MOE_ARCHS + RECURRENT_ARCHS
+               + MODALITY_ARCHS) == set(list_archs())
+    for arch in MODALITY_ARCHS + RECURRENT_ARCHS:
+        cfg = get_config(arch).reduced()
+        why = "A7b" if arch in MODALITY_ARCHS else "scan backward"
+        with pytest.raises(NotImplementedError, match=why):
+            T.check_trainable(cfg)
+        model = T.Transformer(cfg, device="cpu")
+        tokens, _ = _inputs(cfg, np.random.default_rng(0), 1, 8)
+        with pytest.raises(NotImplementedError, match=why):
+            model.train_forward(torch.from_numpy(tokens))
+    cfg = get_config("llama-3.2-vision-11b").reduced()
+    model = T.Transformer(cfg, device="cpu")
+    cache = T.init_cache(cfg, 1, 24, device="cpu")
+    assert cfg.n_vision_tokens == 16
+    logits, _ = model.decode_step(cache, torch.zeros(1, dtype=torch.int64),
+                                  torch.tensor([20]), append=True)
+    assert logits.shape == (1, cfg.vocab_size)
+    with pytest.raises(ValueError):
+        model.decode_step(cache, torch.zeros(1, dtype=torch.int64),
+                          torch.tensor([24]))
     cfg = get_config("qwen2-1.5b").reduced()
     model = T.Transformer(cfg, device="cpu")
     cache = T.init_cache(cfg, 1, 16, device="cpu")
