@@ -86,22 +86,39 @@ Phases, each of which raises on failure (nothing is caught):
                window and softcap, a case with fully masked rows; fp32 2e-5,
                bf16 2e-2) and its out equal to the kernel's without lse;
                the CUDA autograd.Function's dq, dk, dv against autograd
-               through ref.attention_naive (fp32, 1e-4); one train step's
-               loss (1e-5 relative), grad norm (1e-4 relative) and every
-               gradient (1e-3 of its leaf's largest magnitude) on the kernel
-               path against impl="plain", full width, 2 layers, fp32, seq
-               1024, granite with no differing expert choice or slot; then
-               train_loop.train at full size, bf16, remat, AdamW, seq 4096,
-               global batch 8: qwen2-1.5b (n_micro 4, 6 steps) and
-               granite-moe-1b-a400m (n_micro 8, 4 steps), every loss and
-               grad norm finite, the first step's cross-entropy within 10%
-               of ln V, launch counts exact (flash = attention layers x
-               microbatches x 2 a step, routing = MoE layers x
-               microbatches x 2, decode and scans 0), and one more step
-               under torch.profiler (a train: line each); last, qwen2 at 2
-               layers through a failure at step 4 and a resume from the
-               step-3 checkpoint, its losses equal to an uninterrupted
-               run's (1e-6 relative; bitwise or not is printed).
+               through ref.attention_naive (fp32, 1e-4), causal and (the
+               vision cross layers) non-causal over Skv = 1600 and 1601,
+               a ragged last block of the backward; the trainable scans
+               with the kernel forward: fp32 gradients of every input
+               against autograd through the sequential oracles (T ragged
+               against the segment, WKV6 at mild and strong decays; 1e-4
+               of each gradient's largest magnitude, one launch a
+               segment) and bf16 ones at the training shapes against the
+               plain Functions (2e-2), with the forward, the plain
+               backward and its peak memory timed; the lse kernel at the
+               vision cross and musicgen training shapes; one train
+               step's loss (1e-5 relative), grad norm (1e-4 relative) and
+               every gradient (1e-3 of its leaf's largest magnitude) on
+               the kernel path against impl="plain", full width, fp32,
+               seq 1024: qwen2, granite (no differing expert choice or
+               slot), rwkv6 (2 layers each), Jamba's layer 0 and vision's
+               first cross and self layers; then train_loop.train, bf16,
+               remat, seq 4096, global batch 8: qwen2-1.5b (n_micro 4, 6
+               steps), granite-moe-1b-a400m (8, 4), rwkv6-1.6b (4, 3) and
+               musicgen-large (4, 3) at full size, jamba-1.5-large (8, 3,
+               Adafactor) on its layer 0 and llama-3.2-vision-11b (8, 3)
+               on its first 10 layers at full width (TRAIN_CUTS), every
+               loss and grad norm finite, the first step's cross-entropy
+               within 10% of ln V of its expected value, launch counts
+               exact (flash = attention layers x microbatches x 2 a step,
+               routing = MoE layers x microbatches x 2, a scan = its
+               layers x segments x microbatches x 2, decode 0), and one
+               more step under torch.profiler with the plain backward of
+               its scans, else of its attention, marked (a train: line
+               each); last, qwen2 at 2 layers through a failure at step 4
+               and a resume from the step-3 checkpoint, its losses equal
+               to an uninterrupted run's (1e-6 relative; bitwise or not is
+               printed).
   9. modality — llama-3.2-vision-11b (9.79 B parameters; every 5th layer
                cross-attends over 1600 vision tokens, vision embeddings
                (1, 1600, 4096) drawn from numpy's default_rng) and
@@ -210,9 +227,37 @@ def hot_logits(T: int, E: int) -> np.ndarray:
 # 8. training
 # ---------------------------------------------------------------------------
 TRAIN_SEQ, TRAIN_BATCH = 4096, 8   # train_4k's sequence, global batch 8
-TRAIN_RUNS = [("qwen2-1.5b", 4, 6), ("granite-moe-1b-a400m", 8, 4)]
+# arch, n_micro, steps, layers kept (None: all; see TRAIN_CUTS)
+TRAIN_RUNS = [("qwen2-1.5b", 4, 6, None), ("granite-moe-1b-a400m", 8, 4, None),
+              ("rwkv6-1.6b", 4, 3, None), ("jamba-1.5-large-398b", 8, 3, 1),
+              ("llama-3.2-vision-11b", 8, 3, 10), ("musicgen-large", 4, 3, None)]
+TRAIN_CUTS = {
+    "jamba-1.5-large-398b":
+        "layer 0 of 72 (Mamba + dense MLP) with the embeddings and head, full "
+        "width, Adafactor: layer 1's MoE alone is 9.7 B parameters (16 "
+        "experts x 3 x 8192 x 24576), which with its gradients does not fit "
+        "one card; granite trains MoE",
+    "llama-3.2-vision-11b":
+        "the first 10 of 40 layers (two periods of a cross layer and 4 self "
+        "layers), full width: 9.79 B parameters with AdamW need ~137 GB",
+}
 # tests/test_kernels.py::test_flash_vjp_matches_naive_autodiff
 GRAD_TOL = 1e-4
+# the trainable scans with the kernel forward: fp32 gradients against
+# autograd through the sequential oracles, bf16 ones at the training shapes
+# against the plain Functions; each relative to the gradient's largest
+# magnitude
+SCAN_GRAD_TOL, SCAN_BF16_TOL = 1e-4, 2e-2
+# the scans' shapes in the training runs: rwkv6's micro batch of 2 at H 32,
+# K 64; Jamba's layer 0 at micro batch 1, Din 16384, N 16
+SCAN_TRAIN_SHAPES = {"rwkv6_scan": (2, TRAIN_SEQ, 32, 64),
+                     "ssm_scan": (1, TRAIN_SEQ, 16384, 16)}
+SCAN_KERNEL_NAMES = ("ssm_kernel", "walk_kernel", "carry_kernel")
+# the plain backward each training run's profiled step marks in its trace,
+# by layer kind: (ref function, label of the breakdown's keys)
+MARKED_BWD = {"rwkv": ("rwkv6_scan_bwd", "scan"),
+              "mamba": ("ssm_scan_bwd", "scan"),
+              "attn": ("flash_attention_bwd", "attention")}
 LOSS_RTOL, GNORM_RTOL, LEAF_TOL = 1e-5, 1e-4, 1e-3
 RESUME_RTOL = 1e-6
 FIRST_LOSS_RTOL = 0.1
@@ -222,20 +267,12 @@ CUBLAS_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
 BWD_MARKER = "spin_kernel"
 
 
-def library_flash_lse(torch, q, k, v):
-    """aten's flash attention, causal, with its lse: (B, H, S, Dh) q, k, v
-    -> (out, lse (B, H, S), ...). Timed beside the kernel, never used by
-    the port."""
+def library_flash_lse(torch, q, k, v, causal=True):
+    """aten's flash attention with its lse: (B, H, S, Dh) q, k, v -> (out,
+    lse (B, H, S), ...). Timed beside the kernel, never used by the
+    port."""
     return torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0,
-                                                               True)
-
-
-def kernel_times(prof, DeviceType) -> dict:
-    """{kernel name: (device ms, launches)} of a profiler session."""
-    return {e.key: (e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0}
+                                                               causal)
 
 
 def is_cublas(name: str) -> bool:
@@ -243,21 +280,21 @@ def is_cublas(name: str) -> bool:
 
 
 def step_breakdown(prof, DeviceType, wall_ms: float, step_ms: float,
-                   bwd_calls: int) -> dict:
+                   bwd_calls: int, what: str = "attention") -> dict:
     """Device ms of one profiled train step by kind, all read from the
-    step's trace: the flash kernel, the plain attention backward (the
-    kernels between the two ``BWD_MARKER`` launches around each of its
-    ``bwd_calls`` calls; one stream, so the order of start times is the
-    order of launch), cuBLAS inside and outside that backward, the rest,
-    and the idle share against the profiled step's wall time and against
-    the unprofiled median step. The backward's span (first marker to
-    second, summed) shows how long the stream spent in it, idle gaps
-    included."""
+    step's trace: the flash kernel, the scan kernels, the marked plain
+    backward (``what``: the attention's or the scans'; the kernels between
+    the two ``BWD_MARKER`` launches around each of its ``bwd_calls``
+    calls; one stream, so the order of start times is the order of
+    launch), cuBLAS inside and outside that backward, the rest, and the
+    idle share against the profiled step's wall time and against the
+    unprofiled median step. The backward's span (first marker to second,
+    summed) shows how long the stream spent in it, idle gaps included."""
     evs = sorted((e for e in prof.events()
                   if e.device_type == DeviceType.CUDA
                   and e.self_device_time_total > 0),
                  key=lambda e: e.time_range.start)
-    busy = flash = cublas = bwd = bwd_cublas = span = 0.0
+    busy = flash = scan = cublas = bwd = bwd_cublas = span = 0.0
     inside, marks, opened, n, per = False, 0, 0.0, 0, {}
     for e in evs:
         if BWD_MARKER in e.name:
@@ -272,38 +309,210 @@ def step_breakdown(prof, DeviceType, wall_ms: float, step_ms: float,
         busy += ms
         per[e.name[:60]] = per.get(e.name[:60], 0.0) + ms
         flash += ms if "flash_" in e.name else 0.0
+        scan += ms if any(k in e.name for k in SCAN_KERNEL_NAMES) else 0.0
         cublas += ms if is_cublas(e.name) else 0.0
         if inside:
             bwd += ms
             bwd_cublas += ms if is_cublas(e.name) else 0.0
     res = {"wall_ms": wall_ms, "device_busy_ms": busy, "kernels": n,
-           "flash_kernel_ms": flash,
+           "flash_kernel_ms": flash, "scan_kernel_ms": scan,
            "idle_share": 1 - busy / wall_ms,
            "idle_share_vs_unprofiled_step": 1 - busy / step_ms,
            "top_kernels_ms": sorted(per.items(), key=lambda kv: -kv[1])[:8]}
     if marks != 2 * bwd_calls or inside:
-        res["attention_backward_ms"] = (
+        res[f"{what}_backward_ms"] = (
             f"not measured: {marks} markers in the trace for {bwd_calls} "
             "calls")
         return res
     res.update({
-        "attention_backward_ms": bwd,
-        "attention_backward_calls": bwd_calls,
-        "attention_backward_share_of_busy": bwd / busy,
-        "attention_backward_span_ms": span,
-        "attention_backward_span_share_of_wall": span / wall_ms,
-        "cublas_in_attention_backward_ms": bwd_cublas,
-        "cublas_outside_attention_backward_ms": cublas - bwd_cublas,
-        "rest_ms": busy - flash - bwd - (cublas - bwd_cublas)})
+        f"{what}_backward_ms": bwd,
+        f"{what}_backward_calls": bwd_calls,
+        f"{what}_backward_share_of_busy": bwd / busy,
+        f"{what}_backward_span_ms": span,
+        f"{what}_backward_span_share_of_wall": span / wall_ms,
+        f"cublas_in_{what}_backward_ms": bwd_cublas,
+        f"cublas_outside_{what}_backward_ms": cublas - bwd_cublas,
+        "rest_ms": busy - flash - scan - bwd - (cublas - bwd_cublas)})
+    return res
+
+
+def cut(cfg, n):
+    """The first ``n`` layers of a one-group config: whole periods, or
+    the first ``n`` layers of one period."""
+    (period, _), = cfg.groups
+    groups = ((period, n // len(period)),) if n % len(period) == 0 \
+        else ((period[:n], 1),)
+    return dataclasses.replace(cfg, groups=groups)
+
+
+def attention_flops(cfg, B: int, S: int) -> int:
+    """Forward and backward (3x) FLOPs of a train step's attention scores
+    and values: causal S x S for self layers, S x Nv for cross layers."""
+    total = 0
+    for spec in cfg.layer_specs():
+        if spec.kind == "attn":
+            pairs = S * cfg.n_vision_tokens if spec.attn_type == "cross" \
+                else S * (S + 1) // 2
+            total += 3 * 4 * B * pairs * cfg.n_heads * cfg.head_dim
+    return total
+
+
+def scan_gates(torch, rnd, err, time_ms, free, f32, bf16, ops, ref, rk, ss):
+    """The trainable scans with the kernel forward (``ops`` on CUDA tensors
+    that need a gradient). fp32, small shapes (T ragged against the
+    segment and the chunks; WKV6 at mild and at strong decays, median w
+    ~0.011): every input's gradient against autograd through the
+    sequential oracle within SCAN_GRAD_TOL of its largest magnitude, and
+    the kernel launched once a segment. bf16, at the training shapes
+    (rwkv6: B 2, T 4096, H 32, K 64; Jamba's layer 0: B 1, T 4096, Din
+    16384, N 16): outputs and gradients against the plain Functions
+    (impl="plain") within SCAN_BF16_TOL of their largest magnitude, with
+    the forward and the plain backward timed (the second call of each,
+    CUDA events), the backward's peak extra bytes (the gradients it returns
+    included), and the kernel alone over T (one launch) beside its
+    bound. Returns {kernel: those numbers}."""
+    def rwkv_args(B, Tn, H, K, dtype, mu=None):
+        """r/k/v in ``dtype``; w = exp(-exp(z / 2 - 1)) (mild) or exp(-exp(
+        z + mu)) (median exp(-e^mu)), z ~ N(0, 1); u and state fp32."""
+        r, k, v = (rnd((B, Tn, H, K), f32) * 0.5 for _ in range(3))
+        z = rnd((B, Tn, H, K), f32)
+        w = torch.exp(-torch.exp(z * 0.5 - 1 if mu is None else z + mu))
+        return [r.to(dtype), k.to(dtype), v.to(dtype), w,
+                rnd((H, K), f32) * 0.3, rnd((B, H, K, K), f32) * 0.1]
+
+    def ssm_args(B, Tn, Din, N, dtype):
+        dt = torch.nn.functional.softplus(rnd((B, Tn, Din), f32)) * 0.1
+        return [rnd((B, Tn, Din), dtype), dt,
+                -torch.exp(rnd((Din, N), f32) * 0.3), rnd((B, Tn, N), dtype),
+                rnd((B, Tn, N), dtype), rnd((Din,), f32),
+                rnd((B, Din, N), f32) * 0.1]
+
+    scans = {"rwkv6_scan": (ops.rwkv6_scan, rk, ref.rwkv6_sequential),
+             "ssm_scan": (ops.ssm_scan, ss, ref.ssm_sequential)}
+    res = {"fp32_cases": [], "segment": ref.SCAN_SEGMENT}
+    worst = {}
+    # name, shape (T = 300: two segments, the last ragged; T = 45: one,
+    # no multiple of a chunk), mild / strong decays
+    for name, shape, mu in (("rwkv6_scan", (2, 300, 4, 64), None),
+                            ("rwkv6_scan", (2, 300, 4, 64), 1.5),
+                            ("rwkv6_scan", (1, 45, 2, 16), 1.5),
+                            ("ssm_scan", (2, 300, 64, 16), None),
+                            ("ssm_scan", (1, 45, 24, 8), None)):
+        entry, mod, oracle = scans[name]
+        args = (rwkv_args(*shape, f32, mu) if name == "rwkv6_scan"
+                else ssm_args(*shape, f32))
+        got = [a.clone().requires_grad_(True) for a in args]
+        before = mod.launches
+        outs = entry(*got)
+        segs = len(ref.scan_segments(shape[1]))
+        if mod.launches - before != segs or "Trainable" not in \
+                type(outs[0].grad_fn).__name__:
+            raise AssertionError(f"{name} {shape}: {mod.launches - before} "
+                                 f"launches for {segs} segments, grad_fn "
+                                 f"{type(outs[0].grad_fn).__name__}")
+        cot = [rnd(o.shape, f32) for o in outs]
+        torch.autograd.backward(outs, cot)
+        want = [a.clone().requires_grad_(True) for a in args]
+        ref_outs = oracle(*want)
+        torch.autograd.backward(ref_outs, cot)
+        e_out = max(err(a, b) for a, b in zip(outs, ref_outs))
+        e_grad = max(err(a.grad, b.grad) / float(b.grad.abs().max())
+                     for a, b in zip(got, want))
+        case = {"scan": name, "shape": list(shape), "decay_mu": mu,
+                "launches": segs,
+                "out_max_abs_err": e_out, "grad_max_err_over_max": e_grad}
+        res["fp32_cases"].append(case)
+        if not (e_out < SCAN_TOL and e_grad < SCAN_GRAD_TOL):
+            raise AssertionError(f"trainable {case}")
+        worst[name] = max(worst.get(name, 0.0), e_grad)
+    res["fp32_worst_grad_err_over_max"] = worst
+
+    def timed(fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return out, ev[0].elapsed_time(ev[1])
+
+    bf16_size = 2
+    for name, shape in SCAN_TRAIN_SHAPES.items():
+        entry, mod, _ = scans[name]
+        args = (rwkv_args(*shape, bf16) if name == "rwkv6_scan"
+                else ssm_args(*shape, bf16))
+        row = {"shape": list(shape), "dtype": "bf16 (w, dt, A, D, u and "
+               "states fp32)",
+               "segments": len(ref.scan_segments(shape[1]))}
+        cot = None
+        runs = {}
+        for impl in ("plain", None):
+            for _ in range(2):      # the second, warm, forward and backward
+                got = [a.clone().requires_grad_(True) for a in args]
+                before = mod.launches
+                outs, fwd_ms = timed(lambda: entry(*got, impl=impl))
+                launched = mod.launches - before
+                if cot is None:
+                    cot = [rnd(o.shape, f32).to(o.dtype) for o in outs]
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                grads, bwd_ms = timed(lambda: torch.autograd.grad(outs, got,
+                                                                  cot))
+                peak = torch.cuda.max_memory_allocated() - base
+            key = "kernel" if impl is None else "plain"
+            runs[key] = (outs, grads)
+            row[f"{key}_forward_ms"] = fwd_ms
+            row[f"{key}_forward_launches"] = launched
+            row[f"backward_ms_after_{key}_forward"] = bwd_ms
+            row[f"backward_peak_extra_bytes_after_{key}_forward"] = peak
+            del got
+        (ok, gk), (op, gp) = runs["kernel"], runs["plain"]
+        row["out_err_over_max"] = max(err(a, b) / float(b.abs().max())
+                                      for a, b in zip(ok, op))
+        row["grad_err_over_max"] = max(err(a, b) / float(b.abs().max())
+                                       for a, b in zip(gk, gp))
+        if row["kernel_forward_launches"] != row["segments"] \
+                or row["plain_forward_launches"] \
+                or not (row["out_err_over_max"] < SCAN_BF16_TOL
+                        and row["grad_err_over_max"] < SCAN_BF16_TOL):
+            raise AssertionError(f"trainable {name} bf16: {row}")
+        del runs, ok, gk, op, gp
+        # the kernel alone over the whole T (one launch) and its bound
+        kernel = getattr(mod, name)
+        row["kernel_one_launch_ms"] = time_ms(kernel, [args], iters=5)
+        if name == "rwkv6_scan":
+            B, Tn, H, K = shape
+            n = B * Tn * H * K
+            nbytes = n * (3 * bf16_size + 4 + bf16_size) + H * K * 4 \
+                + 2 * B * H * K * K * 4
+            n_ops = 5 * B * Tn * H * K * K
+        else:
+            B, Tn, Din, N = shape
+            n = B * Tn * Din
+            nbytes = n * (2 * bf16_size + 4) + 2 * B * Tn * N * bf16_size \
+                + Din * N * 4 + Din * 4 + 2 * B * Din * N * 4
+            n_ops = n * (7 * N + 3)
+        bound = {"bytes": nbytes / PEAK_BYTES * 1e3,
+                 "operations": n_ops / PEAK_FP32_FLOPS * 1e3}
+        row.update({"bound_ms": max(bound.values()),
+                    "bound_by": max(bound, key=bound.get), "bytes": nbytes,
+                    "operations": n_ops})
+        res[name] = row
+        del args, cot
+        free()
     return res
 
 
 def training_phase(torch, dev, rnd, err, time_ms, free, zero_launches,
                    read_launches):
-    """Phase 8: the lse kernel, the attention gradient, one train step on
-    the kernel path against the plain path, full-size training of qwen2 and
-    granite through ``train_loop.train``, and resume after a failure.
-    Returns (the kernels line's lse row, {path: launches})."""
+    """Phase 8: the lse kernel, the attention gradient (ragged blocks
+    included), the trainable scans' gradients, one train step on the
+    kernel path against the plain path, training of qwen2, granite,
+    rwkv6, Jamba (cut), llama-3.2-vision (cut) and musicgen through
+    ``train_loop.train``, and resume after a failure. Returns (the kernels
+    line's lse row, {path: launches}, {scan kernel: its training-shape
+    numbers})."""
     import statistics
     import tempfile
 
@@ -313,10 +522,13 @@ def training_phase(torch, dev, rnd, err, time_ms, free, zero_launches,
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rwkv6_scan as rk
+    from repro_torch.kernels import ssm_scan as ss
     from repro_torch.launch.steps import build_train_step, value_and_grad
     from repro_torch.models import transformer as T
     from repro_torch.training.data import DataConfig, SyntheticDataset
-    from repro_torch.training.train_loop import TrainConfig, train
+    from repro_torch.training.train_loop import (TrainConfig, train,
+                                                 vision_embeddings)
 
     t_phase = time.perf_counter()
     f32, bf16 = torch.float32, torch.bfloat16
@@ -385,9 +597,40 @@ def training_phase(torch, dev, rnd, err, time_ms, free, zero_launches,
                 raise AssertionError(f"d{name} H={H} KVH={KVH} Dh={Dh}: "
                                      f"{e} >= {GRAD_TOL}")
             grad_err = max(grad_err, e)
+    # the same at the vision cross layers' keys: non-causal over Skv =
+    # 1600 and 1601, a ragged last block of the backward's 1024 keys
+    ragged_err = 0.0
+    for Skv in (1600, 1601):
+        q, do = rnd((1, 1024, 32, 128), f32), rnd((1, 1024, 32, 128), f32)
+        k, v = rnd((1, Skv, 8, 128), f32), rnd((1, Skv, 8, 128), f32)
+        got = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = fa.launches
+        out = ops.flash_attention(*got, causal=False)
+        if fa.launches != before + 1 or type(out.grad_fn).__name__ != \
+                "FlashAttentionTrainableBackward":
+            raise AssertionError(f"Skv={Skv}: the differentiable call did "
+                                 "not launch the kernel through the "
+                                 "trainable path")
+        out.backward(do)
+        want = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref.attention_naive(*want, causal=False).backward(do)
+        for name, a, b in zip("qkv", got, want):
+            e = err(a.grad, b.grad)
+            if not e < GRAD_TOL:
+                raise AssertionError(f"d{name} non-causal Skv={Skv}: {e} >= "
+                                     f"{GRAD_TOL}")
+            ragged_err = max(ragged_err, e)
+    del q, k, v, do, got, want, out
+    free()
     print(f"train kernels: {2 * len(lse_cases)} lse cases, max abs err "
           f"{json.dumps(lse_err)}; attention gradient max abs err "
-          f"{grad_err} (tol {GRAD_TOL}); "
+          f"{grad_err}, non-causal Skv 1600 / 1601 (ragged blocks) "
+          f"{ragged_err} (tol {GRAD_TOL}); "
+          f"{time.perf_counter() - t_phase:.1f} s into phase 8", flush=True)
+
+    scan_train = scan_gates(torch, rnd, err, time_ms, free, f32, bf16, ops,
+                            ref, rk, ss)
+    print(f"train scans: {json.dumps(scan_train)}; "
           f"{time.perf_counter() - t_phase:.1f} s into phase 8", flush=True)
 
     # -- the lse variant's times at qwen2's training micro batch ---------
@@ -464,30 +707,83 @@ def training_phase(torch, dev, rnd, err, time_ms, free, zero_launches,
           f"{lse_row['attention_backward_plain_ms']:.3f} ms; "
           f"{time.perf_counter() - t_phase:.1f} s into phase 8", flush=True)
 
-    def layers(cfg, n):
-        return dataclasses.replace(cfg, groups=((cfg.groups[0][0], n),))
+    # -- the lse kernel at the new training runs' shapes: the vision cross
+    # layers (non-causal over 1600 keys, 32/8 heads of 128, micro batch 1)
+    # and musicgen (causal, 32/32 heads of 64, micro batch 2) --------------
+    lse_row["train_shapes"] = {}
+    for what, (Bm, Sq, Skv, H, KVH, Dh, causal) in (
+            ("vision cross", (1, TRAIN_SEQ, 1600, 32, 8, 128, False)),
+            ("musicgen", (2, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 64, True))):
+        G = H // KVH
+        sets = [(rnd((Bm, Sq, H, Dh), bf16), rnd((Bm, Skv, KVH, Dh), bf16),
+                 rnd((Bm, Skv, KVH, Dh), bf16)) for _ in range(3)]
+        lib_sets = [(a.transpose(1, 2).contiguous(),
+                     b.repeat_interleave(G, dim=2).transpose(1, 2)
+                     .contiguous(),
+                     c.repeat_interleave(G, dim=2).transpose(1, 2)
+                     .contiguous()) for a, b, c in sets]
+        out, lse = fa.flash_attention(*sets[0], causal=causal, lse=True)
+        out_p, lse_p = ref.blockwise_fwd_lse(*sets[0], causal=causal)
+        pairs = Bm * (Sq * (Sq + 1) // 2 if causal else Sq * Skv)
+        flops = 4 * H * Dh * pairs
+        nbytes = 2 * (2 * Bm * Sq * H * Dh + 2 * Bm * Skv * KVH * Dh) \
+            + 4 * Bm * H * Sq
+        bound = {"operations": flops / PEAK_BF16_FLOPS * 1e3,
+                 "bytes": nbytes / PEAK_BYTES * 1e3}
+        do = rnd((Bm, Sq, H, Dh), bf16)
+        row = {"shape": f"B={Bm} Sq={Sq} Skv={Skv} H={H} KVH={KVH} Dh={Dh} "
+                        f"bf16 {'causal' if causal else 'non-causal'}",
+               "max_abs_err": max(err(out, out_p), err(lse, lse_p)),
+               "ms": time_ms(lambda a, b, c: fa.flash_attention(
+                   a, b, c, causal=causal, lse=True), sets, iters=10),
+               "plain_ms": time_ms(lambda a, b, c: ref.blockwise_fwd_lse(
+                   a, b, c, causal=causal), sets, iters=2),
+               "library_ms": time_ms(lambda a, b, c: library_flash_lse(
+                   torch, a, b, c, causal), lib_sets, iters=10),
+               "bound_ms": max(bound.values()),
+               "bound_by": max(bound, key=bound.get),
+               "attention_backward_plain_ms": time_ms(
+                   lambda *a: ref.flash_attention_bwd(*a, causal=causal),
+                   [(*sets[0], out, lse, do)], iters=1)}
+        if not row["max_abs_err"] < TOL["bfloat16"]:
+            raise AssertionError(f"flash lse {what}: {row}")
+        lse_row["train_shapes"][what] = row
+        del sets, lib_sets, out, lse, out_p, lse_p, do
+        free()
+    print(f"train kernel shapes (CUDA events): "
+          f"{json.dumps(lse_row['train_shapes'])}; "
+          f"{time.perf_counter() - t_phase:.1f} s into phase 8", flush=True)
 
     def batch_of(cfg, B, S, step=0):
         data = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size,
-                                           seq_len=S, global_batch=B))
-        return {k: torch.from_numpy(v).to(dev)
-                for k, v in data.batch(step).items()}
+                                           seq_len=S, global_batch=B,
+                                           n_codebooks=cfg.n_codebooks))
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch(step).items()}
+        if cfg.n_vision_tokens:
+            batch["vision_embeds"] = vision_embeddings(
+                cfg, TrainConfig(global_batch=B, seq_len=S), step, dev)
+        return batch
 
-    def expected_train(cfg, micro, steps):
+    def expected_train(cfg, micro, steps, S=TRAIN_SEQ):
         """Launches per kernel of ``steps`` train steps of ``micro``
-        microbatches: every attention and MoE layer's forward and its
-        recompute."""
-        specs = list(cfg.layer_specs())
-        n_attn = sum(s.kind == "attn" for s in specs)
-        n_moe = sum(s.mlp == "moe" for s in specs)
+        microbatches of length S: every attention, MoE and scan layer's
+        forward and its recompute (a scan launches once a segment)."""
+        kinds = [s.kind for s in cfg.layer_specs()]
+        n_moe = sum(s.mlp == "moe" for s in cfg.layer_specs())
         per = 2 * micro * steps if cfg.remat else micro * steps
-        return {"flash_attention": n_attn * per, "decode_attention": 0,
-                "moe_gating": n_moe * per, "rwkv6_scan": 0, "ssm_scan": 0}
+        segs = len(ref.scan_segments(S))
+        return {"flash_attention": kinds.count("attn") * per,
+                "decode_attention": 0, "moe_gating": n_moe * per,
+                "rwkv6_scan": kinds.count("rwkv") * segs * per,
+                "ssm_scan": kinds.count("mamba") * segs * per}
 
     # -- path gate: one train step's loss and gradients, kernel vs plain --
     path_res = []
-    for name in ("qwen2-1.5b", "granite-moe-1b-a400m"):
-        cfg = dataclasses.replace(layers(get_config(name), 2),
+    for name, keep in (("qwen2-1.5b", 2), ("granite-moe-1b-a400m", 2),
+                       ("rwkv6-1.6b", 2), ("jamba-1.5-large-398b", 1),
+                       ("llama-3.2-vision-11b", 2)):
+        cfg = dataclasses.replace(cut(get_config(name), keep),
                                   dtype="float32", param_dtype="float32")
         model = T.Transformer(cfg, device="cuda", generator=torch.Generator(
             device=dev).manual_seed(0))
@@ -512,7 +808,7 @@ def training_phase(torch, dev, rnd, err, time_ms, free, zero_launches,
             torch.cuda.synchronize()
             runs[impl] = (loss, grads, routes, read_launches())
         (lk, gk, rk_, nk), (lp, gp, rp, np_) = runs["cuda"], runs["plain"]
-        if nk != expected_train(cfg, 1, 1) or any(np_.values()):
+        if nk != expected_train(cfg, 1, 1, 1024) or any(np_.values()):
             raise AssertionError(f"path {name}: launches {nk} (kernel), "
                                  f"{np_} (plain)")
         gnorm = {i: float(torch.sqrt(sum((g.float() ** 2).sum()
@@ -547,9 +843,11 @@ def training_phase(torch, dev, rnd, err, time_ms, free, zero_launches,
         del model, batch, runs, gk, gp
         free()
 
-    # -- training runs at full size ----------------------------------------
-    for name, micro, steps in TRAIN_RUNS:
+    # -- training runs: full size, or cut in depth at full width ------------
+    for name, micro, steps, keep in TRAIN_RUNS:
         cfg = get_config(name)
+        if keep is not None:
+            cfg = cut(cfg, keep)
         t0 = time.perf_counter()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -567,11 +865,15 @@ def training_phase(torch, dev, rnd, err, time_ms, free, zero_launches,
             raise AssertionError(f"train {name}: launches {launches}, "
                                  f"expected {want}")
         launches_by_path[f"{name} train"] = launches
-        # random embeddings of std 0.02 put the first cross-entropy near
-        # ln V; the loss adds 1e-2 lb_loss + 1e-3 z_loss summed over the
-        # MoE layers (~5 more for granite's 24), so the CE is gated
+        # random weights: a unit-RMS final hidden state through a head of
+        # std 0.02 gives logits of std sigma = 0.02 sqrt(D), uncorrelated
+        # with the labels, so the first cross-entropy is near ln V +
+        # sigma^2 / 2 (0.31 for qwen2's D = 1536, 1.64 for Jamba's 8192);
+        # the loss adds 1e-2 lb_loss + 1e-3 z_loss summed over the MoE
+        # layers (~5 more for granite's 24), so the CE is gated
         ce0 = out["metrics"][0]["ce"]
-        first_ok = abs(ce0 - math.log(cfg.vocab_size)) \
+        ce_center = math.log(cfg.vocab_size) + 0.5 * 0.02 ** 2 * cfg.d_model
+        first_ok = abs(ce0 - ce_center) \
             <= FIRST_LOSS_RTOL * math.log(cfg.vocab_size)
         grad_norms = [m["grad_norm"] for m in out["metrics"]]
         if not (all(map(math.isfinite, out["losses"] + grad_norms))
@@ -585,11 +887,13 @@ def training_phase(torch, dev, rnd, err, time_ms, free, zero_launches,
         model, opt_state = out["model"], out["opt_state"]
         step_fn = build_train_step(cfg, n_micro=micro)
         batch = batch_of(cfg, TRAIN_BATCH, TRAIN_SEQ, steps)
-        # the plain attention backward's calls in that step are marked
-        # in its trace
-        n_attn = sum(s.kind == "attn" for s in cfg.layer_specs())
+        # the calls of the plain backward of the step's recurrent layers,
+        # else of its attention, are marked in its trace
+        kinds = [s.kind for s in cfg.layer_specs()]
+        kind = next(k for k in MARKED_BWD if k in kinds)
+        fn_name, label = MARKED_BWD[kind]
         t_prof = time.perf_counter()
-        plain_bwd = ref.flash_attention_bwd
+        plain_bwd = getattr(ref, fn_name)
 
         def marked_bwd(*a, **kw):
             torch.cuda._sleep(1)
@@ -600,7 +904,7 @@ def training_phase(torch, dev, rnd, err, time_ms, free, zero_launches,
         breakdown = "not measured"
         for _ in range(3):   # a session without device records is retried
             zero_launches()
-            ref.flash_attention_bwd = marked_bwd
+            setattr(ref, fn_name, marked_bwd)
             try:
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     h0 = time.perf_counter()
@@ -608,38 +912,41 @@ def training_phase(torch, dev, rnd, err, time_ms, free, zero_launches,
                     torch.cuda.synchronize()
                     prof_wall = (time.perf_counter() - h0) * 1e3
             finally:
-                ref.flash_attention_bwd = plain_bwd
+                setattr(ref, fn_name, plain_bwd)
             if read_launches() != expected_train(cfg, micro, 1):
                 raise AssertionError(f"train {name}: profiled step "
                                      f"launches {read_launches()}")
-            if kernel_times(prof, DeviceType):
-                breakdown = step_breakdown(prof, DeviceType, prof_wall,
-                                           step_ms, n_attn * micro)
+            # one pass over the trace's events (reading ~400k of them, an
+            # rwkv6 step's, takes over a minute)
+            breakdown = step_breakdown(prof, DeviceType, prof_wall, step_ms,
+                                       kinds.count(kind) * micro, label)
+            if breakdown["kernels"]:
                 break
+            breakdown = "not measured"
         del model, opt_state, step_fn, batch, prof
         free()
         print(f"  profiled step read in "
               f"{time.perf_counter() - t_prof:.1f} s", flush=True)
         tokens = TRAIN_BATCH * TRAIN_SEQ
-        n_params = T.count_params(cfg, active_only=bool(cfg.n_experts))
-        attn_flops = 3 * 4 * TRAIN_BATCH * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2 \
-            * cfg.n_heads * cfg.head_dim * n_attn
-        model_flops = 6 * n_params * tokens + attn_flops
+        n_params = T.count_params(cfg, active_only=any(
+            s.mlp == "moe" for s in cfg.layer_specs()))
+        model_flops = 6 * n_params * tokens \
+            + attention_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
         line = {
-            "model": name, "layers": cfg.n_layers, "dtype": cfg.dtype,
-            "optimizer": cfg.optimizer, "remat": cfg.remat,
-            "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
-            "n_micro": micro, "steps": steps, "losses": out["losses"],
-            "grad_norms": grad_norms,
+            "model": name, "layers": cfg.n_layers, "cut": TRAIN_CUTS.get(name),
+            "dtype": cfg.dtype, "optimizer": cfg.optimizer,
+            "remat": cfg.remat, "global_batch": TRAIN_BATCH,
+            "seq_len": TRAIN_SEQ, "n_micro": micro, "steps": steps,
+            "losses": out["losses"], "grad_norms": grad_norms,
             "first_step": out["metrics"][0],
-            "first_ce_vs_ln_vocab": [ce0, math.log(cfg.vocab_size)],
+            "first_ce_vs_expected": [ce0, ce_center],
             "step_ms_all": out["step_ms"], "step_ms": step_ms,
             "step_timer": out["step_timer"] + ", median of steps 2..",
             "tokens_per_s": tokens / (step_ms / 1e3),
             "peak_mem_gb": peak_gb,
             "params_counted": n_params,
             "model_flops_per_step": model_flops,
-            "mfu_6N_plus_causal_attn_vs_989tflops":
+            "mfu_6N_plus_attn_vs_989tflops":
                 model_flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
             "launches": launches, "wall_s": wall,
             "profiled_step": breakdown,
@@ -649,7 +956,7 @@ def training_phase(torch, dev, rnd, err, time_ms, free, zero_launches,
         free()
 
     # -- resume gate: qwen2 at full width, 2 layers --------------------------
-    cfg = layers(get_config("qwen2-1.5b"), 2)
+    cfg = cut(get_config("qwen2-1.5b"), 2)
     tc = dict(steps=6, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
               n_micro=4, log_every=100, ckpt_every=3)
     whole = train(cfg, TrainConfig(**tc), device="cuda",
@@ -688,7 +995,7 @@ def training_phase(torch, dev, rnd, err, time_ms, free, zero_launches,
     del resumed
     free()
     print(f"phase 8 (training): {time.perf_counter() - t_phase:.1f} s")
-    return lse_row, launches_by_path
+    return lse_row, launches_by_path, scan_train
 
 
 def main() -> int:
@@ -2214,9 +2521,12 @@ def main() -> int:
 
     # -- 8. training: the lse kernel and the attention gradient, kernel vs
     # plain train step, qwen2 and granite at full size, resume -------------
-    lse_row, train_launches = training_phase(
+    lse_row, train_launches, scan_train = training_phase(
         torch, dev, rnd, err, time_ms, free, zero_launches, read_launches)
     launches_by_path.update(train_launches)
+    for row in kernel_rows:          # the scans at the training shapes
+        if row["name"] in scan_train:
+            row["train_shape"] = scan_train[row["name"]]
     # the lse variant is the flash kernel's launches on the training paths
     lse_row["counter"], lse_row["paths"] = "flash_attention", \
         sorted(train_launches)

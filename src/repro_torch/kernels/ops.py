@@ -19,9 +19,19 @@ Training: where grad mode is on and an input requires a gradient,
 ``flash_attention`` goes through ``ref.FlashAttentionTrainable`` (its
 forward the kernel with the log-sum-exp on CUDA tensors, the plain
 ``ref.blockwise_fwd_lse`` otherwise; its backward the plain
-``ref.flash_attention_bwd`` either way) and ``moe_route`` / ``moe_gating``
-through ``_Routed`` (the same one launch forward; the backward
-``ref.topk_gating_bwd``). Under ``torch.no_grad`` nothing of this runs.
+``ref.flash_attention_bwd`` either way; a ragged last block is handled
+like the others, so the kernel path trains at any Sq and Skv),
+``moe_route`` / ``moe_gating`` through ``_Routed`` (the same one launch
+forward; the backward ``ref.topk_gating_bwd``), and ``ssm_scan`` /
+``rwkv6_scan`` through ``ref.SSMScanTrainable`` / ``ref.RWKV6ScanTrainable``
+(forward segment by segment, ``ref.SCAN_SEGMENT`` steps each: the CUDA
+kernel on CUDA tensors, ``ref.ssm_chunked`` / ``ref.rwkv6_chunked_exact``
+otherwise; the backward plain PyTorch either way, ``ref.ssm_scan_bwd`` /
+``ref.rwkv6_scan_bwd``, as the reference differentiates its jnp scans off
+the TPU). ``impl="naive"`` stays autograd through the oracles. A scan with
+a gradient raises on ``state_out``: training never writes a state in
+place. Under ``torch.no_grad`` nothing of this runs: serving takes the
+paths below.
 """
 from __future__ import annotations
 
@@ -64,10 +74,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """GQA attention. q:(B,Sq,H,Dh) k/v:(B,Skv,KVH,Dh) -> (B,Sq,H,Dh).
 
     Differentiable calls (see the module docstring) take the trainable
-    path: on the kernel path always, raising where Sq or Skv does not
-    divide into the blocks; on the plain path where the reference's jnp
-    dispatch takes its ``flash_attention_trainable`` (dense, the blocks
-    dividing the sequences), else autograd through the blockwise path."""
+    path: on the kernel path always, at any Sq and Skv; on the plain path
+    where the reference's jnp dispatch takes its
+    ``flash_attention_trainable`` (dense, the blocks dividing the
+    sequences), else autograd through the blockwise path, as there."""
     kernel = _kernel_path(impl, q)
     if kernel and (kv_lens is not None or q_offset != 0):
         raise NotImplementedError(
@@ -77,10 +87,6 @@ def flash_attention(q, k, v, *, causal: bool = True,
         Sq, Skv = q.shape[1], k.shape[1]
         fits = (Sq % min(TRAIN_Q_BLOCK, Sq) == 0
                 and Skv % min(TRAIN_KV_BLOCK, Skv) == 0)
-        if kernel and not fits:
-            raise NotImplementedError(
-                f"trainable attention on the kernel path needs Sq={Sq} and "
-                f"Skv={Skv} divisible by their blocks")
         if kernel or (fits and kv_lens is None and q_offset == 0):
             fwd = functools.partial(fa.flash_attention, lse=True) \
                 if kernel else None
@@ -191,6 +197,17 @@ def _into(result, state_out):
     return out, state_out
 
 
+def _scan_trains(state_out, *xs) -> bool:
+    """True where a scan is differentiable; it then refuses ``state_out``
+    (training never writes a state in place)."""
+    if not _differentiable(*xs):
+        return False
+    if state_out is not None:
+        raise ValueError("state_out with a gradient: training never writes "
+                         "a state in place")
+    return True
+
+
 def rwkv6_scan(r, k, v, w, u, state, *, impl: Optional[str] = None,
                state_out: Optional[torch.Tensor] = None):
     """WKV6 recurrence. r/k/w (B, T, H, K), v (B, T, H, V), u (H, K),
@@ -201,10 +218,15 @@ def rwkv6_scan(r, k, v, w, u, state, *, impl: Optional[str] = None,
     ``ref.rwkv6_single_step`` at T == 1 and ``ref.rwkv6_chunked_exact``
     otherwise (the reference's ``rwkv6_chunked`` clips its exponents at
     ±60 and is wrong under strong decays); ``"naive"`` the sequential
-    oracle.
+    oracle. Differentiable calls go through ``ref.RWKV6ScanTrainable``
+    (the module docstring).
     ``state_out`` (fp32, the state's shape) receives the final state, which
     is then returned in it; it may be ``state`` itself."""
-    if _kernel_path(impl, r):
+    kernel = _kernel_path(impl, r)
+    if _scan_trains(state_out, r, k, v, w, u, state) and impl != "naive":
+        return ref.RWKV6ScanTrainable.apply(
+            r, k, v, w, u, state, rk.rwkv6_scan if kernel else None)
+    if kernel:
         return rk.rwkv6_scan(r, k, v, w, u, state, state_out=state_out)
     if impl == "naive":
         res = ref.rwkv6_sequential(r, k, v, w, u, state)
@@ -222,9 +244,14 @@ def ssm_scan(x, dt, A, Bm, Cm, D, h0, *, impl: Optional[str] = None,
 
     Dispatch as ``rwkv6_scan``: the kernel for CUDA tensors at every T;
     plain ``ref.ssm_single_step`` at T == 1, ``ref.ssm_chunked`` otherwise;
-    ``"naive"`` the sequential oracle. ``state_out`` as in ``rwkv6_scan``
-    (it may be ``h0`` itself)."""
-    if _kernel_path(impl, x):
+    ``"naive"`` the sequential oracle; differentiable calls through
+    ``ref.SSMScanTrainable``. ``state_out`` as in ``rwkv6_scan`` (it may
+    be ``h0`` itself)."""
+    kernel = _kernel_path(impl, x)
+    if _scan_trains(state_out, x, dt, A, Bm, Cm, D, h0) and impl != "naive":
+        return ref.SSMScanTrainable.apply(x, dt, A, Bm, Cm, D, h0,
+                                          ss.ssm_scan if kernel else None)
+    if kernel:
         return ss.ssm_scan(x, dt, A, Bm, Cm, D, h0, state_out=state_out)
     if impl == "naive":
         res = ref.ssm_sequential(x, dt, A, Bm, Cm, D, h0)

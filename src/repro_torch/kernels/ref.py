@@ -123,14 +123,10 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
 # ---------------------------------------------------------------------------
 def _train_blocks(Sq: int, Skv: int, q_block: int, kv_block: int):
     """The trainable path's blocks, ``min(q_block, Sq)`` and ``min(kv_block,
-    Skv)``; raises where they do not divide the sequences (the reference
-    asserts it: training batches are dense and packed)."""
-    qb, kb = min(q_block, Sq), min(kv_block, Skv)
-    if Sq % qb or Skv % kb:
-        raise NotImplementedError(
-            f"trainable attention needs Sq={Sq} and Skv={Skv} divisible by "
-            f"their blocks ({qb}, {kb})")
-    return qb, kb
+    Skv)``. Where a block does not divide its sequence, the last one is
+    ragged and handled like any other (the reference asserts that they
+    divide, and autodiffs its blockwise path where they do not)."""
+    return min(q_block, Sq), min(kv_block, Skv)
 
 
 def _block_mask(q0: int, bq: int, k0: int, bk: int, causal: bool,
@@ -155,7 +151,7 @@ def blockwise_fwd_lse(q, k, v, *, causal: bool = True,
     that also returns the log-sum-exp of each query row's masked scores.
     Returns (out (B, Sq, H, Dh) in q's dtype, lse (B, KVH, G, Sq) fp32); a
     fully masked row gets out 0 and lse ``NEG_INF``. No kv_lens or q_offset:
-    training batches are dense."""
+    training batches are dense. The last q or kv block may be ragged."""
     B, Sq, H, Dh = q.shape
     _, Skv, KVH, _ = k.shape
     G = H // KVH
@@ -168,12 +164,14 @@ def blockwise_fwd_lse(q, k, v, *, causal: bool = True,
     out = torch.empty((B, KVH, G, Sq, Dh), dtype=torch.float32, device=dev)
     lse = torch.empty((B, KVH, G, Sq), dtype=torch.float32, device=dev)
     for q0 in range(0, Sq, qb):
-        q_blk = qf[:, :, :, q0:q0 + qb]
-        m_run = torch.full((B, KVH, G, qb), NEG_INF, device=dev)
-        l_run = torch.zeros((B, KVH, G, qb), device=dev)
-        acc = torch.zeros((B, KVH, G, qb, Dh), device=dev)
+        bq = min(qb, Sq - q0)
+        q_blk = qf[:, :, :, q0:q0 + bq]
+        m_run = torch.full((B, KVH, G, bq), NEG_INF, device=dev)
+        l_run = torch.zeros((B, KVH, G, bq), device=dev)
+        acc = torch.zeros((B, KVH, G, bq, Dh), device=dev)
         for k0 in range(0, Skv, kb):
-            mask = _block_mask(q0, qb, k0, kb, causal, window, dev)
+            mask = _block_mask(q0, bq, k0, min(kb, Skv - k0), causal, window,
+                               dev)
             if mask is None:
                 continue
             s = torch.einsum("bhgqd,bhkd->bhgqk", q_blk,
@@ -191,8 +189,8 @@ def blockwise_fwd_lse(q, k, v, *, causal: bool = True,
                 "bhgqk,bhkd->bhgqd", p, vf[:, :, k0:k0 + kb])
             m_run = m_new
         l_safe = torch.clamp(l_run, min=1e-30)
-        out[:, :, :, q0:q0 + qb] = acc / l_safe[..., None]
-        lse[..., q0:q0 + qb] = torch.where(m_run <= NEG_INF / 2, NEG_INF,
+        out[:, :, :, q0:q0 + bq] = acc / l_safe[..., None]
+        lse[..., q0:q0 + bq] = torch.where(m_run <= NEG_INF / 2, NEG_INF,
                                            m_run + torch.log(l_safe))
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dh).to(q.dtype)
     return out, lse
@@ -208,7 +206,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     from the lse, ``delta = sum(dO * O)`` per row stands in for the softmax
     Jacobian's row sum, and the softcap's derivative ``1 - tanh^2``
     multiplies dS. Pairs that the causal mask or the window wholly remove
-    are skipped: they add exact zeros."""
+    are skipped: they add exact zeros. The last q or kv block may be ragged
+    (Skv = 1600 over 1024-key blocks: the vision cross layers)."""
     B, Sq, H, Dh = q.shape
     _, Skv, KVH, _ = k.shape
     G = H // KVH
@@ -229,13 +228,15 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     dk = torch.zeros((B, KVH, Skv, Dh), dtype=torch.float32, device=dev)
     dv = torch.zeros((B, KVH, Skv, Dh), dtype=torch.float32, device=dev)
     for q0 in range(0, Sq, qb):
-        q_blk = qf[:, :, :, q0:q0 + qb]
-        do_blk = dof[:, :, :, q0:q0 + qb]
-        ls = lse_safe[..., q0:q0 + qb, None]
-        dl = delta[..., q0:q0 + qb, None]
+        bq = min(qb, Sq - q0)
+        q_blk = qf[:, :, :, q0:q0 + bq]
+        do_blk = dof[:, :, :, q0:q0 + bq]
+        ls = lse_safe[..., q0:q0 + bq, None]
+        dl = delta[..., q0:q0 + bq, None]
         dq_acc = torch.zeros_like(q_blk)
         for k0 in range(0, Skv, kb):
-            mask = _block_mask(q0, qb, k0, kb, causal, window, dev)
+            mask = _block_mask(q0, bq, k0, min(kb, Skv - k0), causal, window,
+                               dev)
             if mask is None:
                 continue
             k_blk, v_blk = kf[:, :, k0:k0 + kb], vf[:, :, k0:k0 + kb]
@@ -255,7 +256,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
             dq_acc = dq_acc + torch.einsum("bhgqk,bhkd->bhgqd", ds, k_blk)
             dk[:, :, k0:k0 + kb] += torch.einsum("bhgqk,bhgqd->bhkd", ds,
                                                  q_blk)
-        dq[:, :, :, q0:q0 + qb] = dq_acc * scale
+        dq[:, :, :, q0:q0 + bq] = dq_acc * scale
     dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dh).to(q.dtype)
     dk = dk.permute(0, 2, 1, 3).to(k.dtype)
     dv = dv.permute(0, 2, 1, 3).to(v.dtype)
@@ -268,8 +269,8 @@ class FlashAttentionTrainable(torch.autograd.Function):
     backward is ``flash_attention_bwd``. ``fwd`` computes (out, lse (B, KVH,
     G, Sq) fp32): ``blockwise_fwd_lse`` when None (the plain path), or the
     CUDA kernel's wrapper (``ops.flash_attention`` passes it on CUDA
-    tensors). ``ops.flash_attention`` checks that the blocks divide the
-    sequences before it calls this."""
+    tensors). A ragged last q or kv block is a block like the others, so
+    any Sq and Skv train."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, q_block, kv_block,
@@ -716,6 +717,43 @@ def rwkv6_chunked(r, k, v, w, u, state, *, chunk: int = 32):
     return out.to(v.dtype), S
 
 
+class _DecayTable(torch.autograd.Function):
+    """The chunks' decay table of ``rwkv6_chunked_exact``: w (B, H, n, c,
+    K) -> D (B, H, n, c + 1, c + 1, K), D[t, j] = prod_{j < i < t} w_i
+    with j from -1 and t up to c. Forward: factor[t, j] = w_{t-1} where
+    j < t - 1, else 1, and its cumulative product over t. Backward without
+    dividing by w (``torch.cumprod``'s gradient divides its output by its
+    input, and once a product underflows to 0, as it does at w ~ e^-90,
+    the gradient of every w inside it is lost): d D[t, j] / d w_i = D[i, j]
+    D[t, i] for j < i < t, two entries of the table itself, so dw is
+    two products of the table's size."""
+
+    @staticmethod
+    def forward(ctx, wf):
+        c = wf.shape[-2]
+        idx = torch.arange(c + 1, device=wf.device)
+        # rows t = 0..c, columns j = -1..c-1 (stored from 0)
+        live = (idx[:, None] - 1 > idx[None, :] - 1)[..., None]  # (t, j, 1)
+        w_prev = torch.cat([torch.ones_like(wf[..., :1, :]), wf], dim=-2)
+        factor = torch.where(live, w_prev[..., :, None, :], 1.0)
+        D = torch.cumprod(factor, dim=-3)
+        ctx.save_for_backward(D)
+        return D
+
+    @staticmethod
+    def backward(ctx, G):
+        D, = ctx.saved_tensors
+        c = D.shape[-2] - 1
+        idx = torch.arange(c + 1, device=D.device)
+        # with stored column j' = j + 1 and w_i = w_prev[i + 1]: the table's
+        # gradient for w_prev[m] is sum G[t, j'] D[m-1, j'] D[t, m] over
+        # j' <= m - 1 and t >= m
+        E = torch.where((idx[None, :] <= idx[:, None])[..., None], D, 0.0)
+        F_ = torch.where((idx[:, None] >= idx[None, :])[..., None], D, 0.0)
+        X = torch.einsum("...tjk,...ajk->...atk", G, E[..., :c, :, :])
+        return torch.einsum("...atk,...tak->...ak", X, F_[..., :, 1:, :])
+
+
 def rwkv6_chunked_exact(r, k, v, w, u, state, *, chunk: int = 32):
     """Chunked WKV6 with no clip: the plain path at T > 1.
 
@@ -746,13 +784,7 @@ def rwkv6_chunked_exact(r, k, v, w, u, state, *, chunk: int = 32):
         return x.float().reshape(B, n, c, H, d).permute(0, 3, 1, 2, 4)
 
     rf, kf, vf, wf = split(r, K), split(k, K), split(v, V), split(w, K)
-    # factor[t, j] = w_{t-1} where j < t - 1, else 1 (rows t = 0..c, columns
-    # j = -1..c-1); its cumulative product over t is D
-    idx = torch.arange(c + 1, device=r.device)
-    live = (idx[:, None] - 1 > idx[None, :] - 1)[..., None]      # (t, j, 1)
-    w_prev = torch.cat([torch.ones_like(wf[..., :1, :]), wf], dim=3)
-    factor = torch.where(live, w_prev[..., :, None, :], 1.0)
-    D = torch.cumprod(factor, dim=3)                # (B, H, n, t, j, K)
+    D = _DecayTable.apply(wf)                       # (B, H, n, t, j, K)
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
                      diagonal=-1)[..., None]                     # j < t
     intra_decay = torch.where(tri, D[..., :c, 1:, :], 0.0)
@@ -864,3 +896,142 @@ def ssm_chunked(x, dt, A, Bm, Cm, D, h0, *, chunk: int = 256):
         ys.append(torch.einsum("bcdn,bcn->bcd", h_t, Cc) + Df * xc)
         h = h_t[:, -1]
     return torch.cat(ys, 1).to(x.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# Trainable scans: a segmented forward, a plain backward segment by segment
+# ---------------------------------------------------------------------------
+# Steps per segment of the trainable scans. The backward holds one
+# segment's autograd graph at a time: at Jamba's width (B 1, Din 16384, N
+# 16) ``ssm_chunked`` keeps ~20 fp32 (B, 256, Din, N) tensors (268 MB
+# each), at rwkv6's (B 2, H 32, K 64) ``rwkv6_chunked_exact`` ~8 (B, H, 8,
+# 33, 33, K) ones (143 MB each); a whole T = 4096 would hold 16x that.
+SCAN_SEGMENT = 256
+
+
+def scan_segments(T: int) -> list:
+    """The trainable scans' segments of T steps: slices of
+    ``SCAN_SEGMENT`` steps, the last one ragged."""
+    return [slice(t, min(t + SCAN_SEGMENT, T))
+            for t in range(0, T, SCAN_SEGMENT)]
+
+
+def _segmented_forward(fwd, seq, params, state):
+    """Run ``fwd(*seq slices, *params, state) -> (out, state)`` segment by
+    segment. Returns (out over all T, final state, [the state entering
+    each segment])."""
+    outs, states = [], []
+    for sl in scan_segments(seq[0].shape[1]):
+        states.append(state)
+        out, state = fwd(*(t[:, sl].contiguous() for t in seq), *params,
+                         state)
+        outs.append(out)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out, state, states
+
+
+def _segmented_backward(plain, seq, params, states, d_out, d_state):
+    """Gradients of a segmented scan ``plain(*seq, *params, state) -> (out,
+    state)`` for every sequence input, every parameter and the initial
+    state. Walks the segments in reverse: under ``torch.enable_grad()`` it
+    recomputes one segment from the state that entered it and calls
+    ``torch.autograd.grad`` with that segment's d_out and the carried
+    d_state, so one segment's graph is alive at a time. The parameters'
+    gradients sum over the segments in fp32."""
+    d_seq = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+             for t in seq]
+    p_leaves = [p.detach().requires_grad_(True) for p in params]
+    d_params = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for p in params]
+    d_state = d_state.float()
+    segs = scan_segments(seq[0].shape[1])
+    n = len(seq)
+    with torch.enable_grad():
+        for sl, s_in in zip(reversed(segs), reversed(states)):
+            s_leaves = [t[:, sl].detach().requires_grad_(True) for t in seq]
+            st = s_in.detach().requires_grad_(True)
+            out, s_out = plain(*s_leaves, *p_leaves, st)
+            grads = torch.autograd.grad(
+                (out, s_out), (*s_leaves, *p_leaves, st),
+                (d_out[:, sl].to(out.dtype), d_state))
+            for d, g in zip(d_seq, grads[:n]):
+                d[:, sl] = g
+            for d, g in zip(d_params, grads[n:-1]):
+                d += g.float()
+            d_state = grads[-1].float()
+    return d_seq, [d.to(p.dtype) for d, p in zip(d_params, params)], \
+        d_state.to(states[0].dtype)
+
+
+def _ssm_by_segment(fwd):
+    """``fwd(x, dt, A, Bm, Cm, D, h)`` in the segment walkers' argument
+    order: the sequence inputs (x, dt, Bm, Cm), the parameters (A, D),
+    the state."""
+    return lambda x, dt, Bm, Cm, A, D, h: fwd(x, dt, A, Bm, Cm, D, h)
+
+
+def ssm_scan_bwd(x, dt, A, Bm, Cm, D, states, dy, dh):
+    """(dx, ddt, dA, dBm, dCm, dD, dh0) of the Mamba scan over T steps,
+    from its inputs, the state entering each segment (``states``) and the
+    upstream (dy, dh) of (y, final h): autograd through ``ssm_chunked``,
+    one segment at a time (``_segmented_backward``). Plain PyTorch, as the
+    reference differentiates its jnp scan off the TPU."""
+    (dx, ddt, dBm, dCm), (dA, dD), dh0 = _segmented_backward(
+        _ssm_by_segment(ssm_chunked), (x, dt, Bm, Cm), (A, D), states, dy,
+        dh)
+    return dx, ddt, dA, dBm, dCm, dD, dh0
+
+
+class SSMScanTrainable(torch.autograd.Function):
+    """The Mamba scan with a gradient for x, dt, A, Bm, Cm, D and h0.
+    Forward: ``fwd(x, dt, A, Bm, Cm, D, h) -> (y, h)`` segment by segment
+    (``SCAN_SEGMENT`` steps, contiguous slices), each from the state the
+    one before left: ``ssm_chunked`` when ``fwd`` is None (the plain path),
+    or the CUDA kernel's wrapper (``ops.ssm_scan`` passes it on CUDA
+    tensors). It saves the inputs and the state entering each segment,
+    (T / SCAN_SEGMENT) x (B, Din, N) fp32. Backward: ``ssm_scan_bwd``, plain
+    PyTorch."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, h0, fwd=None):
+        y, h, states = _segmented_forward(
+            _ssm_by_segment(ssm_chunked if fwd is None else fwd),
+            (x, dt, Bm, Cm), (A, D), h0)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D, *states)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, A, Bm, Cm, D, *states = ctx.saved_tensors
+        return (*ssm_scan_bwd(x, dt, A, Bm, Cm, D, states, dy, dh), None)
+
+
+def rwkv6_scan_bwd(r, k, v, w, u, states, dout, dstate):
+    """(dr, dk, dv, dw, du, dstate0) of the WKV6 scan, as ``ssm_scan_bwd``:
+    autograd through ``rwkv6_chunked_exact`` (exact at every decay), one
+    segment at a time. Its (B, H, n, c + 1, c + 1, K) factor tensor then
+    spans one segment's chunks, not T's."""
+    (dr, dk, dv, dw), (du,), ds0 = _segmented_backward(
+        rwkv6_chunked_exact, (r, k, v, w), (u,), states, dout, dstate)
+    return dr, dk, dv, dw, du, ds0
+
+
+class RWKV6ScanTrainable(torch.autograd.Function):
+    """The WKV6 scan with a gradient for r, k, v, w, u and the state, shaped
+    like ``SSMScanTrainable``: the forward is ``fwd(r, k, v, w, u, state)``
+    segment by segment (``rwkv6_chunked_exact`` when None, or the CUDA
+    kernel's wrapper), saving the inputs and the state entering each
+    segment; the backward is ``rwkv6_scan_bwd``, plain PyTorch."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, fwd=None):
+        out, s, states = _segmented_forward(
+            rwkv6_chunked_exact if fwd is None else fwd, (r, k, v, w), (u,),
+            state)
+        ctx.save_for_backward(r, k, v, w, u, *states)
+        return out, s
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        r, k, v, w, u, *states = ctx.saved_tensors
+        return (*rwkv6_scan_bwd(r, k, v, w, u, states, dout, dstate), None)

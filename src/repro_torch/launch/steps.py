@@ -19,7 +19,9 @@ def value_and_grad(cfg: ModelConfig, model: T.Transformer, batch: dict, *,
                    impl: Optional[str] = None):
     """``loss_fn`` over ``batch`` and its gradient with respect to every
     parameter, as the reference's train step takes them: where ``n_micro``
-    divides the batch, over ``n_micro`` microbatches of consecutive rows,
+    divides the batch, over ``n_micro`` microbatches of consecutive rows
+    (of every batch entry: tokens, labels and a vision config's
+    vision_embeds (B, Nv, D), as the reference's tree-mapped split),
     each microbatch's gradients divided by ``n_micro`` in their own dtype
     and summed in ``grad_dtype``, the loss summed the same way and each
     metric averaged; else over the whole batch, the gradients cast to

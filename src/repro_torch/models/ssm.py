@@ -6,9 +6,10 @@ layer dim by ``init_*`` (``init(shape, std, dtype, fill=)`` as in
 ``transformer.Transformer``). The forward functions take one layer's
 tensors and a state dict and return ``(out, new_state)``; the same call
 serves prefill (full sequence from a zero state) and decode (one token from
-the cache's state), as in the reference. The scans go through
-``kernels/ops.py``, so CUDA tensors run the hand-written kernels at every
-sequence length.
+the cache's state), as in the reference, and training (a zero state, no
+cache, nothing written in place; with a gradient the scans go through
+``ops``' trainable Functions). The scans go through ``kernels/ops.py``, so
+CUDA tensors run the hand-written kernels at every sequence length.
 """
 from __future__ import annotations
 

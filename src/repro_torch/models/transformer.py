@@ -30,9 +30,12 @@ Nv, KVH, Dh); Mamba layers ``h`` (L, B, Din, N) fp32 and ``conv`` (L, B,
 K-1, Din); RWKV layers ``wkv`` (L, B, H, K, K) fp32, ``shift_tm`` and
 ``shift_cm`` (L, B, D).
 
-Training (``train_forward``, ``loss_fn``) runs the self-attention and MoE
-configs: grad mode on, no cache, the MoE aux losses summed over layers, and
-under ``cfg.remat`` each period of a group recomputed in the backward
+Training (``train_forward``, ``loss_fn``) runs every config: grad mode on,
+no cache (a recurrent layer starts from a zero state and writes nothing in
+place; its scan goes through ``ops``' trainable scans), the vision
+projection computed once a pass, codebook labels (B, S, C) against logits
+(B, S, C, V), the MoE aux losses summed over layers, and under
+``cfg.remat`` each period of a group recomputed in the backward
 (``torch.utils.checkpoint``, the counterpart of the reference's
 ``jax.checkpoint`` with ``nothing_saveable`` over its scan body).
 Parameters are created with ``requires_grad=False``; the train step
@@ -78,18 +81,10 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise unless the port can train ``cfg``: Mamba and RWKV layers have
-    no backward through their scans yet, on any device, and the codebook
-    and vision configs are served, not trained (ROADMAP A7b)."""
+    """Raise unless the port can train ``cfg``: it trains every config
+    whose layers it runs (``check_supported``), recurrent, vision and
+    codebook ones included."""
     check_supported(cfg)
-    if cfg.n_codebooks or cfg.n_vision_tokens:
-        raise NotImplementedError(f"{cfg.name}: training the codebook and "
-                                  "vision configs is not ported (ROADMAP "
-                                  "A7b)")
-    kinds = sorted({spec.kind for spec in cfg.layer_specs()} - {"attn"})
-    if kinds:
-        raise NotImplementedError(f"{cfg.name}: training through {kinds} "
-                                  "layers is not ported (no scan backward)")
 
 
 def is_recurrent(cfg: ModelConfig) -> bool:
@@ -344,38 +339,44 @@ class Transformer(nn.Module):
                             impl=impl)[0]
 
     def _period(self, period, views: list, h: torch.Tensor,
-                positions: torch.Tensor, impl: Optional[str]):
+                positions: torch.Tensor, vision_kv: Optional[torch.Tensor],
+                impl: Optional[str]):
         """One repeat of a group's period in training: (h, lb_loss, z_loss),
         the aux losses summed over its MoE layers (the reference's scan
-        body)."""
+        body); cross layers attend over ``vision_kv``."""
         lb = torch.zeros((), dtype=torch.float32, device=h.device)
         z = torch.zeros((), dtype=torch.float32, device=h.device)
         for spec, p in zip(period, views):
             h, _, aux = self._layer(spec, p, h, positions=positions,
-                                    impl=impl)
+                                    vision_kv=vision_kv, impl=impl)
             if aux is not None:
                 lb, z = lb + aux["lb_loss"], z + aux["z_loss"]
         return h, lb, z
 
     def train_forward(self, tokens: torch.Tensor, *,
+                      vision_embeds: Optional[torch.Tensor] = None,
                       impl: Optional[str] = None):
-        """The training pass over tokens (B, S): differentiable, no cache
+        """The training pass over tokens (B, S), or (B, S, C) with
+        codebooks; a vision config also takes ``vision_embeds`` (B, Nv, D),
+        projected once for all its cross layers. Differentiable, no cache
         (the reference's ``forward(mode="train")``). Returns (logits (B, S,
-        V), {"lb_loss", "z_loss"} summed over the MoE layers). Under
-        ``cfg.remat`` every period is recomputed in the backward, so each
-        attention layer's kernel runs twice a step. Raises for configs with
-        recurrent layers (``check_trainable``)."""
+        V) or (B, S, C, V), {"lb_loss", "z_loss"} summed over the MoE
+        layers). Under ``cfg.remat`` every period is recomputed in the
+        backward, so each attention and scan layer's kernels run twice a
+        step."""
         cfg = self.cfg
         check_trainable(cfg)
         h = self._embed(tokens)
-        B, S = tokens.shape
+        B, S = tokens.shape[:2]
         positions = torch.arange(S, device=h.device).expand(B, S)
+        vision_kv = self._vision_kv(vision_embeds, h.dtype)
         lb_tot = torch.zeros((), dtype=torch.float32, device=h.device)
         z_tot = torch.zeros((), dtype=torch.float32, device=h.device)
         for _, period, rep, views in self._groups():
             lbs, zs = [], []
             for r in range(rep):
-                args = (period, [v[r] for v in views], h, positions, impl)
+                args = (period, [v[r] for v in views], h, positions,
+                        vision_kv, impl)
                 if cfg.remat:
                     h, lb, z = checkpoint(self._period, *args,
                                           use_reentrant=False)
@@ -560,14 +561,18 @@ def to_jax_params(model: Transformer) -> dict:
 def loss_fn(cfg: ModelConfig, model: Transformer, batch: dict, *,
             impl: Optional[str] = None):
     """Port of the reference's ``loss_fn``. batch: {"tokens", "labels"}
-    (B, S) integer tensors on the model's device. Returns (loss, {"ce",
-    "z", "lb_loss", "z_loss"}): next-token cross-entropy over fp32 logits
-    (padded vocab rows masked by ``_unembed``), plus 1e-4 x the mean squared
-    logsumexp z, 1e-2 x lb_loss and 1e-3 x the router z_loss. ``cfg`` must
-    be the model's."""
+    (B, S) integer tensors on the model's device, (B, S, C) with codebooks,
+    and for a vision config "vision_embeds" (B, Nv, D). Returns (loss,
+    {"ce", "z", "lb_loss", "z_loss"}): next-token cross-entropy over fp32
+    logits (padded vocab rows masked by ``_unembed``; with codebooks every
+    (position, codebook) is one term of the mean), plus 1e-4 x the mean
+    squared logsumexp z, 1e-2 x lb_loss and 1e-3 x the router z_loss.
+    ``cfg`` must be the model's."""
     if cfg != model.cfg:
         raise ValueError(f"loss_fn: cfg {cfg.name} is not the model's")
-    logits, aux = model.train_forward(batch["tokens"].long(), impl=impl)
+    logits, aux = model.train_forward(
+        batch["tokens"].long(), vision_embeds=batch.get("vision_embeds"),
+        impl=impl)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = lf.gather(-1, batch["labels"].long()[..., None])[..., 0]

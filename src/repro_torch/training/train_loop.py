@@ -43,6 +43,19 @@ def _state(model: T.Transformer, opt_state: dict, kind: str) -> dict:
             "opt": OPT.state_to_tree(opt_state, kind)}
 
 
+def vision_embeddings(cfg: ModelConfig, tcfg: TrainConfig, step: int,
+                      device) -> torch.Tensor:
+    """Step ``step``'s vision embeddings (global_batch, n_vision_tokens,
+    d_model) in the config's dtype: standard normals drawn in fp32 on
+    ``device`` from a ``torch.Generator`` seeded from (tcfg.seed, step),
+    so a resumed run draws what the uninterrupted one drew."""
+    gen = torch.Generator(device=device).manual_seed(
+        tcfg.seed * 1_000_003 + step)
+    x = torch.randn((tcfg.global_batch, cfg.n_vision_tokens, cfg.d_model),
+                    generator=gen, device=device, dtype=torch.float32)
+    return x.to(getattr(torch, cfg.dtype))
+
+
 def train(cfg: ModelConfig, tcfg: TrainConfig, *,
           fail_at_step: Optional[int] = None,
           log_fn: Callable[[str], None] = print, device="cuda",
@@ -51,8 +64,13 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, *,
     ``tcfg.ckpt_dir`` (or from step 0). The weights start from the seeded
     init (a ``torch.Generator`` seeded ``tcfg.seed`` on ``device``) or,
     given ``init_params`` (a JAX params pytree of numpy arrays), from those.
-    Batch ``step`` is ``SyntheticDataset.batch(step)``, so a resumed run
-    sees the stream the uninterrupted one saw. ``fail_at_step`` raises
+    Batch ``step`` is ``SyntheticDataset.batch(step)`` (tokens and labels
+    (B, S), or (B, S, C) with codebooks), so a resumed run sees the stream
+    the uninterrupted one saw. A vision config's batch also gets
+    ``vision_embeddings(cfg, tcfg, step, dev)``; the reference draws its
+    embeddings from ``jax.random``, a stream this cannot equal, so the two
+    packages' vision runs are compared per train step on shared
+    embeddings, not per train loop. ``fail_at_step`` raises
     before that step (after the pending save lands).
 
     Returns {"losses", "metrics", "resumed_from" (int or None),
@@ -106,6 +124,9 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, *,
                 raise RuntimeError(f"injected failure at step {step}")
             batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in data.batch(step).items()}
+            if cfg.n_vision_tokens:
+                batch["vision_embeds"] = vision_embeddings(cfg, tcfg, step,
+                                                           dev)
             if cuda:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 ev[0].record()

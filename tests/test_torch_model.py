@@ -305,22 +305,30 @@ def test_param_names_and_count_match_jax():
 
 
 def test_unported_configs_raise():
-    """What the port still refuses: training the vision and codebook
-    configs (ROADMAP A7b) and the recurrent ones (no scan backward, A10),
-    through check_trainable and train_forward; decode lengths outside the
-    self-attention cache (a vision config's capacity is its self-attention
-    cache's, not its cross cache's Nv rows)."""
+    """What the port refuses: decode lengths outside the self-attention
+    cache (a vision config's capacity is its self-attention cache's, not
+    its cross cache's Nv rows), and a vision model's train pass without
+    vision embeddings, as the reference asserts. Training itself is no
+    longer refused: the vision, codebook and recurrent configs pass
+    check_trainable, and train_forward gives logits (B, S, V), or (B, S,
+    C, V) with codebooks, that carry a graph."""
     assert set(PARITY_ARCHS + MOE_ARCHS + RECURRENT_ARCHS
                + MODALITY_ARCHS) == set(list_archs())
     for arch in MODALITY_ARCHS + RECURRENT_ARCHS:
         cfg = get_config(arch).reduced()
-        why = "A7b" if arch in MODALITY_ARCHS else "scan backward"
-        with pytest.raises(NotImplementedError, match=why):
-            T.check_trainable(cfg)
-        model = T.Transformer(cfg, device="cpu")
-        tokens, _ = _inputs(cfg, np.random.default_rng(0), 1, 8)
-        with pytest.raises(NotImplementedError, match=why):
-            model.train_forward(torch.from_numpy(tokens))
+        T.check_trainable(cfg)
+        model = T.Transformer(cfg, device="cpu").requires_grad_(True)
+        tokens, vision = _inputs(cfg, np.random.default_rng(0), 1, 8)
+        logits, aux = model.train_forward(
+            torch.from_numpy(tokens), vision_embeds=None if vision is None
+            else torch.from_numpy(vision))
+        C = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+        assert logits.shape == (1, 8) + C + (cfg.vocab_size,)
+        assert logits.grad_fn is not None
+        assert bool(torch.isfinite(logits).all())
+        if vision is not None:
+            with pytest.raises(ValueError, match="vision_embeds"):
+                model.train_forward(torch.from_numpy(tokens))
     cfg = get_config("llama-3.2-vision-11b").reduced()
     model = T.Transformer(cfg, device="cpu")
     cache = T.init_cache(cfg, 1, 24, device="cpu")

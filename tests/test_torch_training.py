@@ -36,10 +36,11 @@ from repro.training.train_loop import TrainConfig as JTrainConfig
 from repro.training.train_loop import train as j_train
 import repro_torch.training.data as p_data
 from repro_torch.tree import named
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.kernels import ops, ref
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 from repro_torch.training import optimizer as OPT
 from repro_torch.training.train_loop import TrainConfig, train
@@ -129,14 +130,18 @@ def test_trainable_attention_dispatch():
     twin = ops.flash_attention(qg, k, k)
     assert type(twin.grad_fn).__name__ == "FlashAttentionTrainableBackward"
     torch.testing.assert_close(twin.detach(), served, rtol=0, atol=1e-6)
-    # 600 = 512 + 88 does not divide into 512-row blocks: autograd through
-    # the blockwise path, as the reference's jnp dispatch does
+    # 600 = 512 + 88 does not divide into 512-row blocks: on the plain path
+    # autograd through the blockwise path, as the reference's jnp dispatch
+    # does; the trainable path's own forward takes a ragged last block
     q6 = _t(rng.standard_normal((1, 600, 2, 16)).astype(np.float32))
     out6 = ops.flash_attention(q6.requires_grad_(True), q6[:, :, :1].detach(),
                                q6[:, :, :1].detach())
     assert type(out6.grad_fn).__name__ != "FlashAttentionTrainableBackward"
-    with pytest.raises(NotImplementedError):
-        ref.blockwise_fwd_lse(q6, q6, q6)
+    q6 = q6.detach()
+    out_r, lse_r = ref.blockwise_fwd_lse(q6, q6, q6)
+    torch.testing.assert_close(out_r, ref.blockwise_attention(q6, q6, q6),
+                               rtol=0, atol=1e-5)
+    assert lse_r.shape == (1, 2, 1, 600) and bool(torch.isfinite(lse_r).all())
 
 
 # ---------------------------------------------------------------------------
@@ -298,19 +303,38 @@ def test_loss_fn_matches_jax_granite(variant, granite, router_margins):
 
 
 def test_check_trainable_raises_for_recurrent_configs():
+    """What was a refusal (no scan backward) is now training: check_trainable
+    passes every config, the recurrent, vision and codebook ones included;
+    a recurrent model's serving prefill (under no_grad) is unchanged, and
+    carries no graph, with the parameters' gradients on; a scan with a
+    gradient refuses ``state_out`` (training never writes a state in
+    place), on the model's call as on ops'."""
+    for arch in list_archs():
+        T.check_trainable(get_config(arch))
     for arch in ("rwkv6-1.6b", "jamba-1.5-large-398b"):
         cfg = get_config(arch).reduced()
-        with pytest.raises(NotImplementedError):
-            T.check_trainable(cfg)
         model = T.Transformer(cfg, device="cpu")
-        tok = torch.zeros((1, 8), dtype=torch.int64)
-        with pytest.raises(NotImplementedError):
-            T.loss_fn(cfg, model, {"tokens": tok, "labels": tok})
-        with pytest.raises(NotImplementedError):
-            train(cfg, TrainConfig(steps=1, global_batch=1, seq_len=8),
-                  device="cpu", log_fn=lambda s: None)
-        # serving still runs: prefill is under no_grad
-        assert model(tok).shape == (1, 8, cfg.vocab_size)
+        tok = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, size=(1, 12)))
+        before, cache_before = model.prefill(tok)
+        model.requires_grad_(True)
+        after, cache_after = model.prefill(tok)
+        assert after.grad_fn is None and torch.equal(before, after)
+        flat_b, flat_a = named(cache_before), named(cache_after)
+        assert all(torch.equal(flat_b[k], flat_a[k]) for k in flat_b)
+        # the train pass writes no state: a recurrent layer's state_out
+        # with a gradient raises
+        spec = next(iter(cfg.layer_specs()))
+        views = model.g0[0].per_layer()[0]
+        h = torch.randn(1, 12, cfg.d_model, requires_grad=True)
+        state = SSM.init_state(cfg, spec, 1, torch.float32, "cpu")
+        mixer = (SSM.mamba_forward if spec.kind == "mamba"
+                 else SSM.rwkv_time_mix)
+        with pytest.raises(ValueError, match="state_out"):
+            mixer(cfg, views["mixer"], h, state, in_place=True)
+        out, new = mixer(cfg, views["mixer"], h, state)
+        assert out.grad_fn is not None
+        assert not any(t.any() for t in state.values())
     T.check_trainable(get_config("granite-moe-1b-a400m"))
 
 
