@@ -47,7 +47,15 @@ Phases, each of which raises on failure (nothing is caught):
                served shapes) against its plain version and against the
                committed kernel over the cache with the token written.
                Times with CUDA events and torch.profiler, append mode
-               beside committed mode.
+               beside committed mode. kimi-k2's head dim 112 (both
+               attention kernels stage it at 128 columns): its served
+               shapes (prefill B=1, Sq=Skv=1024, H=64, KVH=8; decode B=8,
+               S=2048, committed and append), ragged Sq and Skv, a window
+               under one tile and one split, lengths 0 and 1, int32 and
+               int64 lengths, fp32 and bf16; the routing at its E = 384,
+               k = 8 (T = 8, 1000 and 1024, every integer equal); both
+               kernels and the routing timed at its served shapes beside
+               SDPA (a `kimi kernel shapes:` line).
   3. serving — qwen2-1.5b, granite-moe-1b-a400m and rwkv6-1.6b at full
                width and depth, then jamba-1.5-large at full width on the
                first 4 layers of its period (bf16, seeded random weights)
@@ -64,19 +72,38 @@ Phases, each of which raises on failure (nothing is caught):
                equal) and in bf16 (reported); jamba in fp32 on layers 0-1
                (Mamba + dense, Mamba + MoE) and on layers 2-3 (Mamba +
                dense, attention + MoE), each gated with no differing expert
-               choice, and in bf16 on the 4 (reported). On each gated path
+               choice, and in bf16 on the 4 (reported); kimi-k2 (below).
+               On each gated path
                the kernel path's append-mode decode is also held to its
                committed decode (qwen2 bf16 0.1, fp32 1e-4, the same route
                and argmax gates).
   5. trace   — torch.profiler over 5 serving-shaped append-mode decode steps
                (B=8) of each model: step wall time, device busy time, top
                kernels, launches by kernel name.
+     3-5 for kimi-k2-1t-a32b at full width, cut to its first 2 of 61
+               layers (KIMI_CUT: the dense layer 0 and one MoE layer of 384
+               experts, 38.6 GB in bf16): served in bf16 with exact
+               launches, its bf16 path reported and traced; the same bf16
+               weights computed in fp32 gated (1e-3, argmax equal, no
+               differing expert choice, append vs committed 1e-4); layer 0
+               alone in fp32 gated the same way.
   6. profile — repro_torch.launch.dryrun.run_cell for qwen2-1.5b at
                decode_32k on the card (the batch cut to what fits), printed
                on a dryrun: line; the H100 MaxTput row built from it by
                profile_from_dryrun beside the analytic row, bucket by
                bucket, and the engine model's step time beside the
-               measured one, on a profile: line.
+               measured one, on a profile: line. Then the decode_32k
+               records of internlm2-1.8b, minitron-4b, gemma2-27b (its
+               window and softcap at full size, about one sequence),
+               granite-moe-1b-a400m and rwkv6-1.6b, each with its profile:
+               line; rwkv6's long_500k; qwen2-1.5b's prefill_32k (batch
+               cut to what fits, logits finite) and train_4k (8 sequences,
+               n_micro 4, the first cross-entropy in phase 8's band)
+               records; every record gated (ok, one device, operations
+               counted, bytes at least the weights', launches exact), and
+               gemma2-27b's long_500k, jamba and kimi-k2 at full depth
+               logged as not fitting one card, with why. Each record
+               prints its seconds.
   7. cluster — qwen2-1.5b behind ServingCluster with {"H100": 2} (two
                engines sharing one model on the card) under phase 6's
                profile: phase 3's 8 requests, each of whose tokens must
@@ -195,6 +222,19 @@ BF16_ULP = 2.0 ** -7
 N_REQUESTS, NEW_TOKENS = 8, 32
 B_D, S_D = 8, 2048          # serving decode batch and cache length
 GEN_PROMPT, GEN_STEPS = 1024, 32    # phase 9: one prompt, decode steps
+KIMI_CUT = ("kimi-k2-1t-a32b at full width (d_model 7168, 64/8 heads of 112, "
+            "384 experts of d_ff 2048, top 8, vocab 163840), cut to its first "
+            "2 of 61 layers: the dense layer 0 and one MoE layer, 19.3 B "
+            "parameters, 38.6 GB in bf16 (33.8 GB of experts); all 61 layers "
+            "are ~2 TB")
+# phase 6's records beside qwen2's decode_32k: every other config's decode
+# record that fits one card, rwkv6's long_500k, and qwen2's prefill and
+# train records; then the cells that do not fit, each logged with why
+DECODE_RECORDS = ("internlm2-1.8b", "minitron-4b", "gemma2-27b",
+                  "granite-moe-1b-a400m", "rwkv6-1.6b")
+NOT_FITTING = (("gemma2-27b", "long_500k"),
+               ("jamba-1.5-large-398b", "decode_32k"),
+               ("kimi-k2-1t-a32b", "decode_32k"))
 
 
 def smi() -> str:
@@ -337,12 +377,18 @@ def step_breakdown(prof, DeviceType, wall_ms: float, step_ms: float,
 
 
 def cut(cfg, n):
-    """The first ``n`` layers of a one-group config: whole periods, or
-    the first ``n`` layers of one period."""
-    (period, _), = cfg.groups
-    groups = ((period, n // len(period)),) if n % len(period) == 0 \
-        else ((period[:n], 1),)
-    return dataclasses.replace(cfg, groups=groups)
+    """The first ``n`` layers of a config, group by group: whole periods
+    of a group, or the first layers of one period (kimi-k2's first 2: its
+    dense layer 0 and the first of its 60 MoE layers)."""
+    groups, left = [], n
+    for period, rep in cfg.groups:
+        k = min(left, rep * len(period))
+        if k == 0:
+            break
+        groups.append((period, k // len(period)) if k % len(period) == 0
+                      else (period[:k], 1))
+        left -= k
+    return dataclasses.replace(cfg, groups=tuple(groups))
 
 
 def attention_flops(cfg, B: int, S: int) -> int:
@@ -1183,6 +1229,12 @@ def main() -> int:
         (1, 200, 1601, 32, 8, 128, False, None, None),  # ragged last kv tile
         (1, 1024, 1024, 32, 32, 64, True, None, None),  # musicgen, G = 1
         (1, 1000, 1000, 32, 32, 64, True, None, None),  # musicgen path
+        (1, 1024, 1024, 64, 8, 112, True, None, None),  # kimi-k2 serving
+        (1, 1000, 1000, 64, 8, 112, True, None, None),  # kimi-k2 path
+        (1, 200, 200, 64, 8, 112, True, None, None),    # Dh 112: ragged
+        (2, 129, 129, 64, 8, 112, True, 24, 30.0),      # window < one tile
+        (1, 100, 161, 64, 8, 112, False, None, None),   # ragged Sq != Skv
+        (1, 8, 8, 64, 8, 112, True, None, None),        # smallest padded
     ]
     n_flash = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -1214,6 +1266,10 @@ def main() -> int:
         (8, 1600, 32, 8, 128, None, None, [1600] * 8),  # vision cross
         (2, 1601, 32, 8, 128, None, None, [1601, 1601]),  # ragged, whole
         (8, 2048, 32, 32, 64, None, None, None),        # musicgen, G = 1
+        (8, 2048, 64, 8, 112, None, None, None),        # kimi-k2 serving
+        (4, 2048, 64, 8, 112, None, None, [2048, 0, 1, 900]),  # Dh 112
+        (8, 2048, 64, 8, 112, 50, 30.0, None),          # window < one split
+        (3, 300, 64, 8, 112, 64, None, [300, 0, 129]),  # ragged last tile
     ]
     n_decode = 0
     lrng = np.random.default_rng(1)
@@ -1256,6 +1312,9 @@ def main() -> int:
         (4, 2048, 32, 2, 128, None, None, [2047, 0, 1, 900]),   # G = 16
         (4, 2048, 32, 2, 64, 40, 30.0, [0, 39, 40, 2047]),
         (8, 2048, 32, 32, 64, None, None, None),        # musicgen, G = 1
+        (8, 2048, 64, 8, 112, None, None, None),        # kimi-k2 serving
+        (3, 300, 64, 8, 112, None, None, [0, 1, 299]),  # Dh 112: 0, 1, S-1
+        (4, 2048, 64, 8, 112, 50, 30.0, [2047, 0, 1, 128]),
     ]
     n_append = 0
     sweep["decode_attention_append"] = {}
@@ -1307,6 +1366,7 @@ def main() -> int:
         (100, 32, 4), (64, 8, 3), (257, 384, 8),        # tests/test_kernels
         (8, 32, 8), (1024, 32, 8),                      # granite serving
         (256, 16, 2),                                   # jamba
+        (8, 384, 8), (1024, 384, 8),                    # kimi-k2
     ]
     gating_err = 0.0
     for case in gating_cases + ["underflow"]:
@@ -1356,6 +1416,9 @@ def main() -> int:
         (1024, 32, 8, None, 2, "rand"),         # two dispatch blocks
         (2048, 16, 2, None, 4, "hot"),
         (3, 16, 8, 8, 1, "underflow"),
+        (8, 384, 8, None, 1, "rand"),           # kimi-k2 decode
+        (1024, 384, 8, None, 1, "rand"),        # kimi-k2 serving prefill
+        (1000, 384, 8, None, 1, "rand"),        # kimi-k2's path prefill
     ]
     route_err = 0.0
     dropped_total = 0
@@ -1722,10 +1785,15 @@ def main() -> int:
                 "bound_by": max(bound, key=bound.get),
                 "flops": flops, "bytes": nbytes}
 
-    def decode_shape(B, S, Hs, KVHs, Dhs, lens):
+    def decode_shape(B, S, Hs, KVHs, Dhs, lens, append=False):
+        """The decode kernel at one shape, committed, or with ``append`` in
+        append mode (k_new / v_new merged by the combine pass: no one
+        PyTorch call computes it, so no library time)."""
         ln = torch.as_tensor(lens, dtype=torch.int64, device=dev)
         sets = [(rnd((B, Hs, Dhs), bf16), rnd((B, S, KVHs, Dhs), bf16),
                  rnd((B, S, KVHs, Dhs), bf16), ln) for _ in range(4)]
+        if append:
+            return append_shape(sets, B, Hs, KVHs, Dhs, ln)
         Gs = Hs // KVHs
         posn = torch.arange(S, device=dev)
         lsets = [(a[:, :, None],
@@ -1749,6 +1817,29 @@ def main() -> int:
                 "library_max_abs_err": err(sdpa_masked(*lsets[0])[:, :, 0],
                                            decode_kernel(*sets[0])),
                 "n_splits": da.plan_splits(B, KVHs, S, sms),
+                "bound_ms": max(bound.values()),
+                "bound_by": max(bound, key=bound.get),
+                "flops": flops, "bytes": nbytes}
+
+    def append_shape(sets, B, Hs, KVHs, Dhs, ln):
+        sets = [s_ + (rnd((B, KVHs, Dhs), bf16), rnd((B, KVHs, Dhs), bf16))
+                for s_ in sets]
+
+        def plain(a, b, c, l, kn, vn):
+            return ops.decode_attention(a, b, c, l, k_new=kn, v_new=vn,
+                                        impl="plain")
+
+        e = err(decode_append(*sets[0]), plain(*sets[0]))
+        live = int(ln.sum()) + B
+        flops = 4 * live * Hs * Dhs
+        nbytes = 2 * live * KVHs * Dhs * 2 + 2 * B * Hs * Dhs * 2 + 8 * B
+        bound = {"bytes": nbytes / PEAK_BYTES * 1e3,
+                 "operations": flops / PEAK_BF16_FLOPS * 1e3}
+        return {"max_abs_err": e, "tol": TOL["bfloat16"],
+                "ms": device_ms(decode_append, sets),
+                "call_ms": time_ms(decode_append, sets),
+                "plain_ms": time_ms(plain, sets), "library_ms": None,
+                "n_splits": da.plan_splits(B, KVHs, sets[0][1].shape[1], sms),
                 "bound_ms": max(bound.values()),
                 "bound_by": max(bound, key=bound.get),
                 "flops": flops, "bytes": nbytes}
@@ -1861,6 +1952,30 @@ def main() -> int:
         "gating_topk": gating_timing(1024, 32, 8),
         "gating_topk_decode": gating_timing(B_D, 32, 8),
     }
+    # both attention kernels (Dh 112, 64/8 heads) and the routing (E 384,
+    # k 8) at kimi-k2's served shapes, bf16 attention
+    kimi_lens = d_lens.tolist()
+    kimi = {
+        "flash_attention": {
+            "kimi-k2 prefill B=1 Sq=Skv=1024 H=64 KVH=8 Dh=112 bf16 causal":
+                flash_shape(1, 1024, 1024, 64, 8, 112, True)},
+        "decode_attention": {
+            f"kimi-k2 decode B=8 S=2048 H=64 KVH=8 Dh=112 bf16 lengths "
+            f"{kimi_lens}": decode_shape(B_D, S_D, 64, 8, 112, kimi_lens),
+            f"kimi-k2 decode B=8 S=2048 H=64 KVH=8 Dh=112 bf16 append, "
+            f"lengths {kimi_lens}": decode_shape(B_D, S_D, 64, 8, 112,
+                                                 kimi_lens, append=True)},
+        "moe_gating": {"kimi-k2 route T=1024 E=384 k=8":
+                           route_timing(1024, 384, 8),
+                       "kimi-k2 route T=8 E=384 k=8": route_timing(B_D, 384,
+                                                                   8)}}
+    for row in (flash_row, decode_row, moe_row):
+        row["kimi_shapes"] = kimi[row["name"]]
+        for shape, res in row["kimi_shapes"].items():
+            if not res["max_abs_err"] < res.get("tol", GATING_TOL):
+                raise AssertionError(f"{row['name']} at {shape}: "
+                                     f"{res['max_abs_err']}")
+    print("kimi kernel shapes: " + json.dumps(kimi))
     print(f"moe timing: route T=1024 device {moe_row['ms']:.5f} ms call "
           f"{moe_row['call_ms']:.5f} (composition device "
           f"{moe_row['plain_ms']:.5f}, call {moe_row['plain_call_ms']:.5f});"
@@ -2204,7 +2319,8 @@ def main() -> int:
         res = {"model": cfg.name, "layers": cfg.n_layers,
                "layer_kinds": [f"{spec.kind}+{spec.mlp}"
                                for spec in cfg.layer_specs()],
-               "dtype": cfg.dtype, "prompt": P,
+               "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+               "prompt": P,
                "decode_steps": STEPS, "max_abs_err": path_err, "tol": tol,
                "argmax_agree": int((out_k.argmax(-1)
                                     == out_p.argmax(-1)).sum()),
@@ -2360,35 +2476,89 @@ def main() -> int:
         del model32
         free()
 
-    def dryrun_record(arch):
-        """repro_torch.launch.dryrun.run_cell for ``arch`` at decode_32k on
-        the card, its launches counted from zero over exactly that run and
-        equal to its decode steps' (a dryrun: line). Returns (cfg, rec)."""
+    # -- 3-5. kimi-k2 at full width, cut to its first 2 layers (KIMI_CUT):
+    # serve (bf16), path and trace. The bf16 path is reported; the same
+    # bf16 weights computed in fp32 (param_dtype bf16, dtype fp32: 38.6 GB,
+    # where the fp32 two-layer model's ~77 GB does not fit) are gated, every
+    # expert choice equal; layer 0 alone (the dense attention layer at 64/8
+    # heads of 112, fp32 embedding and head, ~10 GB) is gated in fp32.
+    t_phase = time.perf_counter()
+    kimi = get_config("kimi-k2-1t-a32b")
+    print(f"kimi-k2 cut: {KIMI_CUT}")
+    cfg = cut(kimi, 2)
+    model = build(cfg)
+    launches_by_path[f"{cfg.name} ({cfg.n_layers} layers)"], _ = serve(
+        cfg, model)
+    path(cfg, model, None)          # bf16: reported, not gated
+    trace(cfg, model)
+    del model
+    free()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build(cfg32)
+    path(cfg32, model32, PATH_TOL_FP32, gate_argmax=True,
+         append_tol=APPEND_TOL_FP32)
+    del model32
+    free()
+    cfg32 = dataclasses.replace(cut(kimi, 1), dtype="float32",
+                                param_dtype="float32")
+    model32 = build(cfg32)
+    path(cfg32, model32, PATH_TOL_FP32, gate_argmax=True,
+         append_tol=APPEND_TOL_FP32)
+    del model32
+    free()
+    print(f"phases 3-5 (kimi-k2): {time.perf_counter() - t_phase:.1f} s")
+
+    def dryrun_record(arch, shape="decode_32k"):
+        """repro_torch.launch.dryrun.run_cell for ``arch`` at ``shape`` on
+        the card (a dryrun: line), its launches counted from zero over
+        exactly that run: a decode record's equal to its decode steps', a
+        prefill record's to its prefills' (the one-sequence prefill that
+        sets the batch cut included), a train record's to its train steps'
+        (every attention, MoE and scan layer's forward and its remat
+        recompute a microbatch), none where the cell is skipped or does not
+        fit. Returns (cfg, rec)."""
         cfg = get_config(arch)
         zero_launches()
-        rec = dryrun.run_cell(arch, "decode_32k",
-                              ROOT / "results" / "dryrun_torch")
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, ROOT / "results" / "dryrun_torch")
         free()
-        # every step it ran (a profiler session that saw no device time is
-        # run again)
-        dry_steps = rec["decode_steps"]
         launches = read_launches()
-        expected = expected_launches(cfg, 0, dry_steps)
-        min_steps = 1 + dryrun.WARMUP_STEPS + dryrun.TIMED_STEPS \
-            + dryrun.PROFILED_STEPS
-        if launches != expected or dry_steps < min_steps:
-            raise AssertionError(f"dry-run {arch}: launches {launches} for "
-                                 f"{dry_steps} decode steps, expected "
-                                 f"{expected}")
-        launches_by_path[f"{cfg.name} dry-run decode_32k"] = launches
+        if not rec["ok"]:
+            expected = {name: 0 for name in launches}
+        elif rec["kind"] == "decode":
+            # every step it ran (a profiler session that saw no device time
+            # is run again)
+            expected = expected_launches(cfg, 0, rec["decode_steps"])
+            min_steps = 1 + dryrun.WARMUP_STEPS + dryrun.TIMED_STEPS \
+                + dryrun.PROFILED_STEPS
+            if rec["decode_steps"] < min_steps:
+                raise AssertionError(f"dry-run {arch} {shape}: "
+                                     f"{rec['decode_steps']} decode steps")
+        elif rec["kind"] == "prefill":
+            expected = expected_launches(cfg, rec["prefill_steps"], 0)
+        else:
+            kinds = [spec.kind for spec in cfg.layer_specs()]
+            n_moe = sum(spec.mlp == "moe" for spec in cfg.layer_specs())
+            per = rec["n_micro"] * rec["train_steps"] * (1 + cfg.remat)
+            segs = len(ref.scan_segments(rec["seq_len"]))
+            expected = {"flash_attention": kinds.count("attn") * per,
+                        "decode_attention": 0, "moe_gating": n_moe * per,
+                        "rwkv6_scan": kinds.count("rwkv") * segs * per,
+                        "ssm_scan": kinds.count("mamba") * segs * per}
+        if launches != expected:
+            raise AssertionError(f"dry-run {arch} {shape}: launches "
+                                 f"{launches}, expected {expected}")
+        if rec["ok"]:
+            launches_by_path[f"{cfg.name} dry-run {shape}"] = launches
         print(f"dryrun: {json.dumps(rec)}")
+        print(f"dryrun time: {arch} {shape} "
+              f"{time.perf_counter() - t0:.1f} s")
         return cfg, rec
 
-    def profile_rows(cfg, rec):
-        """The H100 MaxTput row profile_from_dryrun builds from ``rec``
-        beside the analytic row, bucket by bucket, and the engine model's
-        step time beside the measured one (a profile: line). Returns the
-        record-derived profile."""
+    def record_gates(cfg, rec):
+        """Every record's gates: ok, one device, operations counted, bytes
+        at least the weights'; a train record's losses finite and its
+        first cross-entropy in phase 8's band around ln V + sigma^2 / 2."""
         weight_bytes = sum(p.numel() * p.element_size() for p in
                            T.Transformer(cfg, device="meta").parameters())
         if not (rec["ok"] is True and rec["devices"] == 1
@@ -2396,9 +2566,25 @@ def main() -> int:
                 and rec["bytes_accessed"] >= weight_bytes):
             raise AssertionError(f"dry-run record fails its gates: ok "
                                  f"{rec['ok']}, devices {rec['devices']}, "
-                                 f"flops {rec['flops']}, bytes "
-                                 f"{rec['bytes_accessed']} against "
+                                 f"flops {rec.get('flops')}, bytes "
+                                 f"{rec.get('bytes_accessed')} against "
                                  f"{weight_bytes} weight bytes")
+        if rec["kind"] == "train":
+            center = math.log(cfg.vocab_size) + 0.5 * 0.02 ** 2 * cfg.d_model
+            if not (all(map(math.isfinite, rec["losses"]))
+                    and abs(rec["first_ce"] - center)
+                    <= FIRST_LOSS_RTOL * math.log(cfg.vocab_size)):
+                raise AssertionError(f"train record {cfg.name}: losses "
+                                     f"{rec['losses']}, first ce "
+                                     f"{rec['first_ce']} (band around "
+                                     f"{center})")
+
+    def profile_rows(cfg, rec):
+        """The H100 MaxTput row profile_from_dryrun builds from ``rec``
+        beside the analytic row, bucket by bucket, and the engine model's
+        step time beside the measured one (a profile: line). Returns the
+        record-derived profile."""
+        record_gates(cfg, rec)
         h100 = {"H100": PAPER_GPUS["H100"]}
         buckets = bucket_grid()
         perf = ModelPerf.from_config(cfg)
@@ -2473,6 +2659,22 @@ def main() -> int:
     del q, kc, vc, kn, vn, ln
     free()
     h100_profile = profile_rows(cfg, rec)
+
+    # the decode records of the other configs that fit one card (their H100
+    # rows beside the analytic ones), rwkv6's long_500k, qwen2's prefill_32k
+    # and train_4k, and the cells that do not fit, logged with why
+    t_phase = time.perf_counter()
+    for arch in DECODE_RECORDS:
+        profile_rows(*dryrun_record(arch))
+    record_gates(*dryrun_record("rwkv6-1.6b", "long_500k"))
+    for shape in ("prefill_32k", "train_4k"):
+        record_gates(*dryrun_record("qwen2-1.5b", shape))
+    for arch, shape in NOT_FITTING:
+        _, rec_n = dryrun_record(arch, shape)
+        if "not_fitting" not in rec_n:
+            raise AssertionError(f"{arch} at {shape} was expected not to "
+                                 f"fit one card: {rec_n}")
+    print(f"phase 6 records: {time.perf_counter() - t_phase:.1f} s")
 
     # -- 7. cluster: qwen2-1.5b behind ServingCluster, two H100 instances
     # sharing one model on the card, routed under phase 6's profile --------

@@ -13,6 +13,13 @@ constexpr float kNegInf = -1e30f;
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 
+// The head dim a kernel stages in shared memory: 112 (kimi-k2) rounds up to
+// 128, so the lane maps and the 64-column swizzle atoms of the power-of-two
+// head dims carry over; the padded columns are zero-filled, never read from
+// or written to global memory.
+template <int DH>
+constexpr int kPaddedDH = DH == 112 ? 128 : DH;
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);

@@ -49,6 +49,17 @@
 // launches, with no extra pass and no host sync. The partials are fp32
 // scratch that the wrapper allocates. Both dtypes share the design:
 // memory-bound decode has no use for tensor cores.
+//
+// Head dim 112 (kimi-k2). The lane maps above need a power-of-two Dh: a K
+// row shared by Dh / 8 (bf16) or Dh / 4 (fp32) lanes under a shuffle
+// reduction, Dh / 32 V columns a lane, Dh / 32 warps in the combine pass. So
+// Dh 112 is staged at DP = kPaddedDH<112> = 128 columns in shared memory:
+// the sub-tiles' columns 112-127 are zero-filled by cp.async (nothing is
+// read from global memory for them) and q's padded columns are zero, so the
+// scores are those of the 112 real columns and the padded output columns
+// are never written. The cache is read at 112 columns a row: the byte bound
+// stays that of Dh 112. The combine pass runs DP threads, of which those
+// past Dh add nothing and store nothing.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -80,20 +91,27 @@ size_t smem_bytes(int G, int DH, size_t elem) {
 }
 
 // One warp copies rows [r0, r0 + SUB) of a (rows, DH) slice into dst (SUB x
-// DH); rows at or past r0 + rows are zero-filled, never read.
+// DP, DP = kPaddedDH<DH>); rows at or past r0 + rows, and columns DH to DP,
+// are zero-filled, never read.
 template <typename T, int DH>
 __device__ __forceinline__ void copy_sub(const T* __restrict__ base,
                                          size_t row_stride, int r0, int rows,
                                          T* dst, int lane) {
-  constexpr int CPR = DH * sizeof(T) / 16;   // 16-byte chunks per row
+  constexpr int DP = repro::kPaddedDH<DH>;
   constexpr int N = 16 / sizeof(T);
+  constexpr int CPR = DP / N;   // 16-byte chunks per staged row
+  static_assert(SUB * CPR % 32 == 0, "copy_sub lane map");
 #pragma unroll
-  for (int it = 0; it < CPR; ++it) {
+  for (int it = 0; it < SUB * CPR / 32; ++it) {
     const int i = lane + 32 * it;
     const int r = i / CPR, c = (i % CPR) * N;
-    const bool ok = r < rows;
-    cp_async16(dst + r * DH + c,
-               base + size_t(ok ? r0 + r : r0) * row_stride + c, ok);
+    // at an unpadded head dim (DP == DH) this is the plain row copy;
+    // padded chunks read nothing from a valid address (column 0)
+    const bool pad = DP != DH && c >= DH;
+    const bool ok = r < rows && !pad;
+    cp_async16(dst + r * DP + c,
+               base + size_t(ok ? r0 + r : r0) * row_stride + (pad ? 0 : c),
+               ok);
   }
 }
 
@@ -131,12 +149,13 @@ __global__ void __launch_bounds__(NT)
                         float* __restrict__ o_part, int S, int H, int KVH,
                         int chunk, int window, int append, float softcap,
                         float scale) {
+  constexpr int DP = repro::kPaddedDH<DH>;   // staged columns
   constexpr int N = repro::Chunk<T>::N;   // elements of one 16-byte load
-  constexpr int LPR = DH / N;             // lanes that share a K row
+  constexpr int LPR = DP / N;             // lanes that share a K row
   constexpr int RPW = 32 / LPR;           // K rows a warp reads per step
   constexpr int STEPS = SUB / RPW;
   constexpr int U = 4;                    // steps whose loads are in flight
-  constexpr int CPL = DH / 32;            // V columns per lane
+  constexpr int CPL = DP / 32;            // V columns per lane
   static_assert(STEPS % U == 0, "sub-tile steps");
   const int G = H / KVH;
   const int n_splits = gridDim.x;
@@ -144,9 +163,9 @@ __global__ void __launch_bounds__(NT)
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sKV = reinterpret_cast<T*>(smem);   // NWARP x (K, V) x SUB x DH
-  float* sQ = reinterpret_cast<float*>(sKV + NWARP * 2 * SUB * DH);
-  float* sS = sQ + G * DH;               // NWARP x G x SUB
+  T* sKV = reinterpret_cast<T*>(smem);   // NWARP x (K, V) x SUB x DP
+  float* sQ = reinterpret_cast<float*>(sKV + NWARP * 2 * SUB * DP);
+  float* sS = sQ + G * DP;               // NWARP x G x SUB
   float* sM = sS + NWARP * G * SUB;      // NWARP x G
   float* sL = sM + NWARP * G;            // NWARP x G
 
@@ -171,15 +190,22 @@ __global__ void __launch_bounds__(NT)
   }
 
   const T* qb = q + (size_t(b) * H + size_t(kvh) * G) * DH;
-  for (int i = tid; i < G * DH; i += NT) sQ[i] = to_f32(qb[i]) * scale;
+  if constexpr (DP == DH) {
+    for (int i = tid; i < G * DH; i += NT) sQ[i] = to_f32(qb[i]) * scale;
+  } else {
+    for (int i = tid; i < G * DP; i += NT) {   // padded columns zero
+      const int g = i / DP, d = i % DP;
+      sQ[i] = d < DH ? to_f32(qb[g * DH + d]) * scale : 0.f;
+    }
+  }
   __syncthreads();
 
   const size_t row_stride = size_t(KVH) * DH;
   const T* kb = kc + size_t(b) * S * row_stride + size_t(kvh) * DH;
   const T* vb = vc + size_t(b) * S * row_stride + size_t(kvh) * DH;
   float* sSw = sS + warp * G * SUB;
-  T* sK = sKV + warp * 2 * SUB * DH;
-  T* sV = sK + SUB * DH;
+  T* sK = sKV + warp * 2 * SUB * DP;
+  T* sV = sK + SUB * DP;
   const int my_row = lane / LPR;          // row of a step this lane reads
   const int my_col = (lane % LPR) * N;    // its first K column
 
@@ -211,11 +237,11 @@ __global__ void __launch_bounds__(NT)
       float x[U][N];
 #pragma unroll
       for (int u = 0; u < U; ++u)
-        repro::Chunk<T>::load(sK + ((st0 + u) * RPW + my_row) * DH + my_col,
+        repro::Chunk<T>::load(sK + ((st0 + u) * RPW + my_row) * DP + my_col,
                               x[u]);
       for (int g = 0; g < G; ++g) {
         const float4* qg =
-            reinterpret_cast<const float4*>(sQ + g * DH + my_col);
+            reinterpret_cast<const float4*>(sQ + g * DP + my_col);
         float qv[N];
 #pragma unroll
         for (int i = 0; i < N / 4; ++i) {
@@ -267,7 +293,7 @@ __global__ void __launch_bounds__(NT)
       float vv[U][CPL];
 #pragma unroll
       for (int u = 0; u < U; ++u)
-        load_cols<T, CPL>(sV + (rr0 + u) * DH + lane * CPL, vv[u]);
+        load_cols<T, CPL>(sV + (rr0 + u) * DP + lane * CPL, vv[u]);
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g) {
         if (g < G) {
@@ -287,7 +313,7 @@ __global__ void __launch_bounds__(NT)
   }
 
   // merge the warps' states into the block's partial; a warp's o goes where
-  // its K and V sub-tiles were (G x DH fp32 fits in 2 x SUB x DH of T)
+  // its K and V sub-tiles were (G x DP fp32 fits in 2 x SUB x DP of T)
   float* sO = reinterpret_cast<float*>(sK);
 #pragma unroll
   for (int g = 0; g < MAX_G; ++g) {
@@ -298,7 +324,7 @@ __global__ void __launch_bounds__(NT)
       }
 #pragma unroll
       for (int c = 0; c < CPL; ++c)
-        sO[g * DH + lane * CPL + c] = acc[g][c];
+        sO[g * DP + lane * CPL + c] = acc[g][c];
     }
   }
   __syncthreads();
@@ -316,7 +342,7 @@ __global__ void __launch_bounds__(NT)
         const float wt = expf(mw - m_safe);
         lb += wt * sL[w * G + g];
         ob += wt * reinterpret_cast<const float*>(
-                       sKV + w * 2 * SUB * DH)[g * DH + d];
+                       sKV + w * 2 * SUB * DP)[g * DP + d];
       }
     }
     const size_t pg = part + size_t(g) * n_splits;
@@ -328,10 +354,11 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// One block of DH threads per (b, h): merges the n_splits partials and, in
-// append mode (k_new non-null), the new token as one more partial.
+// One block of DP = kPaddedDH<DH> threads per (b, h): merges the n_splits
+// partials and, in append mode (k_new non-null), the new token as one more
+// partial. Threads d >= DH (Dh 112) add zeros to the dot and store nothing.
 template <typename T, int DH>
-__global__ void __launch_bounds__(DH)
+__global__ void __launch_bounds__(repro::kPaddedDH<DH>)
     decode_combine_kernel(const float* __restrict__ m_part,
                           const float* __restrict__ l_part,
                           const float* __restrict__ o_part,
@@ -339,8 +366,10 @@ __global__ void __launch_bounds__(DH)
                           const T* __restrict__ v_new, T* __restrict__ o,
                           int n_splits, int H, int KVH, float softcap,
                           float scale) {
+  constexpr int DP = repro::kPaddedDH<DH>;
   const size_t bh = blockIdx.x;
   const int d = threadIdx.x;
+  const bool col = DP == DH || d < DH;   // a real output column
   const float* mp = m_part + bh * n_splits;
   const float* lp = l_part + bh * n_splits;
   const float* op = o_part + bh * n_splits * DH;
@@ -348,20 +377,21 @@ __global__ void __launch_bounds__(DH)
   for (int s = 0; s < n_splits; ++s) mx = fmaxf(mx, mp[s]);
   float m_self = kNegInf, v_self = 0.f;
   if (k_new != nullptr) {   // uniform over the block
-    __shared__ float red[DH / 32];
+    __shared__ float red[DP / 32];
     const size_t b = bh / H;
     const int h = int(bh % H);
     const size_t kv = (b * KVH + h / (H / KVH)) * DH;
-    float x = to_f32(q[bh * DH + d]) * scale * to_f32(k_new[kv + d]);
+    float x = col ? to_f32(q[bh * DH + d]) * scale * to_f32(k_new[kv + d])
+                  : 0.f;
     x = repro::warp_sum(x, 32);
     if (d % 32 == 0) red[d / 32] = x;
     __syncthreads();
     float dot = 0.f;
 #pragma unroll
-    for (int w = 0; w < DH / 32; ++w) dot += red[w];
+    for (int w = 0; w < DP / 32; ++w) dot += red[w];
     if (softcap > 0.f) dot = softcap * tanhf(dot / softcap);
     m_self = dot;
-    v_self = to_f32(v_new[kv + d]);
+    v_self = col ? to_f32(v_new[kv + d]) : 0.f;
     mx = fmaxf(mx, m_self);
   }
   const float m_safe = mx <= kNegInf / 2 ? 0.f : mx;
@@ -370,7 +400,7 @@ __global__ void __launch_bounds__(DH)
     if (mp[s] > kNegInf / 2) {   // empty splits add nothing
       const float wt = expf(mp[s] - m_safe);
       l += wt * lp[s];
-      acc += wt * op[size_t(s) * DH + d];
+      if (col) acc += wt * op[size_t(s) * DH + d];
     }
   }
   if (k_new != nullptr) {
@@ -378,7 +408,7 @@ __global__ void __launch_bounds__(DH)
     l += wt;
     acc += wt * v_self;
   }
-  o[bh * DH + d] = from_f32<T>(acc / fmaxf(l, 1e-30f));
+  if (col) o[bh * DH + d] = from_f32<T>(acc / fmaxf(l, 1e-30f));
 }
 
 template <typename T, int DH, typename L>
@@ -392,7 +422,7 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
   auto split_kern = decode_split_kernel<T, DH, L>;
   cudaError_t err = cudaFuncSetAttribute(
       split_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem_bytes(MAX_G, DH, sizeof(T))));
+      int(smem_bytes(MAX_G, repro::kPaddedDH<DH>, sizeof(T))));
   if (err != cudaSuccess) return err;
   // chunk: ceil(S / n_splits) rounded up to TILE (ref.split_chunk)
   const int chunk = ((S + n_splits - 1) / n_splits + TILE - 1) / TILE * TILE;
@@ -401,14 +431,15 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
   float* l_part = m_part + n_part;
   float* o_part = l_part + n_part;
   dim3 grid(n_splits, KVH, B);
-  split_kern<<<grid, NT, smem_bytes(G, DH, sizeof(T)), stream>>>(
+  split_kern<<<grid, NT, smem_bytes(G, repro::kPaddedDH<DH>, sizeof(T)),
+               stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), static_cast<const L*>(lengths), m_part,
       l_part, o_part, S, H, KVH, chunk, window, k_new != nullptr ? 1 : 0,
       softcap, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<T, DH><<<B * H, DH, 0, stream>>>(
+  decode_combine_kernel<T, DH><<<B * H, repro::kPaddedDH<DH>, 0, stream>>>(
       m_part, l_part, o_part, static_cast<const T*>(q),
       static_cast<const T*>(k_new), static_cast<const T*>(v_new),
       static_cast<T*>(o), n_splits, H, KVH, softcap, scale);
@@ -452,6 +483,10 @@ extern "C" int repro_decode_attention(const void* q, const void* k_cache,
     return launch_len<float, 64>(len_dtype, q, k_cache, v_cache, lengths,
                                  k_new, v_new, o, part, B, S, H, KVH,
                                  n_splits, window, softcap, scale, s);
+  if (dtype == repro::kFloat32 && Dh == 112)
+    return launch_len<float, 112>(len_dtype, q, k_cache, v_cache, lengths,
+                                  k_new, v_new, o, part, B, S, H, KVH,
+                                  n_splits, window, softcap, scale, s);
   if (dtype == repro::kFloat32 && Dh == 128)
     return launch_len<float, 128>(len_dtype, q, k_cache, v_cache, lengths,
                                   k_new, v_new, o, part, B, S, H, KVH,
@@ -461,6 +496,11 @@ extern "C" int repro_decode_attention(const void* q, const void* k_cache,
                                          lengths, k_new, v_new, o, part, B, S,
                                          H, KVH, n_splits, window, softcap,
                                          scale, s);
+  if (dtype == repro::kBFloat16 && Dh == 112)
+    return launch_len<__nv_bfloat16, 112>(len_dtype, q, k_cache, v_cache,
+                                          lengths, k_new, v_new, o, part, B,
+                                          S, H, KVH, n_splits, window,
+                                          softcap, scale, s);
   if (dtype == repro::kBFloat16 && Dh == 128)
     return launch_len<__nv_bfloat16, 128>(len_dtype, q, k_cache, v_cache,
                                           lengths, k_new, v_new, o, part, B,

@@ -48,6 +48,19 @@
 // threads per (batch, query head, 64-row tile), four threads per query row,
 // 64-row kv tiles staged in shared memory as fp32 and fp32 FMAs, with the
 // padded row stride (Dh + 1) keeping the score loop free of bank conflicts.
+//
+// Head dim 112 (kimi-k2). The fp32 kernel takes it as it is (28 columns a
+// thread, 112 = 4 * 28). The bf16 kernel stages Q, K and V at 128 columns:
+// a 112-column row is 224 bytes, one whole 64-column swizzle atom and part of
+// a second, and wgmma's MN-major V operand at 128-byte swizzle wants whole
+// atoms along N. Chunks 14-15 of every staged row are zero-filled by the
+// cp.async zero-fill (they read nothing from global memory). S = Q K^T runs
+// its 7 k-steps over the real columns only (a k-step is 16 columns: K = 112
+// needs no padding); O += P V runs at N = 128, whose columns 112-127 are
+// products with the zero columns and are never stored. So the byte traffic
+// is that of 112 columns, and P V does 8/7 of the needed tensor-core work:
+// a native N = 112 would need a partial MN-major atom in V's descriptor,
+// which the padding avoids for ~7% of the products.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -219,9 +232,9 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DH>
 constexpr size_t smem_bytes() {
-  // sQ (BQ rows) + sK, sV (2 stages of BK rows each), bf16, and room to
-  // align the base to 1024 bytes
-  return sizeof(bf16) * size_t(DH) * (BQ + 4 * BK) + 1024;
+  // sQ (BQ rows) + sK, sV (2 stages of BK rows each), bf16 at the staged
+  // width, and room to align the base to 1024 bytes
+  return sizeof(bf16) * size_t(repro::kPaddedDH<DH>) * (BQ + 4 * BK) + 1024;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -362,19 +375,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // bf16 `row_stride` apart into dst (1024-byte aligned) in the 128-byte
 // swizzled layout that wgmma reads: 64-column atoms of ROWS x 128 bytes one
 // after another, row r of an atom at r * 128 bytes, its 16-byte chunk c at
-// (c ^ r % 8) * 16. Rows at or past `limit` are zero-filled.
+// (c ^ r % 8) * 16. Rows are staged at kPaddedDH<DH> columns. Rows at or
+// past `limit`, and the padded chunks, are zero-filled.
 template <int DH, int ROWS>
 __device__ __forceinline__ void load_tile(const bf16* __restrict__ base,
                                           size_t row_stride, int row0,
                                           int limit, bf16* dst, int tid) {
-  constexpr int CPR = DH / 8;   // 16-byte chunks per row
+  constexpr int CPR = repro::kPaddedDH<DH> / 8;   // 16-byte chunks per row
+  constexpr int CIN = DH / 8;                      // of them read from global
   const uint32_t d0 = smem_u32(dst);
 #pragma unroll
   for (int it = 0; it < ROWS * CPR / NT; ++it) {
     const int i = tid + it * NT;
     const int c = i % CPR, r = i / CPR;
-    const bool ok = row0 + r < limit;
-    const bf16* src = base + size_t(ok ? row0 + r : 0) * row_stride + c * 8;
+    // at an unpadded head dim (CPR == CIN) this is the plain row copy;
+    // padded chunks read nothing from a valid address (column 0)
+    const bool ok = row0 + r < limit && (CPR == CIN || c < CIN);
+    const bf16* src = base + size_t(ok ? row0 + r : 0) * row_stride +
+                      (CPR == CIN || c < CIN ? c : 0) * 8;
     cp_async16(d0 + (c / 8) * (ROWS * 128) + r * 128 + ((c % 8) ^ (r % 8)) * 16,
                src, ok);
   }
@@ -386,9 +404,11 @@ __global__ void __launch_bounds__(NT, 2)
                     const bf16* __restrict__ v, bf16* __restrict__ o,
                     float* __restrict__ lse, int Sq, int Skv, int H, int KVH,
                     int causal, int window, float softcap, float scale) {
-  constexpr int KSTEPS = DH / 16;   // k-steps of Q K^T
+  constexpr int DP = repro::kPaddedDH<DH>;   // staged columns
+  constexpr int KSTEPS = DH / 16;   // k-steps of Q K^T, real columns only
   constexpr int NS = BK / 8;        // 8-column blocks of S
-  constexpr int NO = DH / 8;        // 8-column blocks of O
+  constexpr int NO = DP / 8;        // 8-column blocks of O (wgmma's N / 8)
+  constexpr int NOUT = DH / 8;      // of them stored
   // Descriptor strides. K-major Q and K: 8-row groups 1024 bytes apart (the
   // leading offset is unused). MN-major V: 64-column atoms BK * 128 bytes
   // apart, 8-row groups 1024 bytes apart.
@@ -398,8 +418,8 @@ __global__ void __launch_bounds__(NT, 2)
   // 1024-byte aligned: the 128-byte swizzle is a function of address bits
   bf16* sQ = reinterpret_cast<bf16*>(
       smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024);
-  bf16* sK = sQ + BQ * DH;          // 2 stages
-  bf16* sV = sK + 2 * BK * DH;      // 2 stages
+  bf16* sK = sQ + BQ * DP;          // 2 stages
+  bf16* sV = sK + 2 * BK * DP;      // 2 stages
 
   // heaviest causal q tiles first: blockIdx.y 0 is the last tile
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
@@ -446,9 +466,9 @@ __global__ void __launch_bounds__(NT, 2)
     const int st = (t - t_begin) & 1;
     if (t + 1 < t_end) {
       load_tile<DH, BK>(kb, kv_stride, (t + 1) * BK, Skv,
-                        sK + (st ^ 1) * BK * DH, tid);
+                        sK + (st ^ 1) * BK * DP, tid);
       load_tile<DH, BK>(vb, kv_stride, (t + 1) * BK, Skv,
-                        sV + (st ^ 1) * BK * DH, tid);
+                        sV + (st ^ 1) * BK * DP, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();   // tile t (and Q) have landed
@@ -456,7 +476,7 @@ __global__ void __launch_bounds__(NT, 2)
     __syncthreads();
 
     // S = Q K^T, 64 x 64; a k-step is 32 bytes into a 64-column atom
-    const uint32_t k_addr = smem_u32(sK + st * BK * DH);
+    const uint32_t k_addr = smem_u32(sK + st * BK * DP);
     float s[NS * 4];
 #pragma unroll
     for (int i = 0; i < NS * 4; ++i) s[i] = 0.f;
@@ -535,7 +555,7 @@ __global__ void __launch_bounds__(NT, 2)
     }
 
     // O += P V: a k-step is two 8-row groups of V
-    const uint32_t v_addr = smem_u32(sV + st * BK * DH);
+    const uint32_t v_addr = smem_u32(sV + st * BK * DP);
     fence_regs(acc);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
@@ -543,7 +563,7 @@ __global__ void __launch_bounds__(NT, 2)
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint64_t dv = make_desc(v_addr + kk * 2048, MN_LBO, MN_SBO);
-      if constexpr (DH == 128)
+      if constexpr (DP == 128)
         wgmma_rs_n128(acc, pa[kk], dv);
       else
         wgmma_rs_n64(acc, pa[kk], dv);
@@ -563,7 +583,7 @@ __global__ void __launch_bounds__(NT, 2)
     if (qpos < Sq) {
       bf16* orow = o + (size_t(b) * Sq + qpos) * q_stride + size_t(h) * DH;
 #pragma unroll
-      for (int n = 0; n < NO; ++n)
+      for (int n = 0; n < NOUT; ++n)
         *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t4) =
             __floats2bfloat162_rn(acc[4 * n + 2 * r] * inv,
                                   acc[4 * n + 2 * r + 1] * inv);
@@ -611,12 +631,18 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   if (dtype == repro::kFloat32 && Dh == 64)
     return launch<float, 64>(q, k, v, o, l, B, Sq, Skv, H, KVH, causal,
                              window, softcap, scale, s);
+  if (dtype == repro::kFloat32 && Dh == 112)
+    return launch<float, 112>(q, k, v, o, l, B, Sq, Skv, H, KVH, causal,
+                              window, softcap, scale, s);
   if (dtype == repro::kFloat32 && Dh == 128)
     return launch<float, 128>(q, k, v, o, l, B, Sq, Skv, H, KVH, causal,
                               window, softcap, scale, s);
   if (dtype == repro::kBFloat16 && Dh == 64)
     return tc::launch<64>(q, k, v, o, l, B, Sq, Skv, H, KVH, causal, window,
                           softcap, scale, s);
+  if (dtype == repro::kBFloat16 && Dh == 112)
+    return tc::launch<112>(q, k, v, o, l, B, Sq, Skv, H, KVH, causal, window,
+                           softcap, scale, s);
   if (dtype == repro::kBFloat16 && Dh == 128)
     return tc::launch<128>(q, k, v, o, l, B, Sq, Skv, H, KVH, causal, window,
                            softcap, scale, s);

@@ -19,7 +19,7 @@ import torch
 from . import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 BLOCK_Q = 64        # query rows per block (csrc BQ, both dtypes)
 
 launches = 0

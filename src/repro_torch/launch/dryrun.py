@@ -1,42 +1,50 @@
-"""One-card dry-run record of the port's decode step: the port of
-``repro/launch/dryrun.py::run_cell`` for one NVIDIA card.
+"""One-card dry-run records of the port's decode, prefill and train steps:
+the port of ``repro/launch/dryrun.py::run_cell`` for one NVIDIA card.
 
-The reference lowers and compiles a sharded serve step for a TPU pod and
-reads XLA's cost analysis. Here the port's model decodes one step at the
-shape case's context length, and the record carries the same fields as far
-as they mean something on one card, so the port's copy of
-``core/profiler.py::profile_from_dryrun`` consumes it unchanged:
+The reference lowers and compiles a sharded step for a TPU pod and reads
+XLA's cost analysis. Here the cell's step (``launch/steps.py::build_cell``)
+runs on the card at the shape case's size, cut to what fits, and the
+record carries the same fields as far as they mean something on one card,
+so the port's copy of ``core/profiler.py::profile_from_dryrun`` consumes a
+decode record unchanged. Every kind writes the same fields and file name:
 
   * ``devices`` is 1 (it takes precedence over ``mesh``, which is a name);
-  * ``global_batch`` is the case's batch, cut to the largest batch whose
-    decode cache fits beside the weights in 92% of the card's memory
-    (``EngineModelParams.activation_reserve`` keeps 8%), from the free
-    memory ``torch.cuda.mem_get_info`` reports; every cut is listed under
-    ``reduced``;
-  * ``flops`` (= ``flops_tc``) is one decode step's operation count from
+  * ``global_batch`` is the case's batch, cut to what fits in 92% of the
+    card's memory (``EngineModelParams.activation_reserve`` keeps 8%) from
+    the free memory ``torch.cuda.mem_get_info`` reports beside the weights:
+    decode by its cache bytes a sequence; prefill by the peak memory a
+    one-sequence prefill takes above the weights (its (S, V) logits
+    included: ~10 GB for qwen2 at 32k); train to ``TRAIN_BATCH`` sequences
+    in ``n_micro`` microbatches (``TRAIN_CUT``). Every cut is listed under
+    ``reduced``, with its reason under ``reduced_why``. Where the weights,
+    one sequence (decode, prefill) or the optimizer state and one step
+    (train) do not fit, the record says so under ``not_fitting`` (``ok``
+    false);
+  * ``flops`` (= ``flops_tc``) is the step's operation count from
     ``torch.utils.flop_counter.FlopCounterMode`` over the plain path
     (``impl="plain"``), which does the kernels' math in aten ops, on the
-    meta device; the counter cannot see the kernels, which are ctypes calls;
+    meta device; the counter cannot see the kernels, which are ctypes
+    calls. The plain attention computes every (query, key) block, masked
+    ones included, so its count does not depend on the block sizes; it is
+    taken with one block a call (``_whole_blocks``), which counts the same
+    operations with far fewer meta ops;
   * ``bytes_accessed`` (= ``bytes_tc``) is a model of the step's traffic,
-    stated in ``bytes_source``: every weight as stored, read once (the
-    capacity MoE path reads every expert); each sequence's K/V read at the
-    context length (the cached tokens and the new one; a sliding window's
-    layers read the window; a cross layer its vision tokens, writing none)
-    and written for one token; each recurrent state read and written; and
-    the logits written (C rows a sequence with C codebooks);
-  * measured on the card: ``step_ms`` (CUDA events, the median of the timed
-    append-mode steps on the kernel path, after a warm-up),
-    ``device_busy_ms`` (torch.profiler) and ``card`` (``nvidia-smi``'s name
+    stated in ``bytes_source`` (decode ``BYTES_SOURCE``, prefill
+    ``PREFILL_BYTES_SOURCE``, train ``TRAIN_BYTES_SOURCE``);
+  * measured on the card: ``step_ms`` (CUDA events, the median of the
+    timed steps on the kernel path, after a warm-up), ``device_busy_ms``
+    (torch.profiler), ``peak_mem_gb`` and ``card`` (``nvidia-smi``'s name
     and power limit). A CPU run records none of these and says so.
 
-The record is of the decode step only: training shapes raise (a one-card
-train record is ROADMAP A9), and a record must never say that a training
-step ran. Prefill shapes are not ported either. Codebook configs decode
-tokens (batch, C) into logits (batch, C, V); a vision config's cross layers
-read a cache of its n_vision_tokens, part of each sequence's bytes. Run
-from the repository root, with ``PYTHONPATH=src``, as
+The decode record is of the append-mode step (the engine's: variant
+``cacheappend``). The train record states that train steps ran
+(``train_steps``), with which optimizer, ``n_micro`` and cut, and their
+losses. Codebook configs decode tokens (batch, C) into logits (batch, C,
+V); a vision config's cross layers read a cache of its n_vision_tokens,
+and its prefill and train batches carry vision embeddings. Run from the
+repository root, with ``PYTHONPATH=src``, as
 
-    python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape decode_32k
+    python -m repro_torch.launch.dryrun --arch all --shape all
 
 (on the card), or on the CPU at a reduced size with ``--device cpu
 --reduced --seq-len 256``.
@@ -44,6 +52,8 @@ from the repository root, with ``PYTHONPATH=src``, as
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -54,15 +64,23 @@ from typing import Optional
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from repro_torch.configs import get_config
-from repro_torch.configs.shapes import applicable, get_shape
+from repro_torch.configs import get_config, list_archs
+from repro_torch.configs.shapes import SHAPES, applicable, get_shape
 from repro_torch.core.engine_model import DEFAULT_ENGINE
+from repro_torch.kernels import ops, ref
+from repro_torch.launch import steps as ST
 from repro_torch.models import transformer as T
+from repro_torch.training import optimizer as OPT
 
 DEFAULT_OUT = Path("results/dryrun_torch")
 MESH = "single_card"
-WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 3, 7, 5
-SEED = 0            # of the random weights and tokens
+WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 3, 7, 5        # decode
+PREFILL_TIMED, TRAIN_TIMED = 3, 3     # each after one warm-up step
+SEED = 0            # of the random weights and inputs
+TRAIN_BATCH = 8     # train_4k's global batch on one card
+TRAIN_CUT = ("global batch 256 cut to 8 sequences (n_micro microbatches): "
+             "256 sequences at seq 4096 are 32 such steps of one card")
+DECODE_VARIANT = "cacheappend"        # the engine's append-mode step
 
 BYTES_SOURCE = (
     "model of the append-mode decode step: every weight as stored, read "
@@ -71,6 +89,16 @@ BYTES_SOURCE = (
     "cross layer its vision tokens, none written) and one token written; "
     "each recurrent state read and written; the logits written, one row a "
     "codebook")
+PREFILL_BYTES_SOURCE = (
+    "model of the prefill step: every weight as stored, read once; per "
+    "sequence, each attention layer's K/V written for its S tokens (a cross "
+    "layer's for its vision tokens), each recurrent state written, and the "
+    "logits written (S rows, one a codebook); the tokens read")
+TRAIN_BYTES_SOURCE = (
+    "lower-bound model of the train step: every weight as stored, read once "
+    "and written once by the update; every gradient written once (fp32, or "
+    "grad_dtype); the optimizer state read and written once; the logits of "
+    "every microbatch written once; the batch read")
 
 
 def _nbytes(tree) -> int:
@@ -78,13 +106,24 @@ def _nbytes(tree) -> int:
                for t in torch.utils._pytree.tree_leaves(tree))
 
 
+def _weight_bytes(cfg) -> int:
+    return _nbytes(list(T.Transformer(cfg, device="meta").parameters()))
+
+
+def _elem(cfg) -> int:
+    return torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+
+
+def _logit_bytes(cfg, rows: int) -> int:
+    return rows * max(cfg.n_codebooks, 1) * T._padded_vocab(cfg) * _elem(cfg)
+
+
 def step_traffic(cfg, model: T.Transformer, batch: int,
                  seq_len: int) -> dict:
     """The bytes of one append-mode decode step of ``batch`` sequences at
     context ``seq_len`` (``BYTES_SOURCE``), by part."""
-    elem = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
-    kv_tok = 2 * cfg.n_kv_heads * cfg.head_dim * elem       # K and V
-    kv = state = 0
+    kv_tok = 2 * cfg.n_kv_heads * cfg.head_dim * _elem(cfg)     # K and V
+    kv = 0
     for spec in cfg.layer_specs():
         if spec.kind == "attn" and spec.attn_type == "cross":
             kv += max(cfg.n_vision_tokens, 1) * kv_tok      # read only
@@ -93,15 +132,44 @@ def step_traffic(cfg, model: T.Transformer, batch: int,
             if spec.attn_type == "local" and cfg.sliding_window:
                 read = min(seq_len, cfg.sliding_window)
             kv += (read + 1) * kv_tok
+    return {"weights": _nbytes(list(model.parameters())),
+            "kv": batch * kv, "states": batch * 2 * _state_bytes(cfg),
+            "logits": _logit_bytes(cfg, batch)}
+
+
+def _state_bytes(cfg) -> int:
+    """One sequence's recurrent states (Mamba and RWKV layers)."""
     one = T.init_cache(cfg, 1, 1, device="meta")
-    for gi, (period, _) in enumerate(cfg.groups):
-        for li, spec in enumerate(period):
-            if spec.kind != "attn":
-                state += 2 * _nbytes(one[f"g{gi}"][li])
+    return sum(_nbytes(one[f"g{gi}"][li])
+               for gi, (period, _) in enumerate(cfg.groups)
+               for li, spec in enumerate(period) if spec.kind != "attn")
+
+
+def prefill_traffic(cfg, model: T.Transformer, batch: int,
+                    seq_len: int) -> dict:
+    """The bytes of one prefill of ``batch`` sequences of ``seq_len``
+    tokens (``PREFILL_BYTES_SOURCE``), by part."""
+    kv_tok = 2 * cfg.n_kv_heads * cfg.head_dim * _elem(cfg)
+    kv = sum((max(cfg.n_vision_tokens, 1) if spec.attn_type == "cross"
+              else seq_len) * kv_tok
+             for spec in cfg.layer_specs() if spec.kind == "attn")
+    tokens = batch * seq_len * max(cfg.n_codebooks, 1) * 4
+    return {"weights": _nbytes(list(model.parameters())),
+            "kv": batch * kv, "states": batch * _state_bytes(cfg),
+            "logits": _logit_bytes(cfg, batch * seq_len), "tokens": tokens}
+
+
+def train_traffic(cfg, model: T.Transformer, opt_state: dict, batch: int,
+                  seq_len: int, n_micro: int, grad_dtype) -> dict:
+    """The bytes of one train step (``TRAIN_BYTES_SOURCE``), by part."""
     weights = _nbytes(list(model.parameters()))
-    logits = max(cfg.n_codebooks, 1) * T._padded_vocab(cfg) * elem
-    return {"weights": weights, "kv": batch * kv, "states": batch * state,
-            "logits": batch * logits}
+    grad_elem = torch.finfo(grad_dtype).bits // 8
+    n_params = sum(p.numel() for p in model.parameters())
+    micro = batch // n_micro if batch % n_micro == 0 else batch
+    return {"weights": 2 * weights, "grads": n_params * grad_elem,
+            "optimizer": 2 * _nbytes(opt_state),
+            "logits": _logit_bytes(cfg, micro * seq_len) * (batch // micro),
+            "tokens": 2 * batch * seq_len * max(cfg.n_codebooks, 1) * 4}
 
 
 def decode_tokens(cfg, batch: int, generator=None) -> torch.Tensor:
@@ -111,18 +179,94 @@ def decode_tokens(cfg, batch: int, generator=None) -> torch.Tensor:
     return torch.randint(0, cfg.vocab_size, shape, generator=generator)
 
 
-def count_flops(cfg, batch: int, seq_len: int) -> int:
-    """One append-mode decode step's operations (FlopCounterMode) on the
-    plain path, on the meta device: nothing is allocated or run. A cross
-    layer's cache holds its n_vision_tokens, so its read counts those."""
-    model = T.Transformer(cfg, device="meta")
-    cache = T.init_cache(cfg, batch, seq_len, device="meta")
-    tokens = decode_tokens(cfg, batch).to("meta")
-    lengths = torch.full((batch,), seq_len - 1, dtype=torch.int64,
-                         device="meta")
-    with FlopCounterMode(display=False) as counter:
-        model.decode_step(cache, tokens, lengths, append=True, impl="plain")
+@contextlib.contextmanager
+def _whole_blocks():
+    """The plain attention paths (``ref.blockwise_attention`` and the
+    trainable ``ref.blockwise_fwd_lse`` / ``ref.flash_attention_bwd``)
+    compute every (query block, key block) pair, masked ones included, so
+    the operations they count do not depend on the block sizes. On the
+    meta device one block a call counts the same operations: a 32k prefill
+    is ~2000 blocks a layer otherwise, each a dozen meta ops."""
+    defaults = ref.blockwise_attention.__kwdefaults__
+    saved = dict(defaults), (ops.TRAIN_Q_BLOCK, ops.TRAIN_KV_BLOCK)
+    big = 1 << 30
+    defaults.update(q_block=big, kv_block=big)
+    ops.TRAIN_Q_BLOCK = ops.TRAIN_KV_BLOCK = big
+    try:
+        yield
+    finally:
+        defaults.clear()
+        defaults.update(saved[0])
+        ops.TRAIN_Q_BLOCK, ops.TRAIN_KV_BLOCK = saved[1]
+
+
+def _n_micro(variant: str, batch: int) -> int:
+    """The train step's microbatches (``steps.value_and_grad``'s rule)."""
+    n = 8 if "micro8" in ST.variant_tokens(variant) else 4
+    return n if batch % n == 0 and batch >= n else 1
+
+
+def count_flops(cfg, case, variant: str = "baseline") -> int:
+    """The operations of ``case``'s step (its batch and seq_len as given)
+    on the plain path (FlopCounterMode), on the meta device: nothing is
+    allocated or run. A decode step runs at context seq_len - 1 (a cross
+    layer's cache holds its n_vision_tokens, so its read counts those). A
+    train step is its microbatches' ``value_and_grad`` (the clip and the
+    optimizer update are elementwise: no operations the counter counts),
+    so one microbatch is counted, n_micro times: the trainable attention
+    skips the blocks its mask removes, so it is counted at its own blocks,
+    and a full step takes minutes of meta ops."""
+    if case.kind == "train":
+        nm = _n_micro(variant, case.global_batch)
+        micro = dataclasses.replace(case,
+                                    global_batch=case.global_batch // nm)
+        _, kwargs, _ = ST.build_cell(cfg, micro, "meta", variant)
+        with FlopCounterMode(display=False) as counter:
+            ST.value_and_grad(cfg, kwargs["params"], kwargs["batch"],
+                              impl="plain")
+        return nm * int(counter.get_total_flops())
+    fn, kwargs, _ = ST.build_cell(cfg, case, "meta", variant, impl="plain")
+    if case.kind == "decode":
+        kwargs["tokens"] = decode_tokens(cfg, case.global_batch).to("meta")
+        kwargs["lengths"] = torch.full((case.global_batch,),
+                                       case.seq_len - 1, dtype=torch.int64,
+                                       device="meta")
+    with _whole_blocks(), FlopCounterMode(display=False) as counter:
+        fn(*kwargs.values())
     return int(counter.get_total_flops())
+
+
+def materialize(cfg, case, kwargs: dict, model: T.Transformer, dev,
+                generator: torch.Generator) -> list:
+    """The inputs of ``case``'s cell (``kwargs`` from ``build_cell``) on
+    ``dev`` in ``fn``'s order: "params" is ``model``; the optimizer state
+    ``OPT.init`` of its parameters; tokens and labels random ints below the
+    vocabulary; vision embeddings N(0, 1); a decode cache zeros at the
+    case's batch and seq_len, its lengths seq_len - 1 on the host (as the
+    engine passes them: bounds-checked there), in the abstract dtypes."""
+    def ints(t):
+        return torch.randint(0, cfg.vocab_size, t.shape, generator=generator,
+                             dtype=torch.int64).to(dev, t.dtype)
+
+    out = []
+    for name, v in kwargs.items():
+        if name == "params":
+            out.append(model)
+        elif name == "opt_state":
+            out.append(OPT.init(dict(model.named_parameters()),
+                                cfg.optimizer))
+        elif name == "batch":
+            out.append({k: (torch.randn(t.shape, generator=generator)
+                            .to(dev, t.dtype) if t.is_floating_point()
+                            else ints(t)) for k, t in v.items()})
+        elif name == "cache":
+            out.append(T.init_cache(cfg, case.global_batch, case.seq_len,
+                                    device=dev))
+        elif name == "tokens":
+            out.append(ints(v))
+        else:                                           # lengths
+            out.append(torch.full(v.shape, case.seq_len - 1, dtype=v.dtype))
+    return out
 
 
 def _card() -> str:
@@ -132,16 +276,19 @@ def _card() -> str:
         check=True).stdout.strip()
 
 
-def _device_time(step, n: int):
+def _device_time(step, n: int, host_activity: bool = True):
     """(device ms per step, the five kernels that take most of it as
     [name, ms per step, launches per step]) under torch.profiler, every
     CUDA kernel's self time; a session that saw no device time is retried
-    twice."""
+    twice. ``host_activity`` False traces the device only (a train step's
+    ~100k host ops would take minutes to read)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA]
+    if host_activity:
+        acts.insert(0, ProfilerActivity.CPU)
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             for _ in range(n):
                 step()
             torch.cuda.synchronize()
@@ -156,58 +303,140 @@ def _device_time(step, n: int):
     return "not measured: three profiler sessions saw no device time", []
 
 
+def _budget(dev) -> tuple[int, int, float]:
+    """(free, total, the bytes a cell may take: free less the reserve)."""
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    return free, total, free - DEFAULT_ENGINE.activation_reserve * total
+
+
+def _cut(rec: dict, what: str, full, now, why: str) -> None:
+    if full != now:
+        rec["reduced"][what] = [full, now]
+        rec["reduced_why"][what] = why
+
+
 def run_cell(arch: str, shape: str, out_dir: Path = DEFAULT_OUT, *,
              device="cuda", reduced: bool = False,
-             seq_len: Optional[int] = None) -> dict:
-    """Decode ``arch`` at ``shape`` on one device and write its record.
-    ``seq_len`` overrides the case's context length (a CPU run's cut)."""
+             seq_len: Optional[int] = None,
+             variant: str = "baseline") -> dict:
+    """Run ``arch``'s step at ``shape`` on one device and write its record.
+    ``seq_len`` overrides the case's length (a CPU run's cut); ``variant``
+    as ``steps.apply_variant_config`` (a decode record adds
+    ``cacheappend``)."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
     case = get_shape(shape)
-    if case.kind == "train":
-        raise NotImplementedError(
-            f"{shape}: the one-card record is of the decode step only; a "
-            "train record is ROADMAP A9, and no record may say that a "
-            "training step ran")
-    if case.kind != "decode":
-        raise NotImplementedError(f"{shape}: only decode records are "
-                                  "ported")
+    if case.kind == "decode":
+        variant = "+".join(sorted(ST.variant_tokens(variant)
+                                  | {DECODE_VARIANT}))
+    cfg = ST.apply_variant_config(cfg, variant)   # sharding variants raise
     dev = T.resolve_device(device)
     S = case.seq_len if seq_len is None else seq_len
     rec = {
-        "arch": arch, "shape": shape, "mesh": MESH, "kind": case.kind,
-        "seq_len": S, "global_batch": case.global_batch,
+        "arch": arch, "shape": shape, "mesh": MESH, "variant": variant,
+        "kind": case.kind, "seq_len": S, "global_batch": case.global_batch,
         "n_params": cfg.param_count(),
         "n_params_active": cfg.active_param_count(),
         "ok": False, "devices": 1, "device": str(dev),
-        "config": cfg.name, "decode_mode": "append", "reduced": {},
+        "config": cfg.name, "reduced": {}, "reduced_why": {},
     }
-    if S != case.seq_len:
-        rec["reduced"]["seq_len"] = [case.seq_len, S]
+    if case.kind == "decode":
+        rec["decode_mode"] = "append"
+    _cut(rec, "seq_len", case.seq_len, S, "seq_len override (--seq-len)")
     ok, reason = applicable(cfg, case)
     if not ok:
         rec["skipped"] = reason
         _write(out_dir, rec)
         return rec
+    weights = _weight_bytes(cfg)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)    # peak_mem_gb: this cell's
+        free, total, budget = _budget(dev)
+        if weights > budget:
+            return _not_fitting(out_dir, rec, (
+                f"the weights ({weights} bytes) do not fit one card "
+                f"({free} bytes free of {total}, 8% kept in reserve)"))
     model = T.Transformer(cfg, device=dev, generator=torch.Generator(
         device=dev).manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED)
+    if case.kind == "decode":
+        return _decode(rec, cfg, case, S, model, dev, gen, variant, out_dir)
+    if case.kind == "prefill":
+        return _prefill(rec, cfg, case, S, model, dev, gen, variant, out_dir)
+    return _train(rec, cfg, case, S, model, dev, gen, variant, out_dir)
+
+
+def _not_fitting(out_dir: Path, rec: dict, why: str) -> dict:
+    rec["not_fitting"] = why
+    _write(out_dir, rec)
+    return rec
+
+
+def _cell(cfg, case, variant: str, model, dev, gen):
+    """(fn, its inputs on ``dev``) of ``case``'s cell, ``model`` its
+    params."""
+    fn, kwargs, _ = ST.build_cell(cfg, case, "meta", variant)
+    return fn, materialize(cfg, case, kwargs, model, dev, gen)
+
+
+def _measure(rec: dict, dev, step, timed: int, warmup: int, profiled: int,
+             host_activity: bool = True) -> None:
+    """step_ms (the median of ``timed`` CUDA-event steps after ``warmup``),
+    device_busy_ms over ``profiled`` steps, the peak memory and the card;
+    on the CPU, says that nothing was measured."""
+    if dev.type != "cuda":
+        rec["not_measured"] = ("step_ms, device_busy_ms, card: a CPU run "
+                               "measures no device")
+        return
+    for _ in range(warmup):
+        step()
+    times = []
+    for _ in range(timed):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        step()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    rec["step_ms"] = statistics.median(times)
+    rec["step_ms_all"] = times
+    rec["device_busy_ms"], rec["device_top_kernels"] = _device_time(
+        step, profiled, host_activity)
+    rec["card"] = _card()
+    rec["device_name"] = torch.cuda.get_device_name(dev)
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def _finite(arch, shape, logits, want, vocab: int) -> None:
+    """Raise unless ``logits`` has shape ``want`` and its first ``vocab``
+    columns are finite, checked 4096 rows at a time: a 32k prefill's
+    logits are tens of GB, and a mask of them would not fit beside them."""
+    rows = logits.reshape(-1, logits.shape[-1]) \
+        if tuple(logits.shape) == want else None
+    if rows is None or not all(bool(torch.isfinite(c[:, :vocab]).all())
+                               for c in rows.split(4096)):
+        raise AssertionError(f"{arch} at {shape}: logits of shape "
+                             f"{tuple(logits.shape)} are not all finite")
+
+
+def _decode(rec, cfg, case, S, model, dev, gen, variant, out_dir) -> dict:
     batch = case.global_batch
     if dev.type == "cuda":
-        torch.cuda.empty_cache()
-        free, total = torch.cuda.mem_get_info(dev)
+        free, total, budget = _budget(dev)
         per_seq = _nbytes(T.init_cache(cfg, 1, S, device="meta"))
-        budget = free - DEFAULT_ENGINE.activation_reserve * total
         batch = min(batch, int(budget // max(per_seq, 1)))
         if batch < 1:
-            raise ValueError(f"{arch} at {shape}: one sequence's cache "
-                             f"({per_seq} bytes) does not fit beside the "
-                             f"weights ({free} bytes free of {total})")
-    if batch != case.global_batch:
-        rec["reduced"]["global_batch"] = [case.global_batch, batch]
+            return _not_fitting(out_dir, rec, (
+                f"one sequence's cache ({per_seq} bytes) does not fit "
+                f"beside the weights ({free} bytes free of {total})"))
+    _cut(rec, "global_batch", case.global_batch, batch,
+         "the largest batch whose decode cache fits beside the weights")
     rec["global_batch"] = batch
-
-    rec["flops"] = rec["flops_tc"] = count_flops(cfg, batch, S)
+    cut_case = dataclasses.replace(case, global_batch=batch, seq_len=S)
+    rec["flops"] = rec["flops_tc"] = count_flops(cfg, cut_case, variant)
     rec["flops_source"] = ("FlopCounterMode over decode_step(append=True, "
                            "impl='plain') on the meta device")
     traffic = step_traffic(cfg, model, batch, S)
@@ -215,48 +444,130 @@ def run_cell(arch: str, shape: str, out_dir: Path = DEFAULT_OUT, *,
     rec["bytes_by_part"] = traffic
     rec["bytes_source"] = BYTES_SOURCE
 
-    tokens = decode_tokens(cfg, batch,
-                           torch.Generator().manual_seed(SEED)).to(dev)
-    # lengths on the host, as the engine passes them: bounds-checked there
-    lengths = torch.full((batch,), S - 1, dtype=torch.int64)
-    cache = T.init_cache(cfg, batch, S, device=dev)
-
+    fn, args = _cell(cfg, cut_case, variant, model, dev, gen)
     steps = [0]
 
     def step():
         steps[0] += 1
-        return model.decode_step(cache, tokens, lengths, append=True)[0]
+        return fn(*args)[0]
 
-    logits = step()
     C = (cfg.n_codebooks,) if cfg.n_codebooks else ()
-    want = (batch,) + C + (T._padded_vocab(cfg),)
-    if tuple(logits.shape) != want or not bool(
-            torch.isfinite(logits[..., :cfg.vocab_size]).all()):
-        raise AssertionError(f"{arch} at {shape}: decode logits of shape "
-                             f"{tuple(logits.shape)} are not all finite")
-    if dev.type == "cuda":
-        for _ in range(WARMUP_STEPS):
-            step()
-        times = []
-        for _ in range(TIMED_STEPS):
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            step()
-            t1.record()
-            torch.cuda.synchronize()
-            times.append(t0.elapsed_time(t1))
-        rec["step_ms"] = statistics.median(times)
-        rec["step_ms_all"] = times
-        rec["device_busy_ms"], rec["device_top_kernels"] = _device_time(
-            step, PROFILED_STEPS)
-        rec["card"] = _card()
-        rec["device_name"] = torch.cuda.get_device_name(dev)
-        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    else:
-        rec["not_measured"] = ("step_ms, device_busy_ms, card: a CPU run "
-                               "measures no device")
+    _finite(rec["arch"], rec["shape"], step(),
+            (batch,) + C + (T._padded_vocab(cfg),), cfg.vocab_size)
+    _measure(rec, dev, step, TIMED_STEPS, WARMUP_STEPS, PROFILED_STEPS)
     rec["decode_steps"] = steps[0]
+    rec["ok"] = True
+    _write(out_dir, rec)
+    return rec
+
+
+def _prefill(rec, cfg, case, S, model, dev, gen, variant, out_dir) -> dict:
+    batch = case.global_batch
+    steps = [0]
+    if dev.type == "cuda":
+        # one sequence's peak above the weights: it sets the batch cut
+        fn, args = _cell(cfg, dataclasses.replace(
+            case, global_batch=1, seq_len=S), variant, model, dev, gen)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            steps[0] += 1
+            fn(*args)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            del args
+            return _not_fitting(out_dir, rec, (
+                f"a one-sequence prefill at {S} tokens does not fit beside "
+                f"the weights: {str(e).splitlines()[0]}"))
+        per_seq = torch.cuda.max_memory_allocated(dev) - base
+        del args
+        free, total, budget = _budget(dev)
+        batch = min(batch, max(1, int(budget // max(per_seq, 1))))
+        rec["bytes_one_sequence_peak"] = per_seq
+    _cut(rec, "global_batch", case.global_batch, batch,
+         "the largest batch whose prefill (its (B, S, V) logits and cache "
+         "included) fits beside the weights, at the peak memory one "
+         "sequence's prefill took")
+    rec["global_batch"] = batch
+    cut_case = dataclasses.replace(case, global_batch=batch, seq_len=S)
+    rec["flops"] = rec["flops_tc"] = count_flops(cfg, cut_case, variant)
+    rec["flops_source"] = ("FlopCounterMode over prefill(impl='plain') on "
+                           "the meta device")
+    traffic = prefill_traffic(cfg, model, batch, S)
+    rec["bytes_accessed"] = rec["bytes_tc"] = sum(traffic.values())
+    rec["bytes_by_part"] = traffic
+    rec["bytes_source"] = PREFILL_BYTES_SOURCE
+
+    fn, args = _cell(cfg, cut_case, variant, model, dev, gen)
+
+    def step():
+        steps[0] += 1
+        return fn(*args)
+
+    C = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    out = step()
+    _finite(rec["arch"], rec["shape"], out[0],
+            (batch, S) + C + (T._padded_vocab(cfg),), cfg.vocab_size)
+    del out
+    _measure(rec, dev, step, PREFILL_TIMED, 0, 1)
+    rec["prefill_steps"] = steps[0]
+    rec["ok"] = True
+    _write(out_dir, rec)
+    return rec
+
+
+def _train(rec, cfg, case, S, model, dev, gen, variant, out_dir) -> dict:
+    batch = min(case.global_batch, TRAIN_BATCH)
+    _cut(rec, "global_batch", case.global_batch, batch, TRAIN_CUT)
+    rec["global_batch"] = batch
+    n_micro = _n_micro(variant, batch)
+    grad_dtype = (torch.bfloat16 if "bf16grad" in ST.variant_tokens(variant)
+                  else torch.float32)
+    rec.update(optimizer=cfg.optimizer, n_micro=n_micro,
+               grad_dtype=str(grad_dtype).split(".")[-1], remat=cfg.remat)
+    if dev.type == "cuda":
+        params = dict(T.Transformer(cfg, device="meta").named_parameters())
+        state = _nbytes(OPT.init(params, cfg.optimizer)) + sum(
+            p.numel() for p in params.values()) * grad_dtype.itemsize
+        free, total, budget = _budget(dev)
+        if state > budget:
+            return _not_fitting(out_dir, rec, (
+                f"the optimizer state and gradients ({state} bytes) do not "
+                f"fit beside the weights ({free} bytes free of {total})"))
+    cut_case = dataclasses.replace(case, global_batch=batch, seq_len=S)
+    rec["flops"] = rec["flops_tc"] = count_flops(cfg, cut_case, variant)
+    rec["flops_source"] = ("FlopCounterMode over one microbatch's loss and "
+                           "gradients (forward, remat recompute, backward; "
+                           "impl='plain') on the meta device, times "
+                           "n_micro")
+    fn, args = _cell(cfg, cut_case, variant, model, dev, gen)
+    traffic = train_traffic(cfg, model, args[1], batch, S, n_micro,
+                            grad_dtype)
+    rec["bytes_accessed"] = rec["bytes_tc"] = sum(traffic.values())
+    rec["bytes_by_part"] = traffic
+    rec["bytes_source"] = TRAIN_BYTES_SOURCE
+    losses, ces = [], []
+
+    def step():
+        args[1], metrics = fn(*args)
+        losses.append(metrics["loss"])
+        ces.append(metrics["ce"])
+
+    try:
+        step()
+    except torch.cuda.OutOfMemoryError as e:
+        return _not_fitting(out_dir, rec, (
+            f"a train step of {batch} sequences of {S} tokens does not fit "
+            f"beside the weights and the optimizer state: "
+            f"{str(e).splitlines()[0]}"))
+    _measure(rec, dev, step, TRAIN_TIMED, 0, 1, host_activity=False)
+    rec["losses"] = [float(x) for x in losses]
+    rec["first_ce"] = float(ces[0])
+    rec["train_steps"] = len(losses)
+    if not all(torch.isfinite(torch.tensor(rec["losses"]))):
+        raise AssertionError(f"{rec['arch']} at {rec['shape']}: losses "
+                             f"{rec['losses']} are not all finite")
     rec["ok"] = True
     _write(out_dir, rec)
     return rec
@@ -270,29 +581,37 @@ def _write(out_dir: Path, rec: dict) -> None:
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description="one-card decode dry-run")
+    ap = argparse.ArgumentParser(description="one-card dry-run")
     ap.add_argument("--arch", default="qwen2-1.5b",
-                    help="architecture id, or a comma-separated list")
+                    help="architecture id, a comma-separated list, or 'all'")
     ap.add_argument("--shape", default="decode_32k",
-                    help="decode shape case, or a comma-separated list")
+                    help="shape case, a comma-separated list, or 'all'")
+    ap.add_argument("--variant", default="baseline")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reduced", action="store_true",
                     help="reduced configs (CPU sanity)")
     ap.add_argument("--seq-len", type=int, default=None,
-                    help="override the case's context length")
+                    help="override the case's length")
     ap.add_argument("--out", default=str(DEFAULT_OUT))
     args = ap.parse_args(argv)
-    for arch in args.arch.split(","):
-        for shape in args.shape.split(","):
+    archs = list_archs() if args.arch == "all" else args.arch.split(",")
+    shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
+    for arch in archs:
+        for shape in shapes:
             rec = run_cell(arch, shape, Path(args.out), device=args.device,
-                           reduced=args.reduced, seq_len=args.seq_len)
-            status = "SKIP" if "skipped" in rec else "OK"
+                           reduced=args.reduced, seq_len=args.seq_len,
+                           variant=args.variant)
+            status = ("SKIP" if "skipped" in rec else "NOFIT"
+                      if "not_fitting" in rec else "OK")
             print(f"[{status}] {arch} x {shape}: "
                   + json.dumps({k: rec[k] for k in (
                       "global_batch", "seq_len", "flops", "bytes_accessed",
-                      "step_ms", "device_busy_ms", "skipped", "reduced")
-                      if k in rec}))
-    sys.stdout.flush()
+                      "step_ms", "device_busy_ms", "skipped", "not_fitting",
+                      "reduced") if k in rec}))
+            if arch != archs[-1] or shape != shapes[-1]:
+                if torch.cuda.is_available():
+                    torch.cuda.empty_cache()
+            sys.stdout.flush()
 
 
 if __name__ == "__main__":

@@ -282,13 +282,24 @@ def test_run_cell_feeds_both_profilers_alike(qwen2_record):
 
 
 def test_run_cell_refuses_training_and_skips_like_reference(tmp_path):
-    with pytest.raises(NotImplementedError, match="decode step only.*A9"):
+    """A train record under a variant that only changes sharding (FSDP) is
+    refused before anything is written (one card has no mesh); long_500k
+    is skipped for a full-attention config as the reference skips it; the
+    baseline train record states the train step that ran."""
+    with pytest.raises(NotImplementedError, match="multi-card slice"):
         dryrun.run_cell("qwen2-1.5b", "train_4k", tmp_path, device="cpu",
-                        reduced=True)
+                        reduced=True, variant="fsdp")
+    assert not list(tmp_path.glob("*train_4k*"))
     rec = dryrun.run_cell("qwen2-1.5b", "long_500k", tmp_path,
                           device="cpu", reduced=True, seq_len=CPU_SEQ)
     cfg_j = jax_get_config("qwen2-1.5b").reduced()
     assert rec["ok"] is False
     assert rec["skipped"] == j_shapes.applicable(
         cfg_j, j_shapes.get_shape("long_500k"))[1]
-    assert not list(tmp_path.glob("*train_4k*"))
+    rec = dryrun.run_cell("qwen2-1.5b", "train_4k", tmp_path, device="cpu",
+                          reduced=True, seq_len=16)
+    assert rec["ok"] is True and rec["kind"] == "train"
+    assert rec["train_steps"] == len(rec["losses"]) == 1
+    assert (rec["optimizer"], rec["n_micro"]) == ("adamw", 4)
+    assert rec["reduced"]["global_batch"] == [256, dryrun.TRAIN_BATCH]
+    assert list(tmp_path.glob("qwen2-1.5b__train_4k__single_card.json"))

@@ -394,3 +394,40 @@ def test_cuda_append_decode_matches_plain(cuda_device, dtype):
             zero = ln == 0
             assert torch.equal(o[zero], vn[zero].repeat_interleave(
                 H // 2, dim=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_head_dim_112_matches_plain(cuda_device, dtype):
+    """Both attention kernels at kimi-k2's head dim (112, staged at 128 in
+    shared memory) vs their plain versions: its 64/8 heads, ragged Sq and
+    Skv, a window under one tile and one split, a softcap, lengths 0 and 1,
+    int64 and int32 lengths, committed and append-mode decode."""
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device).to(dtype)
+
+    for B, Sq, Skv, causal, window, cap in (
+            (1, 200, 200, True, None, None), (2, 129, 129, True, 24, 30.0),
+            (1, 100, 161, False, None, None)):
+        q, k, v = rnd(B, Sq, 64, 112), rnd(B, Skv, 8, 112), rnd(B, Skv, 8, 112)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        o = ops.flash_attention(q, k, v, **kw)
+        o_ref = ops.flash_attention(q, k, v, impl="plain", **kw)
+        assert _err(o.float().cpu(), o_ref.float().cpu()) < tol
+    for B, S, lens, window, cap in ((4, 300, [0, 1, 150, 300], None, None),
+                                    (4, 2048, [2048, 0, 1, 900], 50, 30.0)):
+        qd, kc, vc = rnd(B, 64, 112), rnd(B, S, 8, 112), rnd(B, S, 8, 112)
+        kn, vn = rnd(B, 8, 112), rnd(B, 8, 112)
+        for ldt in (torch.int64, torch.int32):
+            ln = torch.tensor(lens, dtype=ldt, device=cuda_device)
+            for kw in (dict(), dict(k_new=kn, v_new=vn)):
+                kw.update(window=window, softcap=cap)
+                if kw.get("k_new") is not None:
+                    ln = ln.clamp(max=S - 1)
+                o = ops.decode_attention(qd, kc, vc, ln, **kw)
+                o_ref = ops.decode_attention(qd, kc, vc, ln, impl="plain",
+                                             **kw)
+                assert _err(o.float().cpu(), o_ref.float().cpu()) < tol
