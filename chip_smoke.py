@@ -162,6 +162,44 @@ Phases, each of which raises on failure (nothing is caught):
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Without CUDA, or without the
 repository beside it, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --cards 4
+
+is the tensor-parallel mode on four cards of one host (the default run
+above is unchanged). It exits non-zero when fewer than 4 cards are
+visible, builds the kernels once, then starts one process a card
+(`torch.multiprocessing` spawn, NCCL, a 300 s process-group timeout so a
+hung rank fails the run; any rank's failure fails it). On a (data 1,
+model 4) mesh, under the reference's sharding rules:
+  kernels tp  — (card 0) the decode kernel's partial mode (`start`, the
+               (m, l, o) partials) against its plain version, and the
+               merge of 4 partials by the combine pass against the
+               one-call kernel over the whole cache: qwen2's and gemma2's
+               heads at Dh 128, start > 0, windows across shard edges,
+               empty shards, the new token merged on its owner card only,
+               committed and append, fp32 2e-5 and bf16 2e-2; a kv-head
+               view of a replicated cache; timings at the four-card shapes.
+  path tp     — prefill and 4 teacher-forced decode steps (append and
+               committed) on the mesh against the same weights on card 0
+               without a mesh: qwen2-1.5b at full size (cache by
+               sequence), gemma2-27b at full width on its first 2 layers
+               (by kv heads at B 4, by sequence at B 1 with the window
+               across a shard edge); fp32 within PATH_TOL_FP32 and argmax
+               equal, bf16 reported; launches exact on every rank.
+  serving tp  — phase 3's 8 requests through ServingEngine on the mesh,
+               qwen2 and gemma2 at full size: bf16 (tokens equal on every
+               rank; TTFT, TPOT, busy, NCCL and idle time a decode step by
+               rank) and fp32 compute over the bf16 weights (tokens equal
+               to the one-card engine's on card 0).
+  dryrun tp   — four-card records: qwen2 decode_32k (batch 128 uncut),
+               gemma2 decode_32k, gemma2 long_500k and qwen2 prefill_32k;
+               ok, 4 devices, collectives equal to the formula, launches
+               exact.
+  profile tp  — each decode record's H100x4 MaxTput row beside the analytic
+               H100x4 and H100 rows, the engine model's step beside the
+               measured one.
+It ends with a {"kernels": [...]} line, the cards' names and power limits,
+and the same last line with "count": 4.
 """
 from __future__ import annotations
 
@@ -169,6 +207,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -2855,5 +2894,807 @@ def main() -> int:
     return 0
 
 
+# ===========================================================================
+# chip_smoke.py --cards 4: the tensor-parallel serving path on four cards
+# ===========================================================================
+TP_TIMEOUT_S = 300      # process-group timeout: a hung rank fails the run
+# path tp: gemma2-27b at full width on its first 2 layers (one local and
+# one global layer, embedding and head: ~14 GB in fp32)
+TP_PATH = (("qwen2-1.5b", None, 4, 2048, (700, 1100, 300, 1535)),
+           ("gemma2-27b", 2, 4, 2048, (700, 1100, 300, 1535)),
+           ("gemma2-27b", 2, 1, 16384, (9000,)))
+TP_PATH_STEPS = 4
+TP_PREFILL_ROWS = 64    # the last prefill positions compared
+# the fp32-compute engines' max_seq: gemma2's one-card engine (56.8 GB of
+# bf16 weights and a fp32 cache) fits card 0 at 1088, not at 2048
+TP_SERVE_SEQ_FP32 = 1088
+TP_RECORDS = (("qwen2-1.5b", "decode_32k"), ("gemma2-27b", "decode_32k"),
+              ("gemma2-27b", "long_500k"), ("qwen2-1.5b", "prefill_32k"))
+TP_TRACE_STEPS = 5
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def cards_main(n: int) -> int:
+    """The four-card mode (module docstring of the four-card phases): builds
+    the kernels, starts one process per card, and prints the kernels line
+    and the last line from rank 0's results."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    if torch.cuda.device_count() < n:
+        print(f"chip_smoke --cards {n}: {torch.cuda.device_count()} cards "
+              "visible", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+    print(f"cards: {smi()}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    _, build_s, log = _build.timed_load()
+    print(f"build: {build_s:.3f} s -> {_build.library_path()}")
+    # the ranks inherit it: a 32k prefill's transients (37 GB of logits at
+    # batch 16 a card) fragment the default allocator's fixed segments
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    out = ROOT / "results" / "chip_smoke_tp.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    if out.exists():
+        out.unlink()
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(_tp_rank, args=(n, _free_port(), str(out)),
+                                nprocs=n, join=True)
+    res = json.loads(out.read_text())
+    print(f"ranks: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": res["kernels"]}))
+    print(smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _tp_rank(rank: int, n: int, port: int, out: str) -> None:
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    torch.cuda.set_device(rank)
+    # the host's cores shared by the cards' processes
+    torch.set_num_threads(max(1, (os.cpu_count() or n) // n))
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=n, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run = _TPRun(torch, dist, rank, make_mesh(n))
+    res = run.main()
+    if rank == 0:
+        Path(out).write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+class _TPRun:
+    """One rank of the four-card mode. Rank 0 prints; every gate raises."""
+
+    def __init__(self, torch, dist, rank, mesh):
+        from repro_torch.kernels import decode_attention as da
+        from repro_torch.kernels import flash_attention as fa
+        self.torch, self.dist, self.rank, self.mesh = torch, dist, rank, mesh
+        self.n = mesh.size()
+        self.dev = torch.device("cuda", rank)
+        self.da, self.fa = da, fa
+        self.gen = torch.Generator(device=self.dev).manual_seed(rank)
+        self.launches_by_path = {}
+        self.t_start = time.perf_counter()
+
+    # -- helpers ------------------------------------------------------------
+    def say(self, line: str) -> None:
+        if self.rank == 0:
+            print(line, flush=True)
+
+    def all(self, obj) -> list:
+        out = [None] * self.n
+        self.dist.all_gather_object(out, obj)
+        return out
+
+    def free(self) -> None:
+        gc.collect()
+        self.torch.cuda.empty_cache()
+
+    def zero(self) -> None:
+        self.fa.launches = self.da.launches = self.da.merge_launches = 0
+
+    def read(self) -> dict:
+        return {"flash_attention": self.fa.launches,
+                "decode_attention": self.da.launches,
+                "decode_merge": self.da.merge_launches}
+
+    def expect(self, what, cfg, prefills, decodes, seq_sharded) -> dict:
+        """This rank's launches against the layer counts, equal on every
+        rank; kept under ``what`` for the kernels line."""
+        attn = sum(spec.kind == "attn" for spec in cfg.layer_specs())
+        want = {"flash_attention": attn * prefills,
+                "decode_attention": attn * decodes,
+                "decode_merge": attn * decodes if seq_sharded else 0}
+        got = self.read()
+        every = self.all(got)
+        if any(g != want for g in every):
+            raise AssertionError(f"{what}: launches by rank {every}, "
+                                 f"expected {want}")
+        self.launches_by_path[what] = got
+        return got
+
+    def rnd(self, shape, dtype):
+        return self.torch.randn(shape, generator=self.gen,
+                                device=self.dev).to(dtype)
+
+    def err(self, a, b) -> float:
+        return float((a.float() - b.float()).abs().max())
+
+    def time_ms(self, fn, args_sets, iters=20) -> float:
+        torch = self.torch
+        for i in range(3):
+            fn(*args_sets[i % len(args_sets)])
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for i in range(iters):
+            fn(*args_sets[i % len(args_sets)])
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / iters
+
+    def device_ms(self, fn, args_sets, iters=20):
+        """Device ms per call (every kernel's self time under torch.profiler;
+        CUDA events where three sessions saw no device time)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        for i in range(3):
+            fn(*args_sets[i % len(args_sets)])
+        self.torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for i in range(iters):
+                    fn(*args_sets[i % len(args_sets)])
+                self.torch.cuda.synchronize()
+            total = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA)
+            if total > 0:
+                return total / 1e3 / iters
+        return self.time_ms(fn, args_sets, iters)
+
+    def build(self, cfg, mesh=None, rules=None):
+        from repro_torch.models import transformer as T
+        torch = self.torch
+        t0 = time.perf_counter()
+        model = T.Transformer(
+            cfg, device=self.dev, mesh=mesh, rules=rules,
+            generator=torch.Generator(device=self.dev).manual_seed(0))
+        torch.cuda.synchronize()
+        self.say(f"model: {cfg.name} {cfg.n_layers} layers {cfg.dtype} "
+                 f"(weights {cfg.param_dtype}) "
+                 f"{'mesh' if mesh is not None else 'one card'}, "
+                 f"{sum(p.numel() for p in model.parameters())} params on "
+                 f"rank 0, init {time.perf_counter() - t0:.1f} s")
+        return model
+
+    def memory(self, where: str) -> None:
+        """Each card's free memory beside what this process's caching
+        allocator holds (GB), on a `mem:` line."""
+        torch = self.torch
+        self.free()
+        free, total = torch.cuda.mem_get_info(self.dev)
+        every = self.all([round(x / 1e9, 3) for x in (
+            free, total, torch.cuda.memory_reserved(self.dev),
+            torch.cuda.memory_allocated(self.dev))])
+        self.say(f"mem: {where}: [free, total, reserved, allocated] GB by "
+                 f"rank {every}")
+
+    def warm_profiler(self) -> None:
+        """One short profiler session on every card: CUPTI's first start
+        takes seconds, which a card waiting in NCCL would count."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            self.torch.ones(1, device=self.dev).sum().item()
+        self.dist.barrier()
+
+    # -- phases -------------------------------------------------------------
+    def main(self) -> dict:
+        self.warm_profiler()
+        self.memory("start")
+        t = time.perf_counter()
+        rows = self.kernels_tp() if self.rank == 0 else None
+        self.dist.barrier()
+        self.say(f"phase kernels tp: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        self.path_tp()
+        self.say(f"phase path tp: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        self.serving_tp()
+        self.say(f"phase serving tp: {time.perf_counter() - t:.1f} s")
+        self.memory("before the records")
+        t = time.perf_counter()
+        records = self.dryrun_tp()
+        self.say(f"phase dryrun tp: {time.perf_counter() - t:.1f} s")
+        if self.rank != 0:
+            return {}
+        self.profile_tp(records)
+        for row in rows:
+            row["launches_by_path"] = {
+                path: counts[row["counter"]]
+                for path, counts in self.launches_by_path.items()}
+            row["launches"] = sum(row["launches_by_path"].values())
+            if not row["launches"]:
+                raise AssertionError(f"{row['name']} was never launched on "
+                                     "the four-card paths")
+        self.say(f"four-card phases: {time.perf_counter() - self.t_start:.1f}"
+                 " s")
+        return {"kernels": rows}
+
+    def kernels_tp(self) -> list:
+        """The decode kernel's partial mode against its plain version, the
+        merge of 4 partials against the one-call kernel, a kv-head view of
+        a replicated cache; then the kernels line's timings at the
+        four-card shapes."""
+        torch, da = self.torch, self.da
+        from repro_torch.kernels import ops, ref
+        f32, bf16 = torch.float32, torch.bfloat16
+        R = self.n
+        cases = [  # name, B, S (all cards), H, KVH, window, softcap, lengths
+            ("qwen2 heads, rows over 4 cards", 8, 2048, 12, 2, None, None,
+             (0, 1, 511, 512, 513, 1024, 1535, 2047)),
+            ("gemma2 local layer, window across shard edges", 8, 16384, 32,
+             16, 4096, 50.0, (100, 4095, 4097, 6000, 8191, 8192, 12000,
+                              16383)),
+            ("gemma2 global layer", 4, 16384, 32, 16, None, 50.0,
+             (1, 4096, 9000, 16383)),
+        ]
+        errs = {}
+        n_calls = n_merges = 0
+        self.zero()
+        for name, B, S, H, KVH, window, softcap, lens in cases:
+            Dh, Sl = 128, S // R
+            for dtype in (f32, bf16):
+                tol = TOL[str(dtype).split(".")[-1]]
+                q = self.rnd((B, H, Dh), dtype)
+                kc, vc = self.rnd((B, S, KVH, Dh), dtype), \
+                    self.rnd((B, S, KVH, Dh), dtype)
+                kn, vn = self.rnd((B, KVH, Dh), dtype), \
+                    self.rnd((B, KVH, Dh), dtype)
+                lengths = torch.tensor(lens, device=self.dev)
+                for mode in ("committed", "append"):
+                    news = {"k_new": kn, "v_new": vn} if mode == "append" \
+                        else {}
+                    ln = lengths if mode == "append" else \
+                        torch.clamp(lengths, min=1)
+                    parts = []
+                    worst = {"m": 0.0, "l_rel": 0.0, "o": 0.0}
+                    for r in range(R):
+                        rows = slice(r * Sl, (r + 1) * Sl)
+                        args = (q, kc[:, rows], vc[:, rows], ln)
+                        kw = dict(window=window, softcap=softcap,
+                                  start=r * Sl, partial=True, **news)
+                        got = da.decode_attention(*args, **kw)
+                        n_calls += 1
+                        want = ref.decode_attention_direct(*args, **kw)
+                        empty = want[..., 0] <= -1e29
+                        if not torch.equal(empty, got[..., 0] <= -1e29):
+                            raise AssertionError(f"kernels tp {name}: empty "
+                                                 f"partials differ")
+                        full = ~empty
+                        if full.any():
+                            worst["m"] = max(worst["m"], self.err(
+                                got[..., 0][full], want[..., 0][full]))
+                            worst["l_rel"] = max(worst["l_rel"], float(
+                                ((got[..., 1] - want[..., 1]).abs()
+                                 / want[..., 1].clamp(min=1e-30))[full]
+                                .max()))
+                            worst["o"] = max(worst["o"], self.err(
+                                (got[..., 2:] / got[..., 1:2])[full],
+                                (want[..., 2:] / want[..., 1:2])[full]))
+                        parts.append(got)
+                    merged = da.merge(torch.stack(parts), dtype)
+                    n_merges += 1
+                    one = da.decode_attention(q, kc, vc, ln, window=window,
+                                              softcap=softcap, **news)
+                    n_calls += 1
+                    plain = ops.decode_attention(q, kc, vc, ln,
+                                                 window=window,
+                                                 softcap=softcap,
+                                                 impl="plain", **news)
+                    worst["merge_vs_one_call"] = self.err(merged, one)
+                    worst["merge_vs_plain"] = self.err(merged, plain)
+                    key = f"{name} {str(dtype)[6:]} {mode}"
+                    errs[key] = worst
+                    if not all(v <= tol for v in worst.values()):
+                        raise AssertionError(f"kernels tp {key}: {worst} "
+                                             f"(tol {tol})")
+                del q, kc, vc, kn, vn
+        # a replicated cache read through a view of the kv head a card's 3
+        # query heads map to (qwen2: 12 / 2 heads over 4 cards)
+        for dtype in (f32, bf16):
+            tol = TOL[str(dtype).split(".")[-1]]
+            kc, vc = self.rnd((8, 2048, 2, 128), dtype), \
+                self.rnd((8, 2048, 2, 128), dtype)
+            q = self.rnd((8, 3, 128), dtype)
+            kn, vn = self.rnd((8, 1, 128), dtype), self.rnd((8, 1, 128),
+                                                            dtype)
+            ln = torch.tensor((1, 7, 300, 1024, 1500, 2000, 2046, 512),
+                              device=self.dev)
+            got = da.decode_attention(q, kc[:, :, 1:2], vc[:, :, 1:2], ln,
+                                      k_new=kn, v_new=vn)
+            n_calls += 1
+            want = ref.decode_attention_direct(
+                q, kc[:, :, 1:2].contiguous(), vc[:, :, 1:2].contiguous(),
+                ln, k_new=kn, v_new=vn)
+            e = self.err(got, want)
+            errs[f"kv-head view {str(dtype)[6:]} append"] = {"o": e}
+            if not e <= tol:
+                raise AssertionError(f"kernels tp kv-head view: {e}")
+        launched = (da.launches, da.merge_launches)
+        if launched != (n_calls, n_merges):
+            raise AssertionError(f"kernels tp: launches {launched}, calls "
+                                 f"{(n_calls, n_merges)}")
+        self.say("kernels tp: " + json.dumps(errs))
+        self.free()
+        return self.kernel_rows(errs)
+
+    def kernel_rows(self, errs) -> list:
+        """The kernels line's rows at the four-card shapes: the decode
+        kernel's partial mode at qwen2's decode_32k shard (B=128, 8192 of
+        the 32768 rows, 12 / 2 heads), the merge of its 4 partials, and
+        the flash kernel at qwen2's per-card prefill (3 query heads, 1 kv
+        head, S=1024)."""
+        torch, da = self.torch, self.da
+        from repro_torch.kernels import ops, ref
+        bf16 = torch.bfloat16
+        B, Sl, H, KVH, Dh, R = 128, 8192, 12, 2, 128, self.n
+        start, length = Sl * (R - 1), Sl * R - 1
+        sets = [(self.rnd((B, H, Dh), bf16), self.rnd((B, Sl, KVH, Dh), bf16),
+                 self.rnd((B, Sl, KVH, Dh), bf16),
+                 torch.full((B,), length, device=self.dev),
+                 self.rnd((B, KVH, Dh), bf16), self.rnd((B, KVH, Dh), bf16))
+                for _ in range(2)]
+
+        def partial(q, kc, vc, ln, kn, vn, impl="cuda"):
+            return ops.decode_attention(q, kc, vc, ln, k_new=kn, v_new=vn,
+                                        start=start, partial=True, impl=impl)
+
+        got = partial(*sets[0])
+        want = partial(*sets[0], impl="plain")
+        p_err = self.err(got[..., 2:] / got[..., 1:2],
+                         want[..., 2:] / want[..., 1:2])
+        p_bytes = 2 * B * Sl * KVH * Dh * 2 + B * H * Dh * 2 \
+            + 2 * B * KVH * Dh * 2 + B * 8 + B * H * (Dh + 2) * 4
+        p_flops = 4 * B * (Sl + 1) * H * Dh
+        p_bound = {"bytes": p_bytes / PEAK_BYTES * 1e3,
+                   "operations": p_flops / PEAK_BF16_FLOPS * 1e3}
+        decode_row = {
+            "name": "decode_attention", "counter": "decode_attention",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:76",
+            "shape": f"partial mode, one card of 4: B={B} S={Sl} of "
+                     f"{Sl * R} (start {start}) H={H} KVH={KVH} Dh={Dh} "
+                     "bf16 append, lengths all "
+                     f"{length}",
+            "max_abs_err": max(max(v.values()) for v in errs.values()),
+            "partial_err_at_shape": p_err, "tol": TOL["bfloat16"],
+            "errors": errs,
+            "ms": self.device_ms(partial, sets),
+            "call_ms": self.time_ms(partial, sets),
+            "plain_ms": self.time_ms(lambda *a: partial(*a, impl="plain"),
+                                     sets, iters=3),
+            "bound_ms": max(p_bound.values()),
+            "bound_by": max(p_bound, key=p_bound.get),
+            "library_ms": None,
+            "library": "none: no one PyTorch call gives a softmax's "
+                       "unnormalised partials",
+            "flops": p_flops, "bytes": p_bytes}
+        parts = [(torch.stack([partial(*sets[0])] * R),)]
+        m_bytes = R * B * H * (Dh + 2) * 4 + B * H * Dh * 2
+        merged = da.merge(parts[0][0], bf16)
+        m_err = self.err(merged, ref.decode_merge(parts[0][0], bf16))
+        merge_row = {
+            "name": "decode_attention.merge", "counter": "decode_merge",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:76",
+            "shape": f"R={R} partials (R, B={B}, H={H}, Dh+2) fp32 -> "
+                     f"(B, H, Dh) bf16 (the combine pass)",
+            "max_abs_err": m_err, "tol": TOL["bfloat16"],
+            "ms": self.device_ms(lambda p: da.merge(p, bf16), parts),
+            "call_ms": self.time_ms(lambda p: da.merge(p, bf16), parts),
+            "plain_ms": self.time_ms(lambda p: ref.decode_merge(p, bf16),
+                                     parts),
+            "bound_ms": m_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "library_ms": None,
+            "library": "none: no one PyTorch call merges softmax partials",
+            "bytes": m_bytes}
+        del sets, parts
+        self.free()
+        # flash at qwen2's per-card prefill: 3 query heads on 1 kv head
+        S, Hq, Hk = 1024, 3, 1
+        fsets = [(self.rnd((1, S, Hq, Dh), bf16), self.rnd((1, S, Hk, Dh),
+                                                          bf16),
+                  self.rnd((1, S, Hk, Dh), bf16)) for _ in range(4)]
+        f_err = self.err(ops.flash_attention(*fsets[0], impl="cuda"),
+                         ops.flash_attention(*fsets[0], impl="plain"))
+        g_err = 0.0      # gemma2's per-card heads, window and softcap
+        gq, gk, gv = self.rnd((1, S, 8, Dh), bf16), \
+            self.rnd((1, S, 4, Dh), bf16), self.rnd((1, S, 4, Dh), bf16)
+        for window in (None, 300):
+            g_err = max(g_err, self.err(
+                ops.flash_attention(gq, gk, gv, window=window, softcap=50.0,
+                                    impl="cuda"),
+                ops.flash_attention(gq, gk, gv, window=window, softcap=50.0,
+                                    impl="plain")))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_sets = [(a.transpose(1, 2), b.repeat_interleave(Hq, 2)
+                     .transpose(1, 2).contiguous(),
+                     c.repeat_interleave(Hq, 2).transpose(1, 2).contiguous())
+                    for a, b, c in fsets]
+        pairs = S * (S + 1) // 2
+        f_flops = 4 * Hq * Dh * pairs
+        f_bytes = 2 * (2 * S * Hq * Dh + 2 * S * Hk * Dh)
+        f_bound = {"operations": f_flops / PEAK_BF16_FLOPS * 1e3,
+                   "bytes": f_bytes / PEAK_BYTES * 1e3}
+        flash_row = {
+            "name": "flash_attention", "counter": "flash_attention",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:92",
+            "shape": f"one card of 4: B=1 Sq=Skv={S} H={Hq} KVH={Hk} "
+                     f"Dh={Dh} bf16 causal (qwen2's heads / 4)",
+            "max_abs_err": max(f_err, g_err), "tol": TOL["bfloat16"],
+            "gemma2_card_err": g_err,
+            "ms": self.device_ms(lambda *a: ops.flash_attention(
+                *a, impl="cuda"), fsets),
+            "plain_ms": self.time_ms(lambda *a: ops.flash_attention(
+                *a, impl="plain"), fsets, iters=5),
+            "library_ms": self.time_ms(lambda a, b, c: sdpa(
+                a, b, c, is_causal=True), lib_sets),
+            "bound_ms": max(f_bound.values()),
+            "bound_by": max(f_bound, key=f_bound.get),
+            "flops": f_flops, "bytes": f_bytes}
+        for row in (decode_row, merge_row, flash_row):
+            if not row["max_abs_err"] <= row["tol"]:
+                raise AssertionError(f"kernels tp {row['name']}: "
+                                     f"{row['max_abs_err']}")
+        self.say("kernels tp timing: " + json.dumps(
+            {r["name"]: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "library_ms")}
+             for r in (decode_row, merge_row, flash_row)}))
+        del fsets, lib_sets, gq, gk, gv
+        self.free()
+        return [flash_row, decode_row, merge_row]
+
+    def path_tp(self) -> None:
+        """Prefill and teacher-forced decode (append and committed) on the
+        mesh against the same weights on card 0 without a mesh: fp32
+        gated (1e-3, argmax equal), bf16 reported; launches exact."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.configs.shapes import ShapeCase
+        from repro_torch.launch import steps as ST
+        from repro_torch.models import transformer as T
+        for arch, layers, B, max_seq, lens in TP_PATH:
+            base = get_config(arch)
+            if layers:
+                base = cut(base, layers)
+            for dtype in ("float32", "bfloat16"):
+                cfg = dataclasses.replace(base, dtype=dtype, param_dtype=dtype)
+                rules = ST.rules_for(cfg, ShapeCase("path", "decode",
+                                                    max_seq, B), self.mesh)
+                rng = np.random.default_rng(0)
+                tokens = rng.integers(0, cfg.vocab_size, size=(B, max(lens)))
+                steps = rng.integers(0, cfg.vocab_size,
+                                     size=(TP_PATH_STEPS, B))
+                model = self.build(cfg, self.mesh, rules)
+                self.zero()
+                mesh_out = self._path_run(cfg, model, tokens, steps, lens,
+                                          max_seq)
+                _, _, seq, kv, _ = T.init_cache(
+                    cfg, B, max_seq, device="meta",
+                    mesh=model.layout).spec(cfg)
+                sharded = model.layout.size(seq) > 1
+                layout = ("by sequence" if sharded else "by kv heads"
+                          if model.layout.size(kv) > 1 else "replicated")
+                what = (f"{cfg.name} B={B} max_seq={max_seq} {dtype} path "
+                        f"tp")
+                self.expect(what, cfg, B, 2 * TP_PATH_STEPS, sharded)
+                del model
+                self.free()
+                if self.rank == 0:
+                    one = self.build(cfg)
+                    ref_out = self._path_run(cfg, one, tokens, steps, lens,
+                                             max_seq)
+                    del one
+                    self.free()
+                    diffs = {k: self.err(mesh_out[k], ref_out[k])
+                             for k in ref_out}
+                    argmax = {k: bool(torch.equal(
+                        mesh_out[k].argmax(-1), ref_out[k].argmax(-1)))
+                        for k in ref_out}
+                    worst = max(diffs.values())
+                    line = {"model": cfg.name, "layers": cfg.n_layers,
+                            "dtype": dtype, "batch": B, "max_seq": max_seq,
+                            "prompt_lens": list(lens),
+                            "cache": layout,
+                            "max_abs_diff": worst, "diffs": diffs,
+                            "argmax_equal": all(argmax.values()),
+                            "launches_rank0": self.launches_by_path[what]}
+                    self.say("path tp: " + json.dumps(line))
+                    if dtype == "float32" and not (
+                            worst <= PATH_TOL_FP32 and all(argmax.values())):
+                        raise AssertionError(f"path tp {what}: {line}")
+                del mesh_out
+                self.free()
+                self.dist.barrier()
+
+    def _path_run(self, cfg, model, tokens, steps, lens, max_seq):
+        """The last prefill rows of every prompt and each decode step's
+        logits, append and committed (gathered on a mesh), on card 0's
+        device for the comparison."""
+        torch = self.torch
+        from repro_torch.models import transformer as T
+        B = tokens.shape[0]
+        out = {}
+        caches = {m: T.init_cache(cfg, B, max_seq, device=self.dev,
+                                  mesh=model.layout)
+                  for m in ("append", "committed")}
+        for b, L in enumerate(lens):
+            logits, pf = model.prefill(torch.from_numpy(
+                tokens[b:b + 1, :L]).to(self.dev))
+            rows = model.gather_logits(logits[:, -TP_PREFILL_ROWS:], 1)
+            out[f"prefill {b}"] = rows[0].float()
+            for cache in caches.values():
+                T.cache_insert(cfg, cache, pf, b, L)
+            del logits, pf, rows
+        for mode, cache in caches.items():
+            lengths = np.array(lens)
+            for i in range(len(steps)):
+                logits, _ = model.decode_step(
+                    cache, torch.from_numpy(steps[i]).to(self.dev),
+                    torch.from_numpy(lengths), append=mode == "append")
+                out[f"{mode} {i}"] = model.gather_logits(logits, B).float()
+                lengths = lengths + 1
+        del caches
+        return out
+
+    def serving_tp(self) -> None:
+        """Phase 3's 8 requests through ServingEngine on the mesh: bf16 at
+        max_seq 2048 (tokens equal on every rank; TTFT, TPOT; busy, idle
+        and NCCL time a decode step by rank), then computed in fp32 over the
+        bf16 weights, tokens equal to the one-card engine's on card 0."""
+        from repro_torch.configs import get_config
+        from repro_torch.serving import EngineConfig, ServingEngine
+        from repro_torch.serving.engine import serving_rules
+        for arch in ("qwen2-1.5b", "gemma2-27b"):
+            for dtype, max_seq in (("bfloat16", S_D),
+                                   ("float32", TP_SERVE_SEQ_FP32)):
+                cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+                ecfg = EngineConfig(max_batch=8, max_seq=max_seq)
+                rules = serving_rules(cfg, ecfg, self.mesh)
+                model = self.build(cfg, self.mesh, rules)
+                eng = ServingEngine(cfg, model, ecfg, mesh=self.mesh)
+                sharded = eng.cache.layout.size(eng.cache.spec(cfg)[2]) > 1
+                res = self._serve(cfg, eng, sharded, dtype == "bfloat16")
+                every = self.all(res["tokens"])
+                if any(t != every[0] for t in every):
+                    raise AssertionError(f"serving tp {cfg.name}: tokens "
+                                         "differ between ranks")
+                del eng, model
+                self.free()
+                if dtype == "float32" and self.rank == 0:
+                    one = self.build(cfg)
+                    eng = ServingEngine(cfg, one, ecfg)
+                    ref = self._serve(cfg, eng, False, False,
+                                      counted=False)["tokens"]
+                    del eng, one
+                    self.free()
+                    same = [a == b for a, b in zip(ref, every[0])]
+                    res["equal_to_one_card"] = sum(same)
+                    if not all(same):
+                        raise AssertionError(
+                            f"serving tp {cfg.name} fp32: tokens of "
+                            f"{len(same) - sum(same)} requests differ from "
+                            "the one-card engine's")
+                res.pop("tokens")
+                self.say("serving tp: " + json.dumps(res))
+                self.dist.barrier()
+
+    def _serve(self, cfg, eng, sharded, trace, counted=True) -> dict:
+        torch = self.torch
+        from repro_torch.serving import LatencyStats, Request
+        rng = np.random.default_rng(0)
+        lens = rng.integers(64, 1025, size=N_REQUESTS)
+        prompts = [list(map(int, rng.integers(0, cfg.vocab_size, size=L)))
+                   for L in lens]
+        eng.submit(Request(rid=-1, prompt=list(range(1, 65)),
+                           max_new_tokens=2))
+        eng.run()                                    # warm-up
+        eng.finished.clear()
+        eng.prefills = eng.decodes = 0
+        torch.cuda.synchronize()
+        self.zero()
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+        done = sorted(eng.run(), key=lambda r: r.rid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if len(done) != N_REQUESTS or any(len(r.generated) != NEW_TOKENS
+                                          for r in done):
+            raise AssertionError(f"serving tp {cfg.name}: {len(done)} done")
+        res = {"model": cfg.name, "dtype": cfg.dtype,
+               "weights": cfg.param_dtype, "max_seq": eng.ecfg.max_seq,
+               "mesh": "one card" if eng.model.layout is None else
+               f"{self.n} cards",
+               "cache": "by sequence" if sharded else "not by sequence",
+               "prefills": eng.prefills, "decode_steps": eng.decodes,
+               "wall_s": wall,
+               "output_tok_per_s": N_REQUESTS * NEW_TOKENS / wall,
+               "tokens": [r.generated for r in done]}
+        if counted:
+            res["launches"] = self.expect(
+                f"{cfg.name} {cfg.dtype} serving tp", cfg, eng.prefills,
+                eng.decodes, sharded)
+        stats = LatencyStats()
+        for r in done:
+            stats.observe(r.ttft, r.tpot)
+        res.update({k: stats.percentile(f"{k[:4]}s", p) for k, p in
+                    (("ttft_p50_s", 50), ("ttft_p99_s", 99),
+                     ("tpot_p50_s", 50), ("tpot_p99_s", 99))})
+        if trace:
+            res["trace_by_rank"] = self.all(self._trace(eng, prompts))
+        return res
+
+    def _trace(self, eng, prompts) -> dict:
+        """TP_TRACE_STEPS decode steps of a full batch under torch.profiler:
+        wall, device busy and NCCL ms a step on this rank."""
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.serving import Request
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=100 + i, prompt=p, max_new_tokens=64))
+        while eng.queue:
+            eng.step()
+        torch.cuda.synchronize()
+        self.dist.barrier()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(TP_TRACE_STEPS):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / TP_TRACE_STEPS
+        ks = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in ks) / 1e3 \
+            / TP_TRACE_STEPS
+        nccl = sum(e.self_device_time_total for e in ks
+                   if "nccl" in e.key.lower()) / 1e3 / TP_TRACE_STEPS
+        eng.run()
+        return {"step_wall_ms": wall, "device_busy_ms": busy,
+                "nccl_ms": nccl, "compute_ms": busy - nccl,
+                "idle_share": (1 - busy / wall) if wall > 0 else None,
+                "compute_share": (busy - nccl) / wall if wall > 0 else None,
+                "card": self._card()}
+
+    def _card(self) -> str:
+        from repro_torch.launch.dryrun import _card
+        return _card(self.dev)
+
+    def dryrun_tp(self) -> list:
+        """The four-card records (launch/dryrun.py run_cell on the mesh):
+        ok, 4 devices, finite logits, collectives equal to the formula,
+        launches exact; qwen2 decode_32k at batch 128 uncut."""
+        from repro_torch.configs import get_config
+        from repro_torch.launch import dryrun
+        records = []
+        for arch, shape in TP_RECORDS:
+            cfg = get_config(arch)
+            self.memory(f"before {arch} {shape}")
+            t0 = time.perf_counter()
+            self.zero()
+            rec = dryrun.run_cell(arch, shape, ROOT / "results" /
+                                  "dryrun_torch", mesh=self.mesh)
+            self.free()
+            ok = (rec["ok"] is True and rec["devices"] == self.n
+                  and rec["flops"] > 0 and rec["collectives"]["calls"]
+                  == rec["collectives_formula"])
+            if not ok:
+                raise AssertionError(f"dryrun tp {arch} {shape}: {rec}")
+            if (arch, shape) == ("qwen2-1.5b", "decode_32k") and \
+                    "global_batch" in rec["reduced"]:
+                raise AssertionError(f"dryrun tp qwen2 decode_32k: batch "
+                                     f"cut {rec['reduced']}")
+            seq = rec["kind"] == "decode" and rec["cache_spec"][2] is not None
+            if rec["kind"] == "decode":
+                self.expect(f"{arch} dry-run {shape} tp", cfg, 0,
+                            rec["decode_steps"], seq)
+            else:
+                self.expect(f"{arch} dry-run {shape} tp", cfg,
+                            rec["prefill_steps"], 0, False)
+            self.say(f"dryrun tp: {json.dumps(rec)}")
+            self.say(f"dryrun tp time: {arch} {shape} "
+                     f"{time.perf_counter() - t0:.1f} s")
+            records.append((cfg, rec))
+            self.dist.barrier()
+        return records
+
+    def profile_tp(self, records) -> None:
+        """For each four-card decode record: the H100x4 MaxTput row it gives
+        beside the analytic H100x4 and one-card H100 rows, and the engine
+        model's H100x4 step beside the measured one."""
+        from repro_torch.core.accelerators import PAPER_GPUS, tp_variant
+        from repro_torch.core.engine_model import EngineModel, ModelPerf
+        from repro_torch.core.profiler import (
+            decode_bytes_per_step_base_from_record,
+            decode_flops_per_token_from_record, profile_catalog,
+            profile_from_dryrun)
+        from repro_torch.core.workload import bucket_grid
+        h100 = PAPER_GPUS["H100"]
+        x4 = tp_variant(h100, self.n)
+        buckets = bucket_grid()
+        for cfg, rec in records:
+            if rec["kind"] != "decode":
+                continue
+            perf = ModelPerf.from_config(cfg)
+            row = profile_from_dryrun({x4.name: x4}, buckets, cfg, rec,
+                                      SLO_TPOT_S).max_tput[x4.name]
+            row_a = profile_catalog({x4.name: x4}, buckets, perf,
+                                    SLO_TPOT_S).max_tput[x4.name]
+            row_1 = profile_catalog({"H100": h100}, buckets, perf,
+                                    SLO_TPOT_S).max_tput["H100"]
+            if not (np.isfinite(row).all() and (row >= 0).all()):
+                raise AssertionError(f"H100x4 row of {cfg.name}: {row}")
+            if rec["shape"] == "decode_32k" and not row.any():
+                raise AssertionError(f"H100x4 row of {cfg.name} is all 0")
+            em = EngineModel(
+                perf, flops_per_token=decode_flops_per_token_from_record(rec),
+                bytes_per_step_base=decode_bytes_per_step_base_from_record(
+                    rec, perf))
+            B, S = rec["global_batch"], rec["seq_len"]
+            self.say("profile tp: " + json.dumps({
+                "gpu": x4.name, "model": cfg.name, "slo_tpot_s": SLO_TPOT_S,
+                "record": f"{rec['arch']} {rec['shape']} global_batch {B} "
+                          f"seq_len {S} devices {rec['devices']}",
+                "buckets": [[b.i_lo, b.i_hi, b.o_lo, b.o_hi, float(r),
+                             float(a), float(o)]
+                            for b, r, a, o in zip(buckets, row, row_a,
+                                                  row_1)],
+                "columns": "i_lo, i_hi, o_lo, o_hi, record-derived H100x4 "
+                           "req/s, analytic H100x4 req/s, analytic H100 "
+                           "req/s",
+                "feasible_buckets": [int((row > 0).sum()),
+                                     int((row_a > 0).sum()),
+                                     int((row_1 > 0).sum())],
+                "engine_model_step_ms": {
+                    "record": em.decode_step_time(x4, B, S) * 1e3,
+                    "analytic": EngineModel(perf).decode_step_time(
+                        x4, B, S) * 1e3},
+                "measured_step_ms": rec["step_ms"],
+                "measured_device_busy_ms_by_rank":
+                    rec["device_busy_ms_by_rank"],
+                "measured_nccl_ms_by_rank": rec["nccl_ms_by_rank"],
+                "measured_compute_ms_by_rank": rec["compute_ms_by_rank"],
+                "card_by_rank": rec["card_by_rank"]}))
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    import argparse
+    ap = argparse.ArgumentParser(description="drive the port on the card")
+    ap.add_argument("--cards", type=int, default=1, choices=(1, 4),
+                    help="4: the tensor-parallel mode on four cards")
+    sys.exit(main() if ap.parse_args().cards == 1 else cards_main(4))

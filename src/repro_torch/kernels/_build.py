@@ -35,10 +35,14 @@ SIGNATURES = {
     "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _F, _F, _P),
     # q, k_cache, v_cache, lengths, k_new, v_new (null in committed mode),
-    # o, partials, B, S, H, KVH, Dh, dtype, lengths dtype, n_splits, window,
-    # softcap, scale, stream
-    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # o, partials, part_out (null but in partial mode), B, S, H, KVH, Dh,
+    # dtype, lengths dtype, n_splits, window, start, cache batch stride,
+    # cache row stride, softcap, scale, stream
+    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _L, _L, _F,
+                               _F, _P),
+    # gathered partials (R, B*H, Dh + 2) fp32, o, R, B*H, Dh, dtype, stream
+    "repro_decode_merge": (_P, _P, _I, _I, _I, _I, _P),
     # logits, weights, ids, slot_of, token_of_slot, tk_of_slot (the three
     # maps null for gating alone), aux, partial, ticket, T, E, k, groups,
     # ctas, cap, stream

@@ -60,6 +60,22 @@
 // are never written. The cache is read at 112 columns a row: the byte bound
 // stays that of Dh 112. The combine pass runs DP threads, of which those
 // past Dh add nothing and store nothing.
+// Partial mode (a cache sharded by sequence over R cards, flash-decoding
+// across cards). The rows of the cache are the global positions start ..
+// start + S - 1; lengths and the window stay global, so lo (the first key
+// kept) is computed from the global length before it is mapped to local rows.
+// A rank whose rows all lie past lengths[b] or before the window writes the
+// empty partial. Instead of the normalised row, the combine pass then writes
+// the (b, h) partial (m, l, o) of this rank's keys, o unnormalised, into one
+// (B, H, Dh + 2) fp32 row [m, l, o], which the caller gathers over the ranks.
+// In append mode only the rank that owns position lengths[b] (start <= len <
+// start + S) merges the new token: on every rank it would count R times.
+// repro_decode_merge then runs the same combine pass over the gathered (R, B,
+// H, Dh + 2) partials, read through strides, into the normalised (B, H, Dh)
+// row, so the merge across cards needs no kernel of its own. The cache may
+// also be a view that keeps some of a larger cache's kv heads (a replicated
+// cache read by the kv heads a card's query heads map to): its batch and row
+// strides are arguments, its (KVH, Dh) rows contiguous.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -147,6 +163,7 @@ __global__ void __launch_bounds__(NT)
                         const T* __restrict__ vc, const L* __restrict__ lengths,
                         float* __restrict__ m_part, float* __restrict__ l_part,
                         float* __restrict__ o_part, int S, int H, int KVH,
+                        size_t b_stride, size_t s_stride, int start,
                         int chunk, int window, int append, float softcap,
                         float scale) {
   constexpr int DP = repro::kPaddedDH<DH>;   // staged columns
@@ -169,13 +186,16 @@ __global__ void __launch_bounds__(NT)
   float* sM = sS + NWARP * G * SUB;      // NWARP x G
   float* sL = sM + NWARP * G;            // NWARP x G
 
-  const long long raw_len = static_cast<long long>(lengths[b]);
-  const int len = int(min(max(raw_len, 0LL), static_cast<long long>(S)));
-  // first key kept: the window ends at the new token, which sits at len - 1
-  // in committed mode and at len (outside the cache) in append mode
-  const int lo = window > 0 ? max(0, len - window + append) : 0;
-  const int ra = max(split * chunk, lo);
-  const int re = min(split * chunk + chunk, len);
+  // global positions: len the keys of row b (with start = 0 and len <= S,
+  // the unsharded cache), lo the first key kept: the window ends at the new
+  // token, which sits at len - 1 in committed mode and at len (outside the
+  // cache) in append mode. Both map to this cache's rows by - start.
+  const long long len = max(static_cast<long long>(lengths[b]), 0LL);
+  const long long lo = window > 0 ? max(0LL, len - window + append) : 0LL;
+  const long long c0 = static_cast<long long>(split) * chunk;
+  const int ra = int(min(max(c0, lo - start), static_cast<long long>(S)));
+  const int re = int(max(min(min(c0 + chunk, len - start),
+                             static_cast<long long>(S)), 0LL));
   // partial of head g of this block: (b, kvh * G + g, split)
   const size_t part = (size_t(b) * H + size_t(kvh) * G) * n_splits + split;
 
@@ -200,9 +220,9 @@ __global__ void __launch_bounds__(NT)
   }
   __syncthreads();
 
-  const size_t row_stride = size_t(KVH) * DH;
-  const T* kb = kc + size_t(b) * S * row_stride + size_t(kvh) * DH;
-  const T* vb = vc + size_t(b) * S * row_stride + size_t(kvh) * DH;
+  const size_t row_stride = s_stride;
+  const T* kb = kc + size_t(b) * b_stride + size_t(kvh) * DH;
+  const T* vb = vc + size_t(b) * b_stride + size_t(kvh) * DH;
   float* sSw = sS + warp * G * SUB;
   T* sK = sKV + warp * 2 * SUB * DP;
   T* sV = sK + SUB * DP;
@@ -357,26 +377,40 @@ __global__ void __launch_bounds__(NT)
 // One block of DP = kPaddedDH<DH> threads per (b, h): merges the n_splits
 // partials and, in append mode (k_new non-null), the new token as one more
 // partial. Threads d >= DH (Dh 112) add zeros to the dot and store nothing.
-template <typename T, int DH>
+// The partial of (b, h) = bh and split s is m_part[bh * m_bh + s * m_s] (l
+// alike) and o_part[bh * o_bh + s * o_s + d]: the split pass's scratch, or
+// the (R, B, H, Dh + 2) partials gathered over the cards (repro_decode_merge).
+// In partial mode (part_out non-null) the block writes its (m, l, o) to
+// part_out[bh * (Dh + 2) ..] instead of o, and merges the new token only
+// where start <= lengths[b] < start + S (the card that owns its position).
+template <typename T, int DH, typename L>
 __global__ void __launch_bounds__(repro::kPaddedDH<DH>)
     decode_combine_kernel(const float* __restrict__ m_part,
                           const float* __restrict__ l_part,
-                          const float* __restrict__ o_part,
+                          const float* __restrict__ o_part, size_t m_bh,
+                          size_t m_s, size_t o_bh, size_t o_s,
                           const T* __restrict__ q, const T* __restrict__ k_new,
-                          const T* __restrict__ v_new, T* __restrict__ o,
-                          int n_splits, int H, int KVH, float softcap,
+                          const T* __restrict__ v_new,
+                          const L* __restrict__ lengths, T* __restrict__ o,
+                          float* __restrict__ part_out, int n_splits, int H,
+                          int KVH, int start, int S, float softcap,
                           float scale) {
   constexpr int DP = repro::kPaddedDH<DH>;
   const size_t bh = blockIdx.x;
   const int d = threadIdx.x;
   const bool col = DP == DH || d < DH;   // a real output column
-  const float* mp = m_part + bh * n_splits;
-  const float* lp = l_part + bh * n_splits;
-  const float* op = o_part + bh * n_splits * DH;
+  const float* mp = m_part + bh * m_bh;
+  const float* lp = l_part + bh * m_bh;
+  const float* op = o_part + bh * o_bh;
   float mx = kNegInf;
-  for (int s = 0; s < n_splits; ++s) mx = fmaxf(mx, mp[s]);
+  for (int s = 0; s < n_splits; ++s) mx = fmaxf(mx, mp[s * m_s]);
+  bool self = k_new != nullptr;   // uniform over the block
+  if (self && part_out != nullptr) {
+    const long long len = static_cast<long long>(lengths[bh / H]);
+    self = len >= start && len < static_cast<long long>(start) + S;
+  }
   float m_self = kNegInf, v_self = 0.f;
-  if (k_new != nullptr) {   // uniform over the block
+  if (self) {
     __shared__ float red[DP / 32];
     const size_t b = bh / H;
     const int h = int(bh % H);
@@ -397,114 +431,168 @@ __global__ void __launch_bounds__(repro::kPaddedDH<DH>)
   const float m_safe = mx <= kNegInf / 2 ? 0.f : mx;
   float l = 0.f, acc = 0.f;
   for (int s = 0; s < n_splits; ++s) {
-    if (mp[s] > kNegInf / 2) {   // empty splits add nothing
-      const float wt = expf(mp[s] - m_safe);
-      l += wt * lp[s];
-      if (col) acc += wt * op[size_t(s) * DH + d];
+    const float ms = mp[s * m_s];
+    if (ms > kNegInf / 2) {   // empty splits add nothing
+      const float wt = expf(ms - m_safe);
+      l += wt * lp[s * m_s];
+      if (col) acc += wt * op[s * o_s + d];
     }
   }
-  if (k_new != nullptr) {
+  if (self) {
     const float wt = expf(m_self - m_safe);
     l += wt;
     acc += wt * v_self;
   }
-  if (col) o[bh * DH + d] = from_f32<T>(acc / fmaxf(l, 1e-30f));
+  if (part_out != nullptr) {
+    float* po = part_out + bh * (DH + 2);
+    if (d == 0) {
+      po[0] = mx;
+      po[1] = l;
+    }
+    if (col) po[2 + d] = acc;
+  } else if (col) {
+    o[bh * DH + d] = from_f32<T>(acc / fmaxf(l, 1e-30f));
+  }
 }
 
+// One call's arguments (the C entry points' own, gathered).
+struct Args {
+  const void* q;
+  const void* kc;
+  const void* vc;
+  const void* lengths;
+  const void* k_new;   // null in committed mode
+  const void* v_new;
+  void* o;             // (B, H, Dh); unused in partial mode
+  float* partials;     // split scratch: (m, l, o) of every (b, h, split)
+  float* part_out;     // partial mode: (B, H, Dh + 2) [m, l, o]; else null
+  int B, S, H, KVH, n_splits, window, start;
+  size_t b_stride, s_stride;   // cache strides of a batch row, a kv row
+  float softcap, scale;
+  cudaStream_t stream;
+};
+
 template <typename T, int DH, typename L>
-cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const void* lengths, const void* k_new, const void* v_new,
-                   void* o, float* partials, int B, int S, int H, int KVH,
-                   int n_splits, int window, float softcap, float scale,
-                   cudaStream_t stream) {
-  const int G = H / KVH;
-  if (G < 1 || G > MAX_G || n_splits < 1) return cudaErrorInvalidValue;
+cudaError_t launch(const Args& a) {
+  const int G = a.H / a.KVH;
+  if (G < 1 || G > MAX_G || a.n_splits < 1) return cudaErrorInvalidValue;
   auto split_kern = decode_split_kernel<T, DH, L>;
   cudaError_t err = cudaFuncSetAttribute(
       split_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem_bytes(MAX_G, repro::kPaddedDH<DH>, sizeof(T))));
   if (err != cudaSuccess) return err;
   // chunk: ceil(S / n_splits) rounded up to TILE (ref.split_chunk)
-  const int chunk = ((S + n_splits - 1) / n_splits + TILE - 1) / TILE * TILE;
-  const size_t n_part = size_t(B) * H * n_splits;
-  float* m_part = partials;
+  const int chunk =
+      ((a.S + a.n_splits - 1) / a.n_splits + TILE - 1) / TILE * TILE;
+  const size_t n_part = size_t(a.B) * a.H * a.n_splits;
+  float* m_part = a.partials;
   float* l_part = m_part + n_part;
   float* o_part = l_part + n_part;
-  dim3 grid(n_splits, KVH, B);
+  dim3 grid(a.n_splits, a.KVH, a.B);
   split_kern<<<grid, NT, smem_bytes(G, repro::kPaddedDH<DH>, sizeof(T)),
-               stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), static_cast<const L*>(lengths), m_part,
-      l_part, o_part, S, H, KVH, chunk, window, k_new != nullptr ? 1 : 0,
-      softcap, scale);
+               a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.kc),
+      static_cast<const T*>(a.vc), static_cast<const L*>(a.lengths), m_part,
+      l_part, o_part, a.S, a.H, a.KVH, a.b_stride, a.s_stride, a.start,
+      chunk, a.window, a.k_new != nullptr ? 1 : 0, a.softcap, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<T, DH><<<B * H, repro::kPaddedDH<DH>, 0, stream>>>(
-      m_part, l_part, o_part, static_cast<const T*>(q),
-      static_cast<const T*>(k_new), static_cast<const T*>(v_new),
-      static_cast<T*>(o), n_splits, H, KVH, softcap, scale);
+  decode_combine_kernel<T, DH, L>
+      <<<a.B * a.H, repro::kPaddedDH<DH>, 0, a.stream>>>(
+          m_part, l_part, o_part, size_t(a.n_splits), 1,
+          size_t(a.n_splits) * DH, DH, static_cast<const T*>(a.q),
+          static_cast<const T*>(a.k_new), static_cast<const T*>(a.v_new),
+          static_cast<const L*>(a.lengths), static_cast<T*>(a.o), a.part_out,
+          a.n_splits, a.H, a.KVH, a.start, a.S, a.softcap, a.scale);
   return cudaGetLastError();
 }
 
 template <typename T, int DH>
-cudaError_t launch_len(int len_dtype, const void* q, const void* kc,
-                       const void* vc, const void* lengths, const void* k_new,
-                       const void* v_new, void* o, float* partials, int B,
-                       int S, int H, int KVH, int n_splits, int window,
-                       float softcap, float scale, cudaStream_t stream) {
-  if (len_dtype == kInt32)
-    return launch<T, DH, int32_t>(q, kc, vc, lengths, k_new, v_new, o,
-                                  partials, B, S, H, KVH, n_splits, window,
-                                  softcap, scale, stream);
-  if (len_dtype == kInt64)
-    return launch<T, DH, int64_t>(q, kc, vc, lengths, k_new, v_new, o,
-                                  partials, B, S, H, KVH, n_splits, window,
-                                  softcap, scale, stream);
+cudaError_t launch_len(int len_dtype, const Args& a) {
+  if (len_dtype == kInt32) return launch<T, DH, int32_t>(a);
+  if (len_dtype == kInt64) return launch<T, DH, int64_t>(a);
   return cudaErrorInvalidValue;
 }
 
+// The combine pass over R gathered partials (R, BH, Dh + 2) into o (BH, Dh).
+template <typename T, int DH>
+cudaError_t merge(const float* parts, void* o, int R, int BH,
+                  cudaStream_t stream) {
+  if (R < 1) return cudaErrorInvalidValue;
+  const size_t row = DH + 2, rank = size_t(BH) * row;
+  decode_combine_kernel<T, DH, int32_t>
+      <<<BH, repro::kPaddedDH<DH>, 0, stream>>>(
+          parts, parts + 1, parts + 2, row, rank, row, rank, nullptr, nullptr,
+          nullptr, nullptr, static_cast<T*>(o), nullptr, R, 1, 1, 0, 0, 0.f,
+          0.f);
+  return cudaGetLastError();
+}
+
+// Runs `stmt` with T and DH bound to the (dtype, Dh) pair's types
+#define REPRO_DECODE_DISPATCH(dtype, Dh, stmt)                          \
+  do {                                                                  \
+    if ((dtype) == repro::kFloat32 && (Dh) == 64) {                     \
+      using T = float;                                                  \
+      constexpr int DH = 64;                                            \
+      stmt;                                                             \
+    }                                                                   \
+    if ((dtype) == repro::kFloat32 && (Dh) == 112) {                    \
+      using T = float;                                                  \
+      constexpr int DH = 112;                                           \
+      stmt;                                                             \
+    }                                                                   \
+    if ((dtype) == repro::kFloat32 && (Dh) == 128) {                    \
+      using T = float;                                                  \
+      constexpr int DH = 128;                                           \
+      stmt;                                                             \
+    }                                                                   \
+    if ((dtype) == repro::kBFloat16 && (Dh) == 64) {                    \
+      using T = __nv_bfloat16;                                          \
+      constexpr int DH = 64;                                            \
+      stmt;                                                             \
+    }                                                                   \
+    if ((dtype) == repro::kBFloat16 && (Dh) == 112) {                   \
+      using T = __nv_bfloat16;                                          \
+      constexpr int DH = 112;                                           \
+      stmt;                                                             \
+    }                                                                   \
+    if ((dtype) == repro::kBFloat16 && (Dh) == 128) {                   \
+      using T = __nv_bfloat16;                                          \
+      constexpr int DH = 128;                                           \
+      stmt;                                                             \
+    }                                                                   \
+  } while (0)
+
 }  // namespace
 
-// k_new / v_new: null in committed mode, (B, KVH, Dh) in append mode
-extern "C" int repro_decode_attention(const void* q, const void* k_cache,
-                                      const void* v_cache,
-                                      const void* lengths, const void* k_new,
-                                      const void* v_new, void* o,
-                                      void* partials, int B, int S, int H,
-                                      int KVH, int Dh, int dtype,
-                                      int len_dtype, int n_splits, int window,
-                                      float softcap, float scale,
-                                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(partials);
+// k_new / v_new: null in committed mode, (B, KVH, Dh) in append mode.
+// part_out: null for the normalised row o, else the partial mode's (B, H,
+// Dh + 2) fp32 rows. start: the global position of cache row 0; b_stride and
+// s_stride: the cache's batch and row strides in elements.
+extern "C" int repro_decode_attention(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* lengths, const void* k_new, const void* v_new, void* o,
+    void* partials, void* part_out, int B, int S, int H, int KVH, int Dh,
+    int dtype, int len_dtype, int n_splits, int window, int start,
+    long long b_stride, long long s_stride, float softcap, float scale,
+    void* stream) {
   if ((k_new == nullptr) != (v_new == nullptr))
     return int(cudaErrorInvalidValue);
-  if (dtype == repro::kFloat32 && Dh == 64)
-    return launch_len<float, 64>(len_dtype, q, k_cache, v_cache, lengths,
-                                 k_new, v_new, o, part, B, S, H, KVH,
-                                 n_splits, window, softcap, scale, s);
-  if (dtype == repro::kFloat32 && Dh == 112)
-    return launch_len<float, 112>(len_dtype, q, k_cache, v_cache, lengths,
-                                  k_new, v_new, o, part, B, S, H, KVH,
-                                  n_splits, window, softcap, scale, s);
-  if (dtype == repro::kFloat32 && Dh == 128)
-    return launch_len<float, 128>(len_dtype, q, k_cache, v_cache, lengths,
-                                  k_new, v_new, o, part, B, S, H, KVH,
-                                  n_splits, window, softcap, scale, s);
-  if (dtype == repro::kBFloat16 && Dh == 64)
-    return launch_len<__nv_bfloat16, 64>(len_dtype, q, k_cache, v_cache,
-                                         lengths, k_new, v_new, o, part, B, S,
-                                         H, KVH, n_splits, window, softcap,
-                                         scale, s);
-  if (dtype == repro::kBFloat16 && Dh == 112)
-    return launch_len<__nv_bfloat16, 112>(len_dtype, q, k_cache, v_cache,
-                                          lengths, k_new, v_new, o, part, B,
-                                          S, H, KVH, n_splits, window,
-                                          softcap, scale, s);
-  if (dtype == repro::kBFloat16 && Dh == 128)
-    return launch_len<__nv_bfloat16, 128>(len_dtype, q, k_cache, v_cache,
-                                          lengths, k_new, v_new, o, part, B,
-                                          S, H, KVH, n_splits, window,
-                                          softcap, scale, s);
+  const Args a{q, k_cache, v_cache, lengths, k_new, v_new, o,
+               static_cast<float*>(partials), static_cast<float*>(part_out),
+               B, S, H, KVH, n_splits, window, start, size_t(b_stride),
+               size_t(s_stride), softcap, scale,
+               static_cast<cudaStream_t>(stream)};
+  REPRO_DECODE_DISPATCH(dtype, Dh, return int(launch_len<T, DH>(len_dtype, a)));
+  return int(cudaErrorInvalidValue);
+}
+
+// parts: (R, BH, Dh + 2) fp32 partials of repro_decode_attention's partial
+// mode, one per card; o: (BH, Dh) in dtype.
+extern "C" int repro_decode_merge(const void* parts, void* o, int R, int BH,
+                                  int Dh, int dtype, void* stream) {
+  const float* p = static_cast<const float*>(parts);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  REPRO_DECODE_DISPATCH(dtype, Dh, return int(merge<T, DH>(p, o, R, BH, s)));
   return int(cudaErrorInvalidValue);
 }

@@ -8,6 +8,14 @@ mirrors the kernels' split and combine). One call launches the split pass
 and the combine pass, in committed and in append mode alike (the combine
 pass merges the new token); ``launches`` counts such calls and nothing
 else.
+
+Partial mode (``start``, ``partial=True``) serves a cache sharded by
+sequence over several cards: its rows are the global positions ``start``
+on, lengths and the window stay global, and the call returns each (b, h)'s
+unnormalised partial [m, l, o] (B, H, Dh + 2) fp32, the new token merged
+only where ``start <= lengths[b] < start + S``. ``merge`` runs the combine
+pass over the partials gathered from the cards (R, B, H, Dh + 2) into the
+normalised (B, H, Dh) row; ``merge_launches`` counts its calls.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ LENGTH_CODES = {torch.int32: 0, torch.int64: 1}
 BLOCKS_PER_SM = 4   # split-pass blocks the split count aims for, per SM
 
 launches = 0
+merge_launches = 0
 
 
 def plan_splits(B: int, KVH: int, S: int, sm_count: int) -> int:
@@ -44,19 +53,40 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _cache_strides(k_cache: torch.Tensor, v_cache: torch.Tensor):
+    """(batch stride, row stride) in elements of a cache whose (KVH, Dh)
+    rows are contiguous (a whole cache, or a view keeping some of its kv
+    heads); raises on any other layout."""
+    B, S, KVH, Dh = k_cache.shape
+    ok = (k_cache.stride() == v_cache.stride() and k_cache.stride(3) == 1
+          and (KVH == 1 or k_cache.stride(2) == Dh)
+          and all((k_cache.stride(i) * k_cache.element_size()) % 16 == 0
+                  for i in (0, 1)))
+    if not ok:
+        raise ValueError(f"cache strides {k_cache.stride()} / "
+                         f"{v_cache.stride()}: the kernel reads (KVH, Dh) "
+                         "rows that are contiguous, 16-byte aligned")
+    return k_cache.stride(0), k_cache.stride(1)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
                      window: Optional[int] = None,
                      softcap: Optional[float] = None,
                      k_new: Optional[torch.Tensor] = None,
                      v_new: Optional[torch.Tensor] = None,
-                     n_splits: Optional[int] = None) -> torch.Tensor:
+                     n_splits: Optional[int] = None, start: int = 0,
+                     partial: bool = False) -> torch.Tensor:
     """q: (B, H, Dh); cache (B, S, KVH, Dh); lengths (B,) int32 or int64
     -> (B, H, Dh). Committed mode: ``lengths`` counts the new token, whose
     K/V is already written. Append mode (``k_new``, ``v_new`` of shape
     (B, KVH, Dh)): the cache is read-only with ``lengths`` old tokens and
     the combine pass merges the new token (``ref.decode_attention_direct``).
-    ``n_splits`` overrides ``plan_splits`` (chip_smoke.py sweeps it)."""
+    ``n_splits`` overrides ``plan_splits`` (chip_smoke.py sweeps it).
+    ``start`` is the global position of the cache's row 0 and ``partial``
+    returns the (B, H, Dh + 2) fp32 partials instead of the row (module
+    docstring). The cache may be a view of some kv heads of a larger one:
+    its (KVH, Dh) rows must be contiguous."""
     global launches
     B, H, Dh = q.shape
     if k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
@@ -87,11 +117,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache), *news):
         if t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    *news):
+    for name, t in (("q", q), *news):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              "aligned")
+    b_stride, s_stride = _cache_strides(k_cache, v_cache)
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     if not lengths.is_contiguous():
         raise ValueError("lengths must be contiguous")
     if q.dtype not in DTYPE_CODES:
@@ -103,9 +136,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
-    o = torch.empty_like(q)
+    if start < 0:
+        raise ValueError(f"start must be >= 0, got {start}")
+    if partial:
+        out = torch.empty((B, H, Dh + 2), dtype=torch.float32,
+                          device=q.device)
+    else:
+        out = torch.empty_like(q)
     if q.numel() == 0:
-        return o
+        return out
     if n_splits is None:
         n_splits = plan_splits(B, KVH, S, _sm_count(q.device.index))
     elif n_splits < 1:
@@ -119,11 +158,42 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         err = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), None if k_new is None else k_new.data_ptr(),
-            None if v_new is None else v_new.data_ptr(), o.data_ptr(),
-            partials.data_ptr(), B, S, H,
-            KVH, Dh, DTYPE_CODES[q.dtype], LENGTH_CODES[lengths.dtype],
-            n_splits, -1 if window is None else int(window),
-            0.0 if softcap is None else float(softcap), Dh ** -0.5, stream)
+            None if v_new is None else v_new.data_ptr(),
+            None if partial else out.data_ptr(), partials.data_ptr(),
+            out.data_ptr() if partial else None, B, S, H, KVH, Dh,
+            DTYPE_CODES[q.dtype], LENGTH_CODES[lengths.dtype], n_splits,
+            -1 if window is None else int(window), int(start), b_stride,
+            s_stride, 0.0 if softcap is None else float(softcap),
+            Dh ** -0.5, stream)
     _build.check(err, "decode_attention launch")
     launches += 1
-    return o
+    return out
+
+
+def merge(parts: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The partials of R cards, (R, B, H, Dh + 2) fp32 as ``decode_attention
+    (..., partial=True)`` gives them, merged by the combine pass into the
+    normalised (B, H, Dh) row in ``dtype`` (``ref.decode_merge``)."""
+    global merge_launches
+    if parts.dim() != 4 or parts.dtype != torch.float32:
+        raise ValueError(f"partials must be (R, B, H, Dh + 2) fp32, got "
+                         f"{tuple(parts.shape)} {parts.dtype}")
+    R, B, H, Dh = parts.shape[0], parts.shape[1], parts.shape[2], \
+        parts.shape[3] - 2
+    if not parts.is_cuda or not parts.is_contiguous():
+        raise ValueError("partials must be a contiguous CUDA tensor")
+    if dtype not in DTYPE_CODES or Dh not in HEAD_DIMS:
+        raise NotImplementedError(f"decode merge of {dtype}, head_dim {Dh}")
+    out = torch.empty((B, H, Dh), dtype=dtype, device=parts.device)
+    if out.numel() == 0:
+        return out
+    if R < 1:
+        raise ValueError("no partials to merge")
+    lib = _build.load()
+    with torch.cuda.device(parts.device):
+        stream = torch.cuda.current_stream(parts.device).cuda_stream
+        err = lib.repro_decode_merge(parts.data_ptr(), out.data_ptr(), R,
+                                     B * H, Dh, DTYPE_CODES[dtype], stream)
+    _build.check(err, "decode_attention merge launch")
+    merge_launches += 1
+    return out

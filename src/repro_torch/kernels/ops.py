@@ -106,6 +106,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
                      softcap: Optional[float] = None,
                      k_new: Optional[torch.Tensor] = None,
                      v_new: Optional[torch.Tensor] = None,
+                     start: int = 0, partial: bool = False,
                      impl: Optional[str] = None):
     """Single-token GQA decode. q:(B,H,Dh) cache:(B,S,KVH,Dh) lengths:(B,)
     -> (B,H,Dh).
@@ -114,15 +115,36 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     counts it. Append mode (``k_new``, ``v_new`` of shape (B,KVH,Dh)): the
     cache is read-only with ``lengths`` old tokens and the new token is
     merged into the softmax; on CUDA tensors the kernel's combine pass
-    merges it, so append mode runs the kernel too."""
+    merges it, so append mode runs the kernel too.
+
+    A cache sharded by sequence: its rows are the global positions
+    ``start`` on, and ``partial=True`` returns the (B, H, Dh + 2) fp32
+    partials [m, l, o] that ``decode_merge`` combines over the cards
+    (``ref.decode_attention_direct``). ``"naive"`` takes no partials."""
     if _kernel_path(impl, q):
         return da.decode_attention(q, k_cache, v_cache, lengths,
                                    window=window, softcap=softcap,
-                                   k_new=k_new, v_new=v_new)
-    fn = (ref.decode_attention_naive if impl == "naive"
-          else ref.decode_attention_direct)
-    return fn(q, k_cache, v_cache, lengths, window=window, softcap=softcap,
-              k_new=k_new, v_new=v_new)
+                                   k_new=k_new, v_new=v_new, start=start,
+                                   partial=partial)
+    if impl == "naive":
+        if start or partial:
+            raise NotImplementedError("the naive decode oracle takes no "
+                                      "start or partials")
+        return ref.decode_attention_naive(q, k_cache, v_cache, lengths,
+                                          window=window, softcap=softcap,
+                                          k_new=k_new, v_new=v_new)
+    return ref.decode_attention_direct(
+        q, k_cache, v_cache, lengths, window=window, softcap=softcap,
+        k_new=k_new, v_new=v_new, start=start, partial=partial)
+
+
+def decode_merge(parts, dtype, *, impl: Optional[str] = None):
+    """The cards' decode partials (R, B, H, Dh + 2) merged into the (B, H,
+    Dh) row in ``dtype``: on CUDA tensors the decode kernel's combine pass
+    (``decode_attention.merge``), else ``ref.decode_merge``."""
+    if _kernel_path(impl, parts):
+        return da.merge(parts.contiguous(), dtype)
+    return ref.decode_merge(parts, dtype)
 
 
 class _Routed(torch.autograd.Function):

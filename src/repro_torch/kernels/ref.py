@@ -338,11 +338,28 @@ def decode_attention_naive(q, k_cache, v_cache, lengths, *,
     return o.reshape(B, H, Dh).to(q.dtype)
 
 
+def _self_owned(lengths, start: int, S: int, partial: bool):
+    """(B,) bool: where the append-mode token merges. Everywhere but in
+    partial mode, where only on the card whose rows hold position
+    ``lengths[b]`` (``start <= lengths[b] < start + S``)."""
+    if not partial:
+        return torch.ones_like(lengths, dtype=torch.bool)
+    return (lengths >= start) & (lengths < start + S)
+
+
+def _partial_rows(m, l, o) -> torch.Tensor:
+    """(B, KVH, G, 1) m and l and (B, KVH, G, Dh) o -> the partial mode's
+    (B, H, Dh + 2) fp32 rows [m, l, o]."""
+    B, KVH, G, Dh = o.shape
+    return torch.cat([m, l, o], dim=-1).reshape(B, KVH * G, Dh + 2)
+
+
 def decode_attention_direct(q, k_cache, v_cache, lengths, *,
                             window: Optional[int] = None,
                             softcap: Optional[float] = None,
                             k_new: Optional[torch.Tensor] = None,
-                            v_new: Optional[torch.Tensor] = None
+                            v_new: Optional[torch.Tensor] = None,
+                            start: int = 0, partial: bool = False
                             ) -> torch.Tensor:
     """Single-token decode as one masked softmax over the cache.
 
@@ -356,6 +373,13 @@ def decode_attention_direct(q, k_cache, v_cache, lengths, *,
     Mirrors the reference's rounding: q is scaled in its own dtype, scores
     and sums are fp32, and the cache's probabilities are cast to the cache
     dtype before the PV product.
+
+    Partial mode (a cache sharded by sequence): the cache's rows are the
+    global positions ``start`` on, lengths and the window stay global, and
+    with ``partial`` the result is the unnormalised (B, H, Dh + 2) fp32
+    [m, l, o] of these rows (m = -1e30, l = 0, o = 0 where none is kept),
+    the append-mode token merged only where ``start <= lengths[b] < start
+    + S`` (``decode_merge`` combines the cards' partials).
     """
     append = _check_append(k_new, v_new)
     B, H, Dh = q.shape
@@ -365,7 +389,7 @@ def decode_attention_direct(q, k_cache, v_cache, lengths, *,
     s = torch.einsum("bhgd,bshd->bhgs", qf.float(), k_cache.float())
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    k_pos = torch.arange(S, device=q.device)
+    k_pos = start + torch.arange(S, device=q.device)
     lens = lengths.to(q.device)[:, None]
     valid = k_pos[None] < lens
     if window is not None:
@@ -377,6 +401,8 @@ def decode_attention_direct(q, k_cache, v_cache, lengths, *,
                               k_new.float())[..., None]
         if softcap is not None:
             s_self = softcap * torch.tanh(s_self / softcap)
+        own = _self_owned(lens[:, 0], start, S, partial)[:, None, None, None]
+        s_self = torch.where(own, s_self, NEG_INF)
         m = torch.maximum(m, s_self)
     m_safe = torch.clamp(m, min=NEG_INF / 2)
     p = torch.exp(s - m_safe)
@@ -385,11 +411,27 @@ def decode_attention_direct(q, k_cache, v_cache, lengths, *,
     out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
     if append:
-        p_self = torch.exp(s_self - m_safe)                  # (B,KVH,G,1)
+        p_self = torch.where(own, torch.exp(s_self - m_safe), 0.0)
         l = l + p_self
         out = out + p_self * v_new.float()[:, :, None]
+    if partial:
+        return _partial_rows(m, l, out)
     out = out / torch.clamp(l, min=1e-30)
     return out.reshape(B, H, Dh).to(q.dtype)
+
+
+def decode_merge(parts: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The plain merge of R cards' partials (R, B, H, Dh + 2) [m, l, o] into
+    the normalised (B, H, Dh) row, as the CUDA combine pass does it: each
+    partial rescaled by exp(m_r - m), empty ones (m = -1e30) skipped, the
+    sum divided by max(l, 1e-30)."""
+    m_r, l_r, o_r = parts[..., 0], parts[..., 1], parts[..., 2:]
+    m = m_r.amax(dim=0)
+    m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+    w = torch.where(m_r <= NEG_INF / 2, 0.0, torch.exp(m_r - m_safe))
+    l = (w * l_r).sum(dim=0)
+    o = (w[..., None] * o_r).sum(dim=0)
+    return (o / torch.clamp(l, min=1e-30)[..., None]).to(dtype)
 
 
 # kv rows per split-pass step of the CUDA decode kernel (csrc TILE): a
@@ -408,7 +450,8 @@ def decode_attention_split(q, k_cache, v_cache, lengths, *, n_splits: int,
                            softcap: Optional[float] = None,
                            k_new: Optional[torch.Tensor] = None,
                            v_new: Optional[torch.Tensor] = None,
-                           tile: int = DECODE_SPLIT_TILE) -> torch.Tensor:
+                           tile: int = DECODE_SPLIT_TILE, start: int = 0,
+                           partial: bool = False) -> torch.Tensor:
     """Split-KV decode as the CUDA kernel does it, in fp32: the cache is cut
     into ``n_splits`` chunks of ``split_chunk(S, n_splits, tile)`` rows; each
     chunk gives a partial (m, l, o) of its kept keys (an empty chunk gives
@@ -417,8 +460,11 @@ def decode_attention_split(q, k_cache, v_cache, lengths, *, n_splits: int,
     max(l, 1e-30). In append mode (``k_new``, ``v_new``) the chunks hold the
     ``lengths`` old tokens, the window keeps keys ``k_pos > lengths -
     window``, and the combine takes the new token as one more partial:
-    m = softcap(scale * q . k_new), l = 1, o = v_new. Used by the tests,
-    which cannot run the CUDA combine."""
+    m = softcap(scale * q . k_new), l = 1, o = v_new. ``start`` and
+    ``partial`` as in ``decode_attention_direct``: the window and the kept
+    keys from the global positions, the partial [m, l, o] written by the
+    combine instead of the row. Used by the tests, which cannot run the
+    CUDA combine."""
     append = _check_append(k_new, v_new)
     B, H, Dh = q.shape
     _, S, KVH, _ = k_cache.shape
@@ -428,15 +474,16 @@ def decode_attention_split(q, k_cache, v_cache, lengths, *, n_splits: int,
     s = torch.einsum("bhgd,bshd->bhgs", qf, k_cache.float())
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    k_pos = torch.arange(S, device=q.device)
-    lens = lengths.to(q.device).long().clamp(0, S)[:, None]
+    rows = torch.arange(S, device=q.device)
+    k_pos = start + rows
+    lens = lengths.to(q.device).long().clamp(min=0)[:, None]
     valid = k_pos[None] < lens
     if window is not None:
         valid &= k_pos[None] >= lens - window + (1 if append else 0)
     vf = v_cache.float()
     parts = []
     for i in range(n_splits):
-        keep = (valid & (k_pos[None] // chunk == i))[:, None, None]
+        keep = (valid & (rows[None] // chunk == i))[:, None, None]
         s_i = torch.where(keep, s, NEG_INF)
         m_i = s_i.amax(dim=-1)
         m_safe = torch.where(m_i <= NEG_INF / 2, 0.0, m_i)
@@ -447,14 +494,19 @@ def decode_attention_split(q, k_cache, v_cache, lengths, *, n_splits: int,
         m_self = torch.einsum("bhgd,bhd->bhg", qf, k_new.float())
         if softcap is not None:
             m_self = softcap * torch.tanh(m_self / softcap)
-        parts.append((m_self, torch.ones_like(m_self),
-                      v_new.float()[:, :, None].expand(B, KVH, G, Dh)))
+        own = _self_owned(lens[:, 0], start, S, partial)[:, None, None]
+        parts.append((torch.where(own, m_self, NEG_INF),
+                      torch.where(own, 1.0, 0.0).expand_as(m_self),
+                      torch.where(own[..., None], v_new.float()[:, :, None],
+                                  0.0).expand(B, KVH, G, Dh)))
     m_s = torch.stack([m for m, _, _ in parts])
     m = m_s.amax(dim=0)
     m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
     w = torch.where(m_s <= NEG_INF / 2, 0.0, torch.exp(m_s - m_safe))
     l = (w * torch.stack([l for _, l, _ in parts])).sum(dim=0)
     o = (w[..., None] * torch.stack([o for _, _, o in parts])).sum(dim=0)
+    if partial:
+        return _partial_rows(m[..., None], l[..., None], o)
     out = o / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, H, Dh).to(q.dtype)
 

@@ -48,6 +48,24 @@ repository root, with ``PYTHONPATH=src``, as
 
 (on the card), or on the CPU at a reduced size with ``--device cpu
 --reduced --seq-len 256``.
+
+On a mesh (``run_cell(..., mesh=)``, every rank of a ``DeviceMesh`` calling
+it with the same arguments) the prefill and decode steps run sharded under
+``steps.rules_for``'s rules, and the record follows the reference's
+per-device convention, which ``core/profiler.py::record_devices`` scales
+back: ``devices`` is the mesh's size and ``mesh`` its name (``h100_1x4``);
+``flops`` are one card's (FlopCounterMode over rank 0's local plain step on
+the meta device, where a collective only counts) and ``bytes_accessed``
+the busiest card's (``BYTES_SOURCE`` over its shards: its weights, its
+cache rows and kv heads, its logits); ``collectives`` are the helpers'
+counts over one step (``sharding.collectives()``), held to
+``Transformer.step_collectives``; ``step_ms`` is the median over the timed
+steps of the slowest card's CUDA-event time, every step started after a
+barrier; ``device_busy_ms``, ``nccl_ms``, ``peak_mem_gb`` are listed by
+rank (``*_by_rank``). The batch is cut by each card's free memory and its
+bytes a sequence, the smallest over the cards. Rank 0 writes the record,
+named by arch, shape and mesh, beside the one-card ones. Train steps on a
+mesh raise (ROADMAP A9c).
 """
 from __future__ import annotations
 
@@ -67,6 +85,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.shapes import SHAPES, applicable, get_shape
 from repro_torch.core.engine_model import DEFAULT_ENGINE
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import steps as ST
 from repro_torch.models import transformer as T
@@ -106,8 +125,10 @@ def _nbytes(tree) -> int:
                for t in torch.utils._pytree.tree_leaves(tree))
 
 
-def _weight_bytes(cfg) -> int:
-    return _nbytes(list(T.Transformer(cfg, device="meta").parameters()))
+def _weight_bytes(cfg, mesh=None, rules=None) -> int:
+    """The weights' bytes (on a mesh, one card's)."""
+    return _nbytes(list(T.Transformer(cfg, device="meta", mesh=mesh,
+                                      rules=rules).parameters()))
 
 
 def _elem(cfg) -> int:
@@ -119,10 +140,19 @@ def _logit_bytes(cfg, rows: int) -> int:
 
 
 def step_traffic(cfg, model: T.Transformer, batch: int,
-                 seq_len: int) -> dict:
+                 seq_len: int, cache=None) -> dict:
     """The bytes of one append-mode decode step of ``batch`` sequences at
-    context ``seq_len`` (``BYTES_SOURCE``), by part."""
-    kv_tok = 2 * cfg.n_kv_heads * cfg.head_dim * _elem(cfg)     # K and V
+    context ``seq_len`` (``BYTES_SOURCE``), by part. On a mesh (``cache``
+    this card's ``ShardedCache``) the busiest card's: its weights, its
+    batch rows and kv heads, at most its rows of the context, its logits."""
+    kvh, rows, vocab = cfg.n_kv_heads, seq_len, 1
+    if cache is not None:
+        lay = cache.layout
+        _, (_, batch), (_, rows), (_, kvh), _ = lay.ranges(
+            ("layers",) + T.L.CACHE_AXES,
+            (1, cache.batch, cache.max_seq, cfg.n_kv_heads, cfg.head_dim))
+        vocab = lay.size(model._unembed_vocab[0])
+    kv_tok = 2 * kvh * cfg.head_dim * _elem(cfg)                # K and V
     kv = 0
     for spec in cfg.layer_specs():
         if spec.kind == "attn" and spec.attn_type == "cross":
@@ -131,10 +161,10 @@ def step_traffic(cfg, model: T.Transformer, batch: int,
             read = seq_len
             if spec.attn_type == "local" and cfg.sliding_window:
                 read = min(seq_len, cfg.sliding_window)
-            kv += (read + 1) * kv_tok
+            kv += (min(read, rows) + 1) * kv_tok
     return {"weights": _nbytes(list(model.parameters())),
             "kv": batch * kv, "states": batch * 2 * _state_bytes(cfg),
-            "logits": _logit_bytes(cfg, batch)}
+            "logits": _logit_bytes(cfg, batch) // vocab}
 
 
 def _state_bytes(cfg) -> int:
@@ -148,15 +178,23 @@ def _state_bytes(cfg) -> int:
 def prefill_traffic(cfg, model: T.Transformer, batch: int,
                     seq_len: int) -> dict:
     """The bytes of one prefill of ``batch`` sequences of ``seq_len``
-    tokens (``PREFILL_BYTES_SOURCE``), by part."""
-    kv_tok = 2 * cfg.n_kv_heads * cfg.head_dim * _elem(cfg)
+    tokens (``PREFILL_BYTES_SOURCE``), by part; on a mesh one card's (its
+    batch rows, ``wk``'s kv heads, its vocab columns)."""
+    kvh, vocab = cfg.n_kv_heads, 1
+    if model.tp is not None:
+        (_, batch), _ = model.layout.ranges(("batch", "seq"),
+                                            (batch, seq_len))
+        kvh, vocab = model.tp.kvl, model.layout.size(
+            model._unembed_vocab[0])
+    kv_tok = 2 * kvh * cfg.head_dim * _elem(cfg)
     kv = sum((max(cfg.n_vision_tokens, 1) if spec.attn_type == "cross"
               else seq_len) * kv_tok
              for spec in cfg.layer_specs() if spec.kind == "attn")
     tokens = batch * seq_len * max(cfg.n_codebooks, 1) * 4
     return {"weights": _nbytes(list(model.parameters())),
             "kv": batch * kv, "states": batch * _state_bytes(cfg),
-            "logits": _logit_bytes(cfg, batch * seq_len), "tokens": tokens}
+            "logits": _logit_bytes(cfg, batch * seq_len) // vocab,
+            "tokens": tokens}
 
 
 def train_traffic(cfg, model: T.Transformer, opt_state: dict, batch: int,
@@ -206,7 +244,8 @@ def _n_micro(variant: str, batch: int) -> int:
     return n if batch % n == 0 and batch >= n else 1
 
 
-def count_flops(cfg, case, variant: str = "baseline") -> int:
+def count_flops(cfg, case, variant: str = "baseline", mesh=None,
+                rules=None) -> int:
     """The operations of ``case``'s step (its batch and seq_len as given)
     on the plain path (FlopCounterMode), on the meta device: nothing is
     allocated or run. A decode step runs at context seq_len - 1 (a cross
@@ -215,7 +254,10 @@ def count_flops(cfg, case, variant: str = "baseline") -> int:
     optimizer update are elementwise: no operations the counter counts),
     so one microbatch is counted, n_micro times: the trainable attention
     skips the blocks its mask removes, so it is counted at its own blocks,
-    and a full step takes minutes of meta ops."""
+    and a full step takes minutes of meta ops. With ``mesh`` (a
+    ``sharding.Layout`` of one rank) the rank's local step under ``rules``
+    (the cell's, whatever its batch was cut to), its collectives only
+    counted."""
     if case.kind == "train":
         nm = _n_micro(variant, case.global_batch)
         micro = dataclasses.replace(case,
@@ -225,7 +267,8 @@ def count_flops(cfg, case, variant: str = "baseline") -> int:
             ST.value_and_grad(cfg, kwargs["params"], kwargs["batch"],
                               impl="plain")
         return nm * int(counter.get_total_flops())
-    fn, kwargs, _ = ST.build_cell(cfg, case, "meta", variant, impl="plain")
+    fn, kwargs, *_ = ST.build_cell(cfg, case, "meta", variant, impl="plain",
+                                   mesh=mesh, rules=rules)
     if case.kind == "decode":
         kwargs["tokens"] = decode_tokens(cfg, case.global_batch).to("meta")
         kwargs["lengths"] = torch.full((case.global_batch,),
@@ -261,7 +304,7 @@ def materialize(cfg, case, kwargs: dict, model: T.Transformer, dev,
                             else ints(t)) for k, t in v.items()})
         elif name == "cache":
             out.append(T.init_cache(cfg, case.global_batch, case.seq_len,
-                                    device=dev))
+                                    device=dev, mesh=model.layout))
         elif name == "tokens":
             out.append(ints(v))
         else:                                           # lengths
@@ -269,19 +312,29 @@ def materialize(cfg, case, kwargs: dict, model: T.Transformer, dev,
     return out
 
 
-def _card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+def _card(dev=None) -> str:
+    """``nvidia-smi``'s name and power limit: of every card, or of ``dev``
+    (found by its UUID) where torch reports one."""
+    query = ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"]
+    uuid = getattr(torch.cuda.get_device_properties(dev), "uuid", None) \
+        if dev is not None else None
+    if uuid is not None:
+        one = subprocess.run(query + [f"--id=GPU-{uuid}"],
+                             capture_output=True, text=True)
+        if one.returncode == 0 and one.stdout.strip():
+            return one.stdout.strip()
+    return subprocess.run(query, capture_output=True, text=True,
+                          check=True).stdout.strip()
 
 
 def _device_time(step, n: int, host_activity: bool = True):
     """(device ms per step, the five kernels that take most of it as
-    [name, ms per step, launches per step]) under torch.profiler, every
-    CUDA kernel's self time; a session that saw no device time is retried
-    twice. ``host_activity`` False traces the device only (a train step's
-    ~100k host ops would take minutes to read)."""
+    [name, ms per step, launches per step], the NCCL kernels' ms per step)
+    under torch.profiler, every CUDA kernel's self time; a session that
+    saw no device time is retried twice. ``host_activity`` False traces
+    the device only (a train step's ~100k host ops would take minutes to
+    read)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA]
@@ -298,9 +351,12 @@ def _device_time(step, n: int, host_activity: bool = True):
                          key=lambda e: -e.self_device_time_total)
         if kernels:
             busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+            nccl = sum(e.self_device_time_total for e in kernels
+                       if "nccl" in e.key.lower()) / 1e3 / n
             return busy, [[e.key[:60], e.self_device_time_total / 1e3 / n,
-                           e.count / n] for e in kernels[:5]]
-    return "not measured: three profiler sessions saw no device time", []
+                           e.count / n] for e in kernels[:5]], nccl
+    return ("not measured: three profiler sessions saw no device time", [],
+            "not measured")
 
 
 def _budget(dev) -> tuple[int, int, float]:
@@ -316,14 +372,56 @@ def _cut(rec: dict, what: str, full, now, why: str) -> None:
         rec["reduced_why"][what] = why
 
 
+def mesh_name(mesh) -> str:
+    """A mesh's record name: ``h100_1x4`` for (data 1, model 4) on H100s,
+    else the device type's (``cpu_1x4``)."""
+    sizes = SH.axis_sizes(mesh)
+    kind = mesh.device_type
+    if kind == "cuda" and "H100" in torch.cuda.get_device_name():
+        kind = "h100"
+    return f"{kind}_{sizes['data']}x{sizes['model']}"
+
+
+class _Ranks:
+    """The collectives a record takes over the ranks of its mesh (nothing
+    on one card): the smallest budget, every rank's measurements."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    @property
+    def rank(self) -> int:
+        if self.mesh is None:
+            return 0
+        import torch.distributed as dist
+        return dist.get_rank()
+
+    def min(self, x: int) -> int:
+        return min(self.all(x))
+
+    def all(self, obj) -> list:
+        if self.mesh is None:
+            return [obj]
+        import torch.distributed as dist
+        out = [None] * dist.get_world_size()
+        dist.all_gather_object(out, obj)
+        return out
+
+    def barrier(self) -> None:
+        if self.mesh is not None:
+            import torch.distributed as dist
+            dist.barrier()
+
+
 def run_cell(arch: str, shape: str, out_dir: Path = DEFAULT_OUT, *,
              device="cuda", reduced: bool = False,
              seq_len: Optional[int] = None,
-             variant: str = "baseline") -> dict:
+             variant: str = "baseline", mesh=None) -> dict:
     """Run ``arch``'s step at ``shape`` on one device and write its record.
     ``seq_len`` overrides the case's length (a CPU run's cut); ``variant``
     as ``steps.apply_variant_config`` (a decode record adds
-    ``cacheappend``)."""
+    ``cacheappend``). ``mesh``: run it sharded, every rank of the
+    ``DeviceMesh`` calling with the same arguments (module docstring)."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -334,43 +432,56 @@ def run_cell(arch: str, shape: str, out_dir: Path = DEFAULT_OUT, *,
     cfg = ST.apply_variant_config(cfg, variant)   # sharding variants raise
     dev = T.resolve_device(device)
     S = case.seq_len if seq_len is None else seq_len
+    ranks = _Ranks(mesh)
+    rules = None if mesh is None else ST.rules_for(cfg, case, mesh, variant)
     rec = {
-        "arch": arch, "shape": shape, "mesh": MESH, "variant": variant,
+        "arch": arch, "shape": shape,
+        "mesh": MESH if mesh is None else mesh_name(mesh),
+        "variant": variant,
         "kind": case.kind, "seq_len": S, "global_batch": case.global_batch,
         "n_params": cfg.param_count(),
         "n_params_active": cfg.active_param_count(),
-        "ok": False, "devices": 1, "device": str(dev),
+        "ok": False, "devices": 1 if mesh is None else mesh.size(),
+        "device": str(dev),
         "config": cfg.name, "reduced": {}, "reduced_why": {},
     }
+    if mesh is not None:
+        rec["rules"] = {k: list(v) for k, v in rules.rules.items() if v}
     if case.kind == "decode":
         rec["decode_mode"] = "append"
     _cut(rec, "seq_len", case.seq_len, S, "seq_len override (--seq-len)")
     ok, reason = applicable(cfg, case)
     if not ok:
         rec["skipped"] = reason
-        _write(out_dir, rec)
+        _write(out_dir, rec, ranks)
         return rec
-    weights = _weight_bytes(cfg)
+    if mesh is not None and case.kind == "train":
+        raise NotImplementedError(f"a sharded train step is {T.A9C}")
+    weights = _weight_bytes(cfg, mesh, rules)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)    # peak_mem_gb: this cell's
         free, total, budget = _budget(dev)
-        if weights > budget:
+        if ranks.min(int(budget - weights)) < 0:
             return _not_fitting(out_dir, rec, (
-                f"the weights ({weights} bytes) do not fit one card "
-                f"({free} bytes free of {total}, 8% kept in reserve)"))
+                f"the weights ({weights} bytes a card) do not fit "
+                f"({free} bytes free of {total}, 8% kept in reserve)"),
+                ranks)
     model = T.Transformer(cfg, device=dev, generator=torch.Generator(
-        device=dev).manual_seed(SEED))
+        device=dev).manual_seed(SEED), mesh=mesh, rules=rules)
     gen = torch.Generator().manual_seed(SEED)
     if case.kind == "decode":
-        return _decode(rec, cfg, case, S, model, dev, gen, variant, out_dir)
+        return _decode(rec, cfg, case, S, model, dev, gen, variant, out_dir,
+                       ranks)
     if case.kind == "prefill":
-        return _prefill(rec, cfg, case, S, model, dev, gen, variant, out_dir)
+        return _prefill(rec, cfg, case, S, model, dev, gen, variant, out_dir,
+                        ranks)
     return _train(rec, cfg, case, S, model, dev, gen, variant, out_dir)
 
 
-def _not_fitting(out_dir: Path, rec: dict, why: str) -> dict:
+def _not_fitting(out_dir: Path, rec: dict, why: str,
+                 ranks: Optional[_Ranks] = None) -> dict:
     rec["not_fitting"] = why
-    _write(out_dir, rec)
+    _write(out_dir, rec, ranks)
     return rec
 
 
@@ -381,19 +492,35 @@ def _cell(cfg, case, variant: str, model, dev, gen):
     return fn, materialize(cfg, case, kwargs, model, dev, gen)
 
 
+def _flop_layout(model: T.Transformer) -> Optional[SH.Layout]:
+    """Rank 0's layout without a process group: FlopCounterMode counts one
+    card's step on the meta device (every card's is the same size)."""
+    if model.layout is None:
+        return None
+    return SH.Layout(model.layout.sizes,
+                     {ax: 0 for ax in model.layout.sizes},
+                     model.layout.rules)
+
+
 def _measure(rec: dict, dev, step, timed: int, warmup: int, profiled: int,
-             host_activity: bool = True) -> None:
+             host_activity: bool = True,
+             ranks: Optional[_Ranks] = None) -> None:
     """step_ms (the median of ``timed`` CUDA-event steps after ``warmup``),
     device_busy_ms over ``profiled`` steps, the peak memory and the card;
-    on the CPU, says that nothing was measured."""
+    on the CPU, says that nothing was measured. On a mesh every step starts
+    after a barrier, step_ms is the median of the slowest card's times,
+    and each rank's measurements are listed by rank."""
     if dev.type != "cuda":
         rec["not_measured"] = ("step_ms, device_busy_ms, card: a CPU run "
                                "measures no device")
         return
+    ranks = ranks or _Ranks(None)
     for _ in range(warmup):
         step()
     times = []
     for _ in range(timed):
+        ranks.barrier()
+        torch.cuda.synchronize()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -401,13 +528,34 @@ def _measure(rec: dict, dev, step, timed: int, warmup: int, profiled: int,
         t1.record()
         torch.cuda.synchronize()
         times.append(t0.elapsed_time(t1))
-    rec["step_ms"] = statistics.median(times)
-    rec["step_ms_all"] = times
-    rec["device_busy_ms"], rec["device_top_kernels"] = _device_time(
-        step, profiled, host_activity)
-    rec["card"] = _card()
+    ranks.barrier()        # the cards enter their profiled steps together
+    busy, top, nccl = _device_time(step, profiled, host_activity)
+    mine = {"times": times, "busy": busy, "nccl": nccl,
+            "peak": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "card": _card(dev if ranks.mesh is not None else None)}
+    every = ranks.all(mine)
+    slowest = [max(r["times"][i] for r in every) for i in range(timed)]
+    rec["step_ms"] = statistics.median(slowest)
+    rec["step_ms_all"] = slowest
+    rec["device_top_kernels"] = top
     rec["device_name"] = torch.cuda.get_device_name(dev)
-    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    if ranks.mesh is None:
+        rec["device_busy_ms"], rec["card"] = busy, mine["card"]
+        rec["peak_mem_gb"] = mine["peak"]
+        return
+    rec["step_ms_by_rank"] = [statistics.median(r["times"]) for r in every]
+    for key, name in (("busy", "device_busy_ms"), ("nccl", "nccl_ms"),
+                      ("peak", "peak_mem_gb"), ("card", "card")):
+        rec[f"{name}_by_rank"] = [r[key] for r in every]
+    # NCCL kernels spin while they wait for the other cards: busy less NCCL
+    # is the card's own work
+    rec["compute_ms_by_rank"] = [
+        r["busy"] - r["nccl"] if isinstance(r["busy"], float) else r["busy"]
+        for r in every]
+    nums = [r["busy"] for r in every if isinstance(r["busy"], float)]
+    rec["device_busy_ms"] = max(nums) if nums else busy
+    rec["peak_mem_gb"] = max(r["peak"] for r in every)
+    rec["card"] = mine["card"]
 
 
 def _finite(arch, shape, logits, want, vocab: int) -> None:
@@ -422,29 +570,38 @@ def _finite(arch, shape, logits, want, vocab: int) -> None:
                              f"{tuple(logits.shape)} are not all finite")
 
 
-def _decode(rec, cfg, case, S, model, dev, gen, variant, out_dir) -> dict:
+def _decode(rec, cfg, case, S, model, dev, gen, variant, out_dir,
+            ranks: _Ranks) -> dict:
     batch = case.global_batch
     if dev.type == "cuda":
         free, total, budget = _budget(dev)
-        per_seq = _nbytes(T.init_cache(cfg, 1, S, device="meta"))
-        batch = min(batch, int(budget // max(per_seq, 1)))
+        per_seq = _nbytes(T.init_cache(cfg, 1, S, device="meta",
+                                       mesh=model.layout))
+        batch = ranks.min(min(batch, int(budget // max(per_seq, 1))))
         if batch < 1:
             return _not_fitting(out_dir, rec, (
-                f"one sequence's cache ({per_seq} bytes) does not fit "
-                f"beside the weights ({free} bytes free of {total})"))
+                f"one sequence's cache ({per_seq} bytes a card) does not "
+                f"fit beside the weights ({free} bytes free of {total})"),
+                ranks)
     _cut(rec, "global_batch", case.global_batch, batch,
          "the largest batch whose decode cache fits beside the weights")
     rec["global_batch"] = batch
     cut_case = dataclasses.replace(case, global_batch=batch, seq_len=S)
-    rec["flops"] = rec["flops_tc"] = count_flops(cfg, cut_case, variant)
+    layout = _flop_layout(model)
+    rec["flops"] = rec["flops_tc"] = count_flops(
+        cfg, cut_case, variant, mesh=layout, rules=model.layout and
+        model.layout.rules)
     rec["flops_source"] = ("FlopCounterMode over decode_step(append=True, "
-                           "impl='plain') on the meta device")
-    traffic = step_traffic(cfg, model, batch, S)
-    rec["bytes_accessed"] = rec["bytes_tc"] = sum(traffic.values())
-    rec["bytes_by_part"] = traffic
-    rec["bytes_source"] = BYTES_SOURCE
+                           "impl='plain') on the meta device"
+                           + ("" if layout is None else ", one card's"))
 
     fn, args = _cell(cfg, cut_case, variant, model, dev, gen)
+    cache = args[1] if model.layout is not None else None
+    traffic = step_traffic(cfg, model, batch, S, cache)
+    rec["bytes_accessed"] = rec["bytes_tc"] = sum(traffic.values())
+    rec["bytes_by_part"] = traffic
+    rec["bytes_source"] = BYTES_SOURCE + (
+        "" if cache is None else "; the busiest card's")
     steps = [0]
 
     def step():
@@ -452,16 +609,31 @@ def _decode(rec, cfg, case, S, model, dev, gen, variant, out_dir) -> dict:
         return fn(*args)[0]
 
     C = (cfg.n_codebooks,) if cfg.n_codebooks else ()
-    _finite(rec["arch"], rec["shape"], step(),
-            (batch,) + C + (T._padded_vocab(cfg),), cfg.vocab_size)
-    _measure(rec, dev, step, TIMED_STEPS, WARMUP_STEPS, PROFILED_STEPS)
+    want = (batch,) + C + (T._padded_vocab(cfg),)
+    if cache is not None:
+        (_, bl), = cache.layout.ranges(("batch",), (batch,))
+        want = (bl, model._unembed_vocab[2])
+    SH.reset_collectives()
+    _finite(rec["arch"], rec["shape"], step(), want,
+            cfg.vocab_size - (0 if cache is None else
+                              model._unembed_vocab[1]))
+    if cache is not None:
+        rec["cache_spec"] = list(cache.spec(cfg))
+        rec["collectives"] = SH.collectives()
+        rec["collectives_formula"] = model.step_collectives(cache)
+        rec["collectives_source"] = (
+            "sharding.collectives() over one decode step; the formula "
+            "Transformer.step_collectives")
+    _measure(rec, dev, step, TIMED_STEPS, WARMUP_STEPS, PROFILED_STEPS,
+             ranks=ranks)
     rec["decode_steps"] = steps[0]
     rec["ok"] = True
-    _write(out_dir, rec)
+    _write(out_dir, rec, ranks)
     return rec
 
 
-def _prefill(rec, cfg, case, S, model, dev, gen, variant, out_dir) -> dict:
+def _prefill(rec, cfg, case, S, model, dev, gen, variant, out_dir,
+             ranks: _Ranks) -> dict:
     batch = case.global_batch
     steps = [0]
     if dev.type == "cuda":
@@ -479,11 +651,11 @@ def _prefill(rec, cfg, case, S, model, dev, gen, variant, out_dir) -> dict:
             del args
             return _not_fitting(out_dir, rec, (
                 f"a one-sequence prefill at {S} tokens does not fit beside "
-                f"the weights: {str(e).splitlines()[0]}"))
+                f"the weights: {str(e).splitlines()[0]}"), ranks)
         per_seq = torch.cuda.max_memory_allocated(dev) - base
         del args
         free, total, budget = _budget(dev)
-        batch = min(batch, max(1, int(budget // max(per_seq, 1))))
+        batch = ranks.min(min(batch, max(1, int(budget // max(per_seq, 1)))))
         rec["bytes_one_sequence_peak"] = per_seq
     _cut(rec, "global_batch", case.global_batch, batch,
          "the largest batch whose prefill (its (B, S, V) logits and cache "
@@ -491,9 +663,13 @@ def _prefill(rec, cfg, case, S, model, dev, gen, variant, out_dir) -> dict:
          "sequence's prefill took")
     rec["global_batch"] = batch
     cut_case = dataclasses.replace(case, global_batch=batch, seq_len=S)
-    rec["flops"] = rec["flops_tc"] = count_flops(cfg, cut_case, variant)
+    layout = _flop_layout(model)
+    rec["flops"] = rec["flops_tc"] = count_flops(
+        cfg, cut_case, variant, mesh=layout, rules=model.layout and
+        model.layout.rules)
     rec["flops_source"] = ("FlopCounterMode over prefill(impl='plain') on "
-                           "the meta device")
+                           "the meta device"
+                           + ("" if layout is None else ", one card's"))
     traffic = prefill_traffic(cfg, model, batch, S)
     rec["bytes_accessed"] = rec["bytes_tc"] = sum(traffic.values())
     rec["bytes_by_part"] = traffic
@@ -506,14 +682,25 @@ def _prefill(rec, cfg, case, S, model, dev, gen, variant, out_dir) -> dict:
         return fn(*args)
 
     C = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    want, vocab = (batch, S) + C + (T._padded_vocab(cfg),), cfg.vocab_size
+    if model.tp is not None:
+        (_, bl), _ = model.layout.ranges(("batch", "seq"), (batch, S))
+        want = (bl, S, model._unembed_vocab[2])
+        vocab -= model._unembed_vocab[1]
+    SH.reset_collectives()
     out = step()
-    _finite(rec["arch"], rec["shape"], out[0],
-            (batch, S) + C + (T._padded_vocab(cfg),), cfg.vocab_size)
+    _finite(rec["arch"], rec["shape"], out[0], want, vocab)
     del out
-    _measure(rec, dev, step, PREFILL_TIMED, 0, 1)
+    if model.tp is not None:
+        rec["collectives"] = SH.collectives()
+        rec["collectives_formula"] = model.step_collectives()
+        rec["collectives_source"] = (
+            "sharding.collectives() over one prefill step; the formula "
+            "Transformer.step_collectives")
+    _measure(rec, dev, step, PREFILL_TIMED, 0, 1, ranks=ranks)
     rec["prefill_steps"] = steps[0]
     rec["ok"] = True
-    _write(out_dir, rec)
+    _write(out_dir, rec, ranks)
     return rec
 
 
@@ -573,7 +760,11 @@ def _train(rec, cfg, case, S, model, dev, gen, variant, out_dir) -> dict:
     return rec
 
 
-def _write(out_dir: Path, rec: dict) -> None:
+def _write(out_dir: Path, rec: dict,
+           ranks: Optional[_Ranks] = None) -> None:
+    """The record's file (rank 0's on a mesh)."""
+    if ranks is not None and ranks.rank != 0:
+        return
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     name = f"{rec['arch']}__{rec['shape']}__{rec['mesh']}.json"

@@ -7,19 +7,120 @@ Attention goes through ``kernels/ops.py``, so CUDA tensors run the
 hand-written kernels. A cross layer attends, without RoPE or a mask, over
 K/V projected from the vision tokens; its cache holds them and is static
 across decode.
+
+Tensor parallelism (a model on a mesh, ``TPPlan``): each card holds the
+slices of the weights that the reference's logical-axis rules give it and
+computes at its local widths. ``wq`` / ``wo`` are sharded over heads,
+``wk`` / ``wv`` over kv heads where they divide the axis, else replicated;
+the MLP's ``w_up`` / ``w_gate`` over d_ff by columns and ``w_down`` by rows.
+After ``wo`` and after ``w_down`` the cards' partial sums are all-reduced.
+Where ``wk`` is replicated, a card's query heads read only the kv heads
+they map to (qwen2's 12 / 2 heads over 4 cards: 3 query heads and one kv
+head a card). A decode cache sharded by kv heads is read as on one card; a
+cache sharded by sequence (``TPPlan.seq``) is read flash-decoding style
+across the cards: the query heads are gathered, the decode kernel runs
+over all heads on this card's rows in its partial mode (``start``, global
+lengths and window), the partials are gathered and merged by the kernel's
+combine pass, and the card keeps its heads for ``wo``; only the card that
+owns position ``lengths[b]`` writes or merges the new token.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 
 Params = dict
+
+# Logical axes of one layer's leaves (the reference's ``init_attention`` /
+# ``init_mlp`` / ``init_attention_cache`` axes; a stacked leaf adds a leading
+# "layers")
+ATTN_AXES = {
+    "wq": ("model_d", "heads", "head_dim"),
+    "wk": ("model_d", "kv_heads", "head_dim"),
+    "wv": ("model_d", "kv_heads", "head_dim"),
+    "wo": ("heads", "head_dim", "model_d"),
+    "bq": ("heads", "head_dim"),
+    "bk": ("kv_heads", "head_dim"),
+    "bv": ("kv_heads", "head_dim"),
+}
+MLP_AXES = {"w_up": ("model_d", "ff"), "w_down": ("ff", "model_d"),
+            "w_gate": ("model_d", "ff")}
+CACHE_AXES = ("batch", "kv_seq", "kv_heads", None)
+
+
+@dataclasses.dataclass(frozen=True)
+class TPPlan:
+    """Where this card's part of the attention and dense-MLP layers lives:
+    the spec entry of each sharded dim (None: replicated) and the card's
+    range of it. ``seq`` / ``s0`` (the decode cache's row shard and the
+    global position of its row 0) and ``cache_kv`` / ``cache_kv0`` (its kv
+    heads) are set per decode step from the cache's layout."""
+
+    layout: SH.Layout
+    heads: Any
+    h0: int
+    hl: int
+    kv: Any
+    kv0: int
+    kvl: int
+    ff: Any
+    seq: Any = None
+    s0: int = 0
+    cache_kv: Any = None
+    cache_kv0: int = 0
+
+
+def tp_plan(cfg: ModelConfig, layout: SH.Layout) -> TPPlan:
+    """The plan of ``cfg``'s attention and MLP layers under ``layout``."""
+    H, KV, Dh, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    heads = layout.spec(ATTN_AXES["wq"], (D, H, Dh))[1]
+    kv = layout.spec(ATTN_AXES["wk"], (D, KV, Dh))[1]
+    ff = layout.spec(MLP_AXES["w_up"], (D, cfg.d_ff))[1]
+    hl, kvl = H // layout.size(heads), KV // layout.size(kv)
+    return TPPlan(layout, heads, layout.index(heads) * hl, hl, kv,
+                  layout.index(kv) * kvl, kvl, ff)
+
+
+def _q_kv_heads(cfg: ModelConfig, tp: TPPlan) -> tuple[int, int]:
+    """The global kv heads [lo, hi) this card's query heads read. Its heads
+    must map to whole kv heads with one group size: a kv head's group
+    split over cards (G % hl == 0) or whole groups (hl % G == 0)."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    if not (tp.hl % G == 0 or G % tp.hl == 0):
+        raise NotImplementedError(
+            f"{tp.hl} query heads a card against groups of {G}: a card's "
+            "heads must read whole kv heads with one group size")
+    return tp.h0 // G, (tp.h0 + tp.hl - 1) // G + 1
+
+
+def _kv_for_q(cfg: ModelConfig, tp: Optional[TPPlan], k: torch.Tensor,
+              v: torch.Tensor, k0: int):
+    """The kv heads of k / v (..., KVH', Dh) whose first is global kv head
+    ``k0`` that this card's query heads read (views)."""
+    if tp is None or tp.heads is None:
+        return k, v
+    lo, hi = _q_kv_heads(cfg, tp)
+    if lo < k0 or hi - k0 > k.shape[-2]:
+        raise ValueError(f"kv heads [{lo}, {hi}) are not on this card "
+                         f"({k.shape[-2]} from {k0})")
+    return k[..., lo - k0:hi - k0, :], v[..., lo - k0:hi - k0, :]
+
+
+def row_parallel(out: torch.Tensor, tp: Optional[TPPlan],
+                 entry) -> torch.Tensor:
+    """The cards' partial sums of a row-parallel product, all-reduced over
+    ``entry`` (nothing where it is replicated)."""
+    if tp is None or entry is None:
+        return out
+    return SH.all_reduce(out, tp.layout, entry)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -92,11 +193,13 @@ def init_attention(cfg: ModelConfig, spec: LayerSpec, rep: int, init) -> Params:
 def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: Params,
                       x: torch.Tensor, *, positions: torch.Tensor,
                       vision_kv: Optional[torch.Tensor] = None,
-                      impl: Optional[str] = None):
+                      impl: Optional[str] = None,
+                      tp: Optional[TPPlan] = None):
     """Full-sequence (prefill) attention. x: (B, S, D); positions: (B, S);
     vision_kv (B, Nv, D) for cross layers. Returns (out (B, S, D), {"k",
     "v"} of shape (B, S, KVH, Dh), or (B, Nv, KVH, Dh) for a cross layer,
-    whose K/V is static across decode)."""
+    whose K/V is static across decode). With ``tp`` the heads and the K/V
+    are this card's (``wk``'s kv heads) and ``out`` is all-reduced."""
     q = _q(p, x)
     if spec.attn_type == "cross":
         k, v = _kv(p, vision_kv)
@@ -107,14 +210,18 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: Params,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     window = cfg.sliding_window if spec.attn_type == "local" else None
-    out = ops.flash_attention(q, k, v, causal=True, window=window,
+    kq, vq = _kv_for_q(cfg, tp, k, v, 0 if tp is None else tp.kv0)
+    out = ops.flash_attention(q, kq.contiguous(), vq.contiguous(),
+                              causal=True, window=window,
                               softcap=cfg.attn_softcap, impl=impl)
-    return _out_proj(out, p["wo"]), {"k": k, "v": v}
+    return (row_parallel(_out_proj(out, p["wo"]), tp, tp and tp.heads),
+            {"k": k, "v": v})
 
 
 def attention_decode(cfg: ModelConfig, spec: LayerSpec, p: Params,
                      x: torch.Tensor, cache: dict, lengths: torch.Tensor,
-                     *, append: bool = False, impl: Optional[str] = None):
+                     *, append: bool = False, impl: Optional[str] = None,
+                     tp: Optional[TPPlan] = None):
     """One decode step. x: (B, 1, D); cache {"k", "v"} of shape (B, Smax,
     KVH, Dh); lengths (B,) tokens already in the cache.
 
@@ -129,6 +236,10 @@ def attention_decode(cfg: ModelConfig, spec: LayerSpec, p: Params,
     A cross layer attends over its whole static cache (every row's length
     the cache's vision tokens), with no RoPE and no new K/V; it returns
     the cache in committed mode and no deltas ({}) in append mode.
+
+    With ``tp`` (module docstring) the cache is this card's shard and
+    ``lengths`` stay global; a sequence-sharded cache is written only on
+    the card that owns position ``lengths[b]``.
     """
     B = x.shape[0]
     q = _q(p, x)
@@ -144,20 +255,75 @@ def attention_decode(cfg: ModelConfig, spec: LayerSpec, p: Params,
     q = rope(q, pos, cfg.rope_theta)
     k_new = rope(k_new, pos, cfg.rope_theta)
     window = cfg.sliding_window if spec.attn_type == "local" else None
-    if append:
-        out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths,
-                                   window=window, softcap=cfg.attn_softcap,
-                                   k_new=k_new[:, 0], v_new=v_new[:, 0],
-                                   impl=impl)
-        return (_out_proj(out, p["wo"])[:, None],
-                {"k_new": k_new[:, 0], "v_new": v_new[:, 0]})
-    bidx = torch.arange(B, device=x.device)
-    cache["k"][bidx, lengths] = k_new[:, 0]
-    cache["v"][bidx, lengths] = v_new[:, 0]
-    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths + 1,
-                               window=window, softcap=cfg.attn_softcap,
-                               impl=impl)
-    return _out_proj(out, p["wo"])[:, None], cache
+    kn, vn = k_new[:, 0], v_new[:, 0]
+    if tp is not None and tp.seq is not None:
+        out = _decode_seq_sharded(cfg, q[:, 0], cache, lengths, kn, vn,
+                                  window, append, impl, tp)
+    else:
+        if not append:
+            bidx = torch.arange(B, device=x.device)
+            cache["k"][bidx, lengths] = kn
+            cache["v"][bidx, lengths] = vn
+        kc, vc = cache["k"], cache["v"]
+        if tp is not None:     # the kv heads this card's query heads read
+            kc, vc = _kv_for_q(cfg, tp, kc, vc, tp.cache_kv0)
+            kn_q, vn_q = _kv_for_q(cfg, tp, kn, vn, tp.kv0)
+            kn_q, vn_q = kn_q.contiguous(), vn_q.contiguous()
+        else:
+            kn_q, vn_q = kn, vn
+        if append:
+            out = ops.decode_attention(q[:, 0], kc, vc, lengths,
+                                       window=window,
+                                       softcap=cfg.attn_softcap,
+                                       k_new=kn_q, v_new=vn_q, impl=impl)
+        else:
+            out = ops.decode_attention(q[:, 0], kc, vc, lengths + 1,
+                                       window=window,
+                                       softcap=cfg.attn_softcap, impl=impl)
+    out = row_parallel(_out_proj(out, p["wo"]), tp, tp and tp.heads)
+    return out[:, None], ({"k_new": kn, "v_new": vn} if append else cache)
+
+
+def write_owned(leaf: torch.Tensor, bidx: torch.Tensor,
+                lengths: torch.Tensor, new: torch.Tensor,
+                s0: int) -> None:
+    """Write ``new`` at global position ``lengths[b]`` of each row of a
+    sequence-sharded cache ``leaf`` (..., B, S_local, KVH, Dh) whose row 0
+    is position ``s0``, IN PLACE, on the card that owns the position: the
+    others write back what they hold there. Device indices and a mask, no
+    host sync."""
+    S = leaf.shape[-3]
+    idx = (lengths - s0).clamp(0, S - 1)
+    own = ((lengths >= s0) & (lengths < s0 + S))[:, None, None]
+    old = leaf[..., bidx, idx, :, :]
+    leaf[..., bidx, idx, :, :] = torch.where(own, new.to(leaf.dtype), old)
+
+
+def _decode_seq_sharded(cfg, q, cache, lengths, kn, vn, window, append,
+                        impl, tp: TPPlan) -> torch.Tensor:
+    """Decode attention over a cache sharded by sequence (the module
+    docstring): this card's query heads (B, hl, Dh) in, its heads' rows
+    (B, hl, Dh) out."""
+    if tp.kv is not None or tp.cache_kv is not None:
+        raise NotImplementedError("a cache sharded by sequence holds every "
+                                  "kv head: wk must be replicated")
+    layout = tp.layout
+    qa = SH.all_gather(q, layout, tp.heads, dim=1) if tp.heads else q
+    if not append:
+        bidx = torch.arange(q.shape[0], device=q.device)
+        write_owned(cache["k"], bidx, lengths, kn, tp.s0)
+        write_owned(cache["v"], bidx, lengths, vn, tp.s0)
+    news = {"k_new": kn, "v_new": vn} if append else {}
+    part = ops.decode_attention(
+        qa.contiguous(), cache["k"], cache["v"],
+        lengths if append else lengths + 1, window=window,
+        softcap=cfg.attn_softcap, start=tp.s0, partial=True, impl=impl,
+        **news)
+    parts = SH.gather_partials(part, layout, tp.seq)
+    out = ops.decode_merge(parts, q.dtype, impl=impl)
+    if tp.heads is None:
+        return out
+    return out[:, tp.h0:tp.h0 + tp.hl].contiguous()
 
 
 def init_attention_cache(cfg: ModelConfig, spec: LayerSpec, rep: int,
@@ -196,11 +362,14 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(name)
 
 
-def mlp_forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                tp: Optional[TPPlan] = None) -> torch.Tensor:
+    """The dense MLP; with ``tp`` at this card's d_ff columns, the output
+    all-reduced."""
     dt = x.dtype
     h = x @ p["w_up"].to(dt)
     if "w_gate" in p:
         h = _act(cfg.mlp_act, x @ p["w_gate"].to(dt)) * h
     else:
         h = _act(cfg.mlp_act, h)
-    return h @ p["w_down"].to(dt)
+    return row_parallel(h @ p["w_down"].to(dt), tp, tp and tp.ff)

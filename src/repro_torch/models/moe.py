@@ -36,6 +36,15 @@ from repro_torch.kernels import ops, ref
 Params = dict
 
 
+# logical axes of one layer's leaves (the reference's ``init_moe``)
+MOE_AXES = {
+    "router": ("model_d", None),
+    "w_gate": ("experts", "model_d", "expert_ff"),
+    "w_up": ("experts", "model_d", "expert_ff"),
+    "w_down": ("experts", "expert_ff", "model_d"),
+}
+
+
 def init_moe(cfg: ModelConfig, rep: int, init) -> Params:
     """Stacked (leading ``rep`` dim) MoE parameters; the router is fp32
     whatever the parameter dtype, as in the reference."""

@@ -45,6 +45,37 @@ def init_state(cfg: ModelConfig, spec: LayerSpec, batch: int, dtype,
     raise ValueError(spec.kind)
 
 
+# Logical axes of one layer's leaves (the reference's ``init_*`` axes; a
+# stacked leaf adds a leading "layers"): parameters, then cache states.
+MAMBA_AXES = {
+    "in_proj": ("model_d", "d_inner"), "conv_w": ("conv", "d_inner"),
+    "conv_b": ("d_inner",), "x_proj": ("d_inner", None),
+    "dt_w": (None, "d_inner"), "dt_bias": ("d_inner",),
+    "A_log": ("d_inner", "state"), "Dskip": ("d_inner",),
+    "out_proj": ("d_inner", "model_d"),
+}
+RWKV_AXES = {
+    "mu_x": ("model_d",), "mu": (None, "model_d"),
+    "maa_w1": ("model_d", None), "maa_w2": (None, None, "model_d"),
+    "decay_base": ("model_d",),
+    "decay_w1": ("model_d", None), "decay_w2": (None, "model_d"),
+    "u": ("rwkv_heads", None),
+    "wr": ("model_d", "d_inner"), "wk": ("model_d", "d_inner"),
+    "wv": ("model_d", "d_inner"), "wg": ("model_d", "d_inner"),
+    "wo": ("d_inner", "model_d"),
+    "ln_x_scale": ("model_d",), "ln_x_bias": ("model_d",),
+    "mu_k_c": ("model_d",), "mu_r_c": ("model_d",),
+    "wk_c": ("model_d", "ff"), "wv_c": ("ff", "model_d"),
+    "wr_c": ("model_d", "d_inner"),
+}
+STATE_AXES = {
+    "mamba": {"h": ("batch", "d_inner", None),
+              "conv": ("batch", None, "d_inner")},
+    "rwkv": {"wkv": ("batch", "rwkv_heads", None, None),
+             "shift_tm": ("batch", None), "shift_cm": ("batch", None)},
+}
+
+
 # ===========================================================================
 # Mamba
 # ===========================================================================

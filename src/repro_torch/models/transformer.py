@@ -40,18 +40,38 @@ projection computed once a pass, codebook labels (B, S, C) against logits
 ``jax.checkpoint`` with ``nothing_saveable`` over its scan body).
 Parameters are created with ``requires_grad=False``; the train step
 (``launch/steps.py``) turns gradients on.
+
+On a mesh (``Transformer(..., mesh=, rules=)``: a ``DeviceMesh`` from
+``launch/mesh.py`` and the reference's logical-axis rules,
+``distributed/sharding.py``) every card runs the same program on its
+shards: each leaf is drawn whole on the card from the seed and cut to the
+slice ``param_axes`` and the rules give it, so a sharded model equals the
+unsharded one; the embedding is vocab-parallel (a masked local lookup, then
+an all-reduce), the logits stay sharded over vocab (and batch), and the
+attention and dense-MLP layers are tensor-parallel (``layers.TPPlan``).
+``init_cache(..., mesh=, rules=)`` gives the card's shard of a decode
+cache (``ShardedCache``, which carries its layout): by kv heads where they
+divide the model axis, else by sequence, as ``launch/steps.py::rules_for``
+decides. Inputs (tokens, lengths) are global on every card; each card takes
+its batch rows. ``gather_logits`` assembles the full logits. Serving runs
+attention with dense MLPs this way; recurrent, MoE, cross-attention and
+codebook layers on a mesh, and training on one, are ROADMAP A9c.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import _pytree
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.tree import named, nest
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -87,6 +107,78 @@ def check_trainable(cfg: ModelConfig) -> None:
     check_supported(cfg)
 
 
+A9C = "ROADMAP A9c"
+
+
+def check_shardable(cfg: ModelConfig) -> None:
+    """Raise unless the port runs ``cfg`` on a mesh: self-attention layers
+    with dense MLPs (or none) and one token stream without vision inputs.
+    Recurrent, MoE, cross-attention and codebook layers on a mesh are
+    ROADMAP A9c."""
+    check_supported(cfg)
+    for spec in cfg.layer_specs():
+        if spec.kind != "attn" or spec.attn_type == "cross" \
+                or spec.mlp == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: {spec.kind} {spec.attn_type or ''} "
+                f"{spec.mlp} layers on a mesh are {A9C}")
+    if cfg.n_codebooks or cfg.n_vision_tokens:
+        raise NotImplementedError(f"{cfg.name}: codebook and vision models "
+                                  f"on a mesh are {A9C}")
+
+
+def _axes_of(cfg: ModelConfig, name: str) -> tuple:
+    """The logical axes of the parameter ``name`` (the reference's
+    ``param_axes`` leaf): stacked layer leaves lead with "layers"."""
+    parts = name.split(".")
+    C = (None,) if cfg.n_codebooks else ()
+    if len(parts) == 1:
+        return {"embed": C + ("vocab", "model_d"),
+                "lm_head": C + ("model_d", "vocab"),
+                "vision_proj": ("model_d", None),
+                "final_norm": ("model_d",)}[name]
+    spec = cfg.groups[int(parts[0][1:])][0][int(parts[1])]
+    if len(parts) == 3:                              # norms
+        return ("layers", "model_d")
+    if parts[2] == "mixer":
+        table = {"attn": L.ATTN_AXES, "mamba": SSM.MAMBA_AXES,
+                 "rwkv": SSM.RWKV_AXES}[spec.kind]
+    else:
+        table = MOE.MOE_AXES if spec.mlp == "moe" else L.MLP_AXES
+    return ("layers",) + table[parts[3]]
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of every parameter, in the reference's params structure
+    (``param_tree``), as its ``param_axes`` gives them."""
+    return nest({name: _axes_of(cfg, name) for name, _ in
+                 Transformer(cfg, device="meta").named_parameters()})
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of every decode-cache leaf, in ``init_cache``'s
+    structure, as the reference's ``cache_axes`` gives them."""
+    def layer(spec):
+        if spec.kind == "attn":
+            return {"k": ("layers",) + L.CACHE_AXES,
+                    "v": ("layers",) + L.CACHE_AXES}
+        return {k: ("layers",) + ax for k, ax in SSM.STATE_AXES[spec.kind]
+                .items()}
+
+    return {f"g{gi}": tuple({"mixer": layer(spec)} for spec in period)
+            for gi, (period, _) in enumerate(cfg.groups)}
+
+
+def _layout(mesh, rules) -> Optional[SH.Layout]:
+    """A model's or a cache's ``Layout``: ``mesh`` a ``DeviceMesh`` or a
+    ``Layout`` (the meta device's, without a process group)."""
+    if mesh is None:
+        return None
+    if isinstance(mesh, SH.Layout):
+        return mesh if rules is None else mesh.with_rules(rules)
+    return SH.Layout.of(mesh, rules)
+
+
 def is_recurrent(cfg: ModelConfig) -> bool:
     """True when a layer carries a recurrent state (Mamba or RWKV)."""
     return any(spec.kind in ("mamba", "rwkv") for spec in cfg.layer_specs())
@@ -105,33 +197,43 @@ def _params(tensors: dict) -> nn.ParameterDict:
 
 class _LayerStack(nn.Module):
     """One period position of a group: its parameters stacked over the
-    group's ``rep`` repeats."""
+    group's ``rep`` repeats. ``init`` gives each leaf's draw (a function
+    of no arguments, run in the order the leaves are made) and ``place(name,
+    draw)`` runs it and keeps this card's slice of leaf ``prefix.name``."""
 
-    def __init__(self, cfg: ModelConfig, spec: LayerSpec, rep: int, init):
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec, rep: int, init,
+                 place, prefix: str):
         super().__init__()
         D = cfg.d_model
 
-        def norm():
-            return nn.Parameter(init((rep, D), None), requires_grad=False)
+        def norm(name):
+            return nn.Parameter(place(f"{prefix}.{name}",
+                                      init((rep, D), None)),
+                                requires_grad=False)
+
+        def params(sub, draws):
+            return _params({k: place(f"{prefix}.{sub}.{k}", d)
+                            for k, d in draws.items()})
 
         self.rep = rep
-        self.norm1 = norm()
+        self.norm1 = norm("norm1")
         if spec.kind == "mamba":
-            self.mixer = _params(SSM.init_mamba(cfg, rep, init))
+            self.mixer = params("mixer", SSM.init_mamba(cfg, rep, init))
         elif spec.kind == "rwkv":
-            self.mixer = _params(SSM.init_rwkv(cfg, rep, init))
+            self.mixer = params("mixer", SSM.init_rwkv(cfg, rep, init))
         else:
-            self.mixer = _params(L.init_attention(cfg, spec, rep, init))
+            self.mixer = params("mixer",
+                                L.init_attention(cfg, spec, rep, init))
         # an RWKV layer's norm2 feeds its channel mix; it has no mlp
         if spec.kind == "rwkv" or spec.mlp != "none":
-            self.norm2 = norm()
+            self.norm2 = norm("norm2")
         if spec.kind != "rwkv" and spec.mlp != "none":
-            self.mlp = _params(MOE.init_moe(cfg, rep, init)
-                               if spec.mlp == "moe"
-                               else L.init_mlp(cfg, rep, init))
+            self.mlp = params("mlp", MOE.init_moe(cfg, rep, init)
+                              if spec.mlp == "moe"
+                              else L.init_mlp(cfg, rep, init))
         if cfg.use_post_norms:
-            self.post_norm1 = norm()
-            self.post_norm2 = norm()
+            self.post_norm1 = norm("post_norm1")
+            self.post_norm2 = norm("post_norm2")
 
     def per_layer(self) -> list[dict]:
         """One dict of views per repeat: {"norm1": t, "mixer": {...}, ...}."""
@@ -155,22 +257,52 @@ class Transformer(nn.Module):
     ``generator`` seeds the normal init (a fresh one seeded 0 when omitted);
     norms start at one and biases at zero, as in the JAX init. The model is
     built on ``device`` (CUDA by default; raises when CUDA is missing).
+
+    ``mesh`` (a ``DeviceMesh``, or a ``sharding.Layout`` on the meta device)
+    and ``rules`` (``sharding.ShardingRules``; the context's when None)
+    build this card's shard of every leaf (module docstring): each is drawn
+    whole from the generator, in the unsharded model's order, and cut, so
+    one leaf at a time is whole on the card.
     """
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None,
+                 rules: Optional[SH.ShardingRules] = None):
         super().__init__()
         check_supported(cfg)
+        self.layout = _layout(mesh, rules)
+        if self.layout is not None:
+            check_shardable(cfg)
         dev = resolve_device(device)
         pd = getattr(torch, cfg.param_dtype)
         if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
 
+        def place(name, draw):
+            """Run ``draw`` and keep this card's slice of leaf ``name``
+            (a copy, so the whole leaf is freed)."""
+            full = draw()
+            if self.layout is None:
+                return full
+            part = self.layout.local(full, _axes_of(cfg, name))
+            if part.shape == full.shape:
+                return full
+            if full.is_cuda:
+                # the draw's fp32 temporary is free in the caching allocator;
+                # a slice placed in its block would pin the whole block (13.6
+                # GB of gemma2's stacked d_ff leaves a card), so return it
+                torch.cuda.empty_cache()
+            return part.clone()
+
         def init(shape, std, dtype=None, *, fill=1.0):
-            """std None: ``fill`` in fp32 (a number, or a tensor broadcast
-            over the leading dims): norm scales and the recurrent layers'
-            fp32 constants; 0.0: zeros; else normal weights in ``dtype``
-            (the param dtype when None)."""
+            """The draw of one leaf (``place`` runs it): std None: ``fill``
+            in fp32 (a number, or a tensor broadcast over the leading dims):
+            norm scales and the recurrent layers' fp32 constants; 0.0:
+            zeros; else normal weights in ``dtype`` (the param dtype when
+            None)."""
+            return functools.partial(draw, shape, std, dtype, fill)
+
+        def draw(shape, std, dtype, fill):
             if std is None:
                 out = torch.empty(shape, dtype=torch.float32, device=dev)
                 return out.copy_(torch.as_tensor(fill, dtype=torch.float32))
@@ -181,21 +313,38 @@ class Transformer(nn.Module):
                             dtype=torch.float32)
             return w.mul_(std).to(dt)     # in place: one fp32 temporary
 
+        def top(name, shape, std):
+            return nn.Parameter(place(name, init(shape, std)),
+                                requires_grad=False)
+
         self.cfg = cfg
         D, V = cfg.d_model, _padded_vocab(cfg)
         C = (cfg.n_codebooks,) if cfg.n_codebooks else ()
-        self.embed = nn.Parameter(init(C + (V, D), 0.02),
-                                  requires_grad=False)
+        self.embed = top("embed", C + (V, D), 0.02)
         if cfg.n_vision_tokens:
-            self.vision_proj = nn.Parameter(init((D, D), D ** -0.5),
-                                            requires_grad=False)
-        self.final_norm = nn.Parameter(init((D,), None), requires_grad=False)
+            self.vision_proj = top("vision_proj", (D, D), D ** -0.5)
+        self.final_norm = top("final_norm", (D,), None)
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(init(C + (D, V), 0.02),
-                                        requires_grad=False)
+            self.lm_head = top("lm_head", C + (D, V), 0.02)
         for gi, (period, rep) in enumerate(cfg.groups):
             self.add_module(f"g{gi}", nn.ModuleList(
-                [_LayerStack(cfg, spec, rep, init) for spec in period]))
+                [_LayerStack(cfg, spec, rep, init, place, f"g{gi}.{j}")
+                 for j, spec in enumerate(period)]))
+        self.tp = None
+        if self.layout is not None:
+            self.tp = L.tp_plan(cfg, self.layout)
+            # the vocab shards of the embedding and of the unembedding
+            self._embed_vocab = self._vocab_range(
+                "embed", (V, D), 0)
+            self._unembed_vocab = self._embed_vocab if cfg.tie_embeddings \
+                else self._vocab_range("lm_head", (D, V), 1)
+
+    def _vocab_range(self, name: str, shape, dim: int):
+        """(spec entry, first row, rows) of leaf ``name``'s vocab dim on
+        this card."""
+        entry = self.layout.spec(_axes_of(self.cfg, name), shape)[dim]
+        n = shape[dim] // self.layout.size(entry)
+        return entry, self.layout.index(entry) * n, n
 
     @property
     def device(self) -> torch.device:
@@ -204,12 +353,19 @@ class Transformer(nn.Module):
     # -- pieces ----------------------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S), or (B, S, C) with codebooks: the C embeddings
-        summed in codebook order."""
+        summed in codebook order. On a mesh with the vocab sharded, a
+        masked lookup of this card's rows, all-reduced."""
         emb = self.embed.to(getattr(torch, self.cfg.dtype))
         if self.cfg.n_codebooks:
             return sum(emb[c][tokens[..., c]]
                        for c in range(self.cfg.n_codebooks))
-        return emb[tokens]
+        if self.tp is None or self._embed_vocab[0] is None:
+            return emb[tokens]
+        entry, v0, n = self._embed_vocab
+        local = tokens - v0
+        mine = (local >= 0) & (local < n)
+        h = torch.where(mine[..., None], emb[local.clamp(0, n - 1)], 0.0)
+        return SH.all_reduce(h.to(emb.dtype), self.layout, entry)
 
     def _unembed(self, h: torch.Tensor) -> torch.Tensor:
         """Logits (B, S, Vp), or (B, S, C, Vp) with codebooks; padded vocab
@@ -225,33 +381,79 @@ class Transformer(nn.Module):
         if cfg.final_softcap is not None:
             logits = cfg.final_softcap * torch.tanh(
                 logits.float() / cfg.final_softcap).to(logits.dtype)
-        if logits.shape[-1] != cfg.vocab_size:
+        v0 = 0 if self.tp is None else self._unembed_vocab[1]
+        if v0 + logits.shape[-1] > cfg.vocab_size:
             # mask padded vocab rows out of the softmax (and argmax sampling)
-            pad = torch.arange(logits.shape[-1], device=logits.device) \
-                >= cfg.vocab_size
+            pad = v0 + torch.arange(logits.shape[-1],
+                                    device=logits.device) >= cfg.vocab_size
             logits = logits.masked_fill(pad, -1e30)
         return logits
 
+    def gather_logits(self, logits: torch.Tensor,
+                      batch: int) -> torch.Tensor:
+        """The full logits of a global batch of ``batch`` rows from this
+        card's shard (gathered over the vocab and batch axes); the logits
+        themselves on one card."""
+        if self.tp is None:
+            return logits
+        logits = SH.all_gather(logits, self.layout, self._unembed_vocab[0],
+                               dim=logits.dim() - 1)
+        entry = self.layout.spec(("batch",), (batch,))[0]
+        return SH.all_gather(logits, self.layout, entry, dim=0)
+
+    def step_collectives(self, cache: Optional[dict] = None) -> dict:
+        """The collectives one prefill (``cache`` None) or decode step on
+        ``cache`` makes on a mesh, by kind, from the layout (the formula
+        the counts of ``sharding.collectives()`` are held to): the
+        embedding's all-reduce; per attention layer the all-reduce after
+        ``wo``, and over a sequence-sharded cache the all-gathers of the
+        query heads and of the decode partials; per dense MLP the
+        all-reduce after ``w_down``. A dim sharded over axes of size 1 is
+        no collective; ``gather_logits`` is not part of a step."""
+        if self.tp is None:
+            return {}
+        tp = self.tp if cache is None else cache.plan(self)[0]
+        live = lambda entry: self.layout.size(entry) > 1   # noqa: E731
+        n = {"all-reduce": int(live(self._embed_vocab[0])), "all-gather": 0}
+        for spec in self.cfg.layer_specs():
+            n["all-reduce"] += live(tp.heads) + (spec.mlp == "dense"
+                                                 and live(tp.ff))
+            if cache is not None and live(tp.seq):
+                n["all-gather"] += 1 + live(tp.heads)
+        return {k: v for k, v in n.items() if v}
+
+    def _rows(self, x: torch.Tensor,
+              layout: Optional[SH.Layout] = None) -> torch.Tensor:
+        """This card's batch rows of a global input (all rows on one card,
+        or where the batch is not sharded)."""
+        layout = layout or self.layout
+        if layout is None:
+            return x
+        (b0, n), = layout.ranges(("batch",), (x.shape[0],))
+        return x[b0:b0 + n]
+
     def _layer(self, spec: LayerSpec, p: dict, x: torch.Tensor, *,
                positions=None, cache=None, lengths=None, append=False,
-               vision_kv=None, impl=None):
+               vision_kv=None, impl=None, tp=None):
         """One layer. ``cache`` None: prefill (attention returns its K/V,
         a cross layer that of ``vision_kv``, a recurrent layer starts from
         a zero state); else this layer's cache views (decode: attention
         writes K/V into them, or with ``append`` returns its {"k_new",
         "v_new"}). Returns (x, the layer's new K/V, deltas or recurrent
-        state, its MoE aux losses or None)."""
+        state, its MoE aux losses or None). ``tp`` the card's plan on a
+        mesh (``layers.TPPlan``)."""
         cfg = self.cfg
         h_in = L.rms_norm(x, p["norm1"], cfg.norm_eps)
         if spec.kind == "attn":
             if cache is None:
                 mix_out, new = L.attention_forward(
                     cfg, spec, p["mixer"], h_in, positions=positions,
-                    vision_kv=vision_kv, impl=impl)
+                    vision_kv=vision_kv, impl=impl, tp=tp)
             else:
                 mix_out, new = L.attention_decode(cfg, spec, p["mixer"],
                                                   h_in, cache, lengths,
-                                                  append=append, impl=impl)
+                                                  append=append, impl=impl,
+                                                  tp=tp)
         else:
             st = cache if cache is not None else SSM.init_state(
                 cfg, spec, x.shape[0], x.dtype, x.device)
@@ -278,7 +480,7 @@ class Transformer(nn.Module):
         if spec.mlp == "moe":
             mlp_out, aux = MOE.moe_forward(cfg, p["mlp"], h2, impl=impl)
         else:
-            mlp_out = L.mlp_forward(cfg, p["mlp"], h2)
+            mlp_out = L.mlp_forward(cfg, p["mlp"], h2, tp=tp)
         if cfg.use_post_norms:
             mlp_out = L.rms_norm(mlp_out, p["post_norm2"], cfg.norm_eps)
         return x + mlp_out, new, aux
@@ -308,7 +510,10 @@ class Transformer(nn.Module):
         """Full-sequence pass over tokens (B, S), or (B, S, C) with
         codebooks; a vision config also takes ``vision_embeds`` (B, Nv, D).
         Returns (logits (B, S, V) or (B, S, C, V), cache) with cache
-        capacity == S (a cross layer's: Nv)."""
+        capacity == S (a cross layer's: Nv). On a mesh: this card's batch
+        rows of the global tokens, its vocab shard of the logits and its
+        cache (``wk``'s kv heads, every position)."""
+        tokens = self._rows(tokens)
         h = self._embed(tokens)
         B, S = tokens.shape[:2]
         positions = torch.arange(S, device=h.device).expand(B, S)
@@ -320,7 +525,8 @@ class Transformer(nn.Module):
                 for li, spec in enumerate(period):
                     h, new, _ = self._layer(spec, views[li][r], h,
                                             positions=positions,
-                                            vision_kv=vision_kv, impl=impl)
+                                            vision_kv=vision_kv, impl=impl,
+                                            tp=self.tp)
                     per_pos[li].append(new)
             caches[f"g{gi}"] = tuple(
                 {"mixer": {name: torch.stack([st[name] for st in sts])
@@ -366,6 +572,8 @@ class Transformer(nn.Module):
         step."""
         cfg = self.cfg
         check_trainable(cfg)
+        if self.layout is not None:
+            raise NotImplementedError(f"training on a mesh is {A9C}")
         h = self._embed(tokens)
         B, S = tokens.shape[:2]
         positions = torch.arange(S, device=h.device).expand(B, S)
@@ -412,12 +620,28 @@ class Transformer(nn.Module):
         written (on the device an out-of-range write would be a device-side
         fault): never negative, and below the capacity of the first
         self-attention layer's cache where the config has one (a recurrent
-        state has no capacity)."""
+        state has no capacity); on a mesh, the cache's global capacity.
+
+        On a mesh ``cache`` is this card's ``ShardedCache``; tokens and
+        lengths are global, the logits this card's shard (its batch rows,
+        its vocab columns: ``gather_logits``). A sequence-sharded cache is
+        written only where a card owns position ``lengths[b]``."""
+        tp, layout, s0 = self.tp, None, 0
+        if tp is not None:
+            if not isinstance(cache, ShardedCache):
+                raise ValueError("a model on a mesh decodes a cache from "
+                                 "init_cache(..., mesh=)")
+            tp, layout = cache.plan(self)
+            s0 = tp.s0
         if lengths.device.type == "cpu":
-            max_seq = _attention_capacity(self.cfg, cache)
+            max_seq = (_attention_capacity(self.cfg, cache)
+                       if layout is None else cache.max_seq)
             if bool(((lengths < 0) | (lengths >= max_seq)).any()):
                 raise ValueError(f"lengths {lengths.tolist()} outside the "
                                  f"cache's [0, {max_seq})")
+        if layout is not None:
+            tokens = self._rows(tokens, layout=layout)
+            lengths = self._rows(lengths, layout=layout)
         h = self._embed(tokens[:, None])
         lengths = lengths.to(device=h.device, dtype=torch.int64)
         bidx = None          # batch rows of the append-mode commit
@@ -430,7 +654,7 @@ class Transformer(nn.Module):
                     h, new, _ = self._layer(spec, views[li][r], h,
                                             cache=layer_cache,
                                             lengths=lengths, append=append,
-                                            impl=impl)
+                                            impl=impl, tp=tp)
                     if spec.kind == "attn":
                         if append:
                             deltas[li].append(new)
@@ -447,10 +671,49 @@ class Transformer(nn.Module):
                 if bidx is None:
                     bidx = torch.arange(h.shape[0], device=h.device)
                 for name in ("k", "v"):
-                    leaves[name][:, bidx, lengths] = torch.stack(
-                        [d[f"{name}_new"] for d in deltas[li]])
+                    new = torch.stack([d[f"{name}_new"] for d in deltas[li]])
+                    if tp is not None and tp.seq is not None:
+                        L.write_owned(leaves[name], bidx, lengths, new, s0)
+                    else:
+                        leaves[name][:, bidx, lengths] = new
         h = L.rms_norm(h, self.final_norm, self.cfg.norm_eps)
         return self._unembed(h)[:, 0], cache
+
+
+class ShardedCache(dict):
+    """This card's shard of a decode cache (``init_cache(..., mesh=)``):
+    the cache dict, with the layout it was cut by (``layout``: the cache's
+    rules on the mesh) and its global ``batch`` and ``max_seq``."""
+
+    def __init__(self, tree: dict, layout: SH.Layout, batch: int,
+                 max_seq: int):
+        super().__init__(tree)
+        self.layout, self.batch, self.max_seq = layout, batch, max_seq
+
+    def spec(self, cfg: ModelConfig) -> tuple:
+        """The spec of a self-attention leaf (layers, batch, kv_seq,
+        kv_heads, head_dim)."""
+        return self.layout.spec(("layers",) + L.CACHE_AXES,
+                                (1, self.batch, self.max_seq,
+                                 cfg.n_kv_heads, cfg.head_dim))
+
+    def plan(self, model: "Transformer"):
+        """(the model's ``TPPlan`` with this cache's rows and kv heads, the
+        cache's layout)."""
+        lay = self.layout
+        _, _, seq, kv, _ = self.spec(model.cfg)
+        sl = self.max_seq // lay.size(seq)
+        kvl = model.cfg.n_kv_heads // lay.size(kv)
+        return (dataclasses.replace(model.tp, seq=seq, s0=lay.index(seq) * sl,
+                                    cache_kv=kv,
+                                    cache_kv0=lay.index(kv) * kvl), lay)
+
+
+_pytree.register_pytree_node(
+    ShardedCache,
+    lambda c: (list(c.values()), (list(c), c.layout, c.batch, c.max_seq)),
+    lambda vals, ctx: ShardedCache(dict(zip(ctx[0], vals)), *ctx[1:]),
+    serialized_type_name="repro_torch.models.transformer.ShardedCache")
 
 
 def _attention_capacity(cfg: ModelConfig, cache: dict) -> float:
@@ -464,22 +727,37 @@ def _attention_capacity(cfg: ModelConfig, cache: dict) -> float:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
-               device="cuda") -> dict:
+               device="cuda", mesh=None,
+               rules: Optional[SH.ShardingRules] = None) -> dict:
     """Zeroed decode cache: attention K/V in the model dtype (a cross
     layer's over its n_vision_tokens positions, filled by ``cache_insert``
-    from a prefill), recurrent states as ``ssm.init_state``."""
+    from a prefill), recurrent states as ``ssm.init_state``. With ``mesh``
+    (as ``Transformer``'s) and ``rules`` (``launch/steps.py::rules_for``'s
+    decode policy), this card's shard of every leaf by ``cache_axes``, as a
+    ``ShardedCache``."""
     check_supported(cfg)
     dev = resolve_device(device)
     cdt = getattr(torch, cfg.dtype)
+    layout = _layout(mesh, rules)
+    if layout is not None:
+        check_shardable(cfg)
 
     def layer(spec, rep):
+        if spec.kind == "attn" and layout is not None:
+            shape = (rep, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+            local = layout.local_shape(("layers",) + L.CACHE_AXES, shape)
+            return {"k": torch.zeros(local, dtype=cdt, device=dev),
+                    "v": torch.zeros(local, dtype=cdt, device=dev)}
         if spec.kind == "attn":
             return L.init_attention_cache(cfg, spec, rep, batch, max_seq,
                                           cdt, dev)
         return SSM.init_state(cfg, spec, batch, cdt, dev, lead=(rep,))
 
-    return {f"g{gi}": tuple({"mixer": layer(spec, rep)} for spec in period)
+    tree = {f"g{gi}": tuple({"mixer": layer(spec, rep)} for spec in period)
             for gi, (period, rep) in enumerate(cfg.groups)}
+    if layout is None:
+        return tree
+    return ShardedCache(tree, layout, batch, max_seq)
 
 
 def cache_insert(cfg: ModelConfig, cache: dict, prefill_cache: dict,
@@ -488,7 +766,13 @@ def cache_insert(cfg: ModelConfig, cache: dict, prefill_cache: dict,
     ``slot`` of a decode cache, IN PLACE: the first ``length`` positions of
     every self-attention layer's K/V, and every cross layer's K/V and
     recurrent state whole (the prefill must have run on exactly ``length``
-    tokens for a recurrent state to be the prompt's). Returns ``cache``."""
+    tokens for a recurrent state to be the prompt's). Returns ``cache``.
+
+    A ``ShardedCache`` takes its part: the slot where this card holds it,
+    the positions of its rows, and its kv heads (the prefill cache holds
+    ``wk``'s: this card's, or all of them)."""
+    if isinstance(cache, ShardedCache):
+        return _insert_shard(cfg, cache, prefill_cache, slot, length)
     for gi, (period, _) in enumerate(cfg.groups):
         for li, spec in enumerate(period):
             dst = cache[f"g{gi}"][li]["mixer"]
@@ -498,6 +782,30 @@ def cache_insert(cfg: ModelConfig, cache: dict, prefill_cache: dict,
                     d[:, slot, :length] = src[name][:, 0, :length].to(d.dtype)
                 else:
                     d[:, slot] = src[name][:, 0].to(d.dtype)
+    return cache
+
+
+def _insert_shard(cfg: ModelConfig, cache: "ShardedCache",
+                  prefill_cache: dict, slot: int, length: int) -> dict:
+    """``cache_insert`` into this card's shard (self-attention layers
+    only: ``check_shardable``)."""
+    lay = cache.layout
+    _, (b0, bl), (s0, sl), (k0, kl), _ = lay.ranges(
+        ("layers",) + L.CACHE_AXES, (1, cache.batch, cache.max_seq,
+                                     cfg.n_kv_heads, cfg.head_dim))
+    if not b0 <= slot < b0 + bl:
+        return cache                  # another card holds the slot
+    hi = min(length, s0 + sl)
+    for gi, (period, _) in enumerate(cfg.groups):
+        for li in range(len(period)):
+            dst = cache[f"g{gi}"][li]["mixer"]
+            src = prefill_cache[f"g{gi}"][li]["mixer"]
+            for name, d in dst.items():
+                x = src[name][:, 0]
+                if x.shape[-2] != kl:         # all kv heads: take ours
+                    x = x[..., k0:k0 + kl, :]
+                if hi > s0:
+                    d[:, slot - b0, :hi - s0] = x[:, s0:hi].to(d.dtype)
     return cache
 
 
@@ -517,11 +825,13 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     return total
 
 
-def from_jax_params(cfg: ModelConfig, params, *, device="cuda") -> Transformer:
+def from_jax_params(cfg: ModelConfig, params, *, device="cuda", mesh=None,
+                    rules: Optional[SH.ShardingRules] = None) -> Transformer:
     """Build a Transformer from a JAX params pytree whose leaves are numpy
     arrays (``jax.tree.map(np.asarray, params)``). Names, shapes and dtypes
-    must match leaf for leaf."""
-    model = Transformer(cfg, device="meta")
+    must match leaf for leaf. With ``mesh`` and ``rules`` (as
+    ``Transformer``'s) each leaf is cut to this card's slice."""
+    model = Transformer(cfg, device="meta", mesh=mesh, rules=rules)
     own = dict(model.named_parameters())
     given = named(params)
     if set(own) != set(given):
@@ -534,6 +844,9 @@ def from_jax_params(cfg: ModelConfig, params, *, device="cuda") -> Transformer:
         arr = np.asarray(given[name])
         if arr.dtype.name == "bfloat16":      # numpy has no bf16 for torch
             arr = arr.astype(np.float32)
+        if model.layout is not None:
+            arr = arr[tuple(slice(s, s + n) for s, n in model.layout.ranges(
+                _axes_of(cfg, name), arr.shape))]
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
         p.data.copy_(torch.from_numpy(np.ascontiguousarray(arr)).to(p.dtype))

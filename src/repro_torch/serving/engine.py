@@ -14,6 +14,17 @@ through the hand-written kernels), then each group's new K/V is committed
 with one batched write per stacked leaf; recurrent states are written in
 place.
 Greedy sampling is one argmax over the batch on the device.
+
+On a mesh (``mesh=``, a ``DeviceMesh`` of ``launch/mesh.py``) the engine
+runs SPMD: every card runs the same loop over the same requests with its
+shard of the model and of the slot cache, which is cut by the decode rules
+of a ``ShapeCase("serve", "decode", max_seq, max_batch)``
+(``serving_rules``; the model must be built under them). The prefill cache
+goes into each card's shard (its kv heads or its sequence range), and the
+logits are gathered over the vocab (and batch) before ``argmax`` /
+``_sample``, so every card picks the same token: the cards share the seeded
+generator and see the same logits. Wall-clock times only stamp the
+requests; admission and sampling never read them.
 """
 from __future__ import annotations
 
@@ -26,6 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import ShapeCase
+from repro_torch.launch import steps as ST
 from repro_torch.models import transformer as T
 from repro_torch.serving.kv_cache import BlockManager, OutOfBlocks
 
@@ -68,6 +81,14 @@ class EngineConfig:
     seed: int = 0
 
 
+def serving_rules(cfg: ModelConfig, ecfg: EngineConfig, mesh):
+    """The sharding rules of an engine on ``mesh``: the decode policy of a
+    ``ShapeCase("serve", "decode", max_seq, max_batch)``. Build the model
+    under them (``Transformer(..., mesh=mesh, rules=serving_rules(...))``)."""
+    return ST.rules_for(cfg, ShapeCase("serve", "decode", ecfg.max_seq,
+                                       ecfg.max_batch), mesh)
+
+
 class ServingEngine:
     """Serves ``model`` (a ``transformer.Transformer``) on ``device``, CUDA
     by default; raises when CUDA is missing and no device was given. The
@@ -77,10 +98,13 @@ class ServingEngine:
     reference engine cannot serve them either: its prefill passes no
     ``vision_embeds`` (which the model requires) and it samples one token
     a step where a codebook model gives C. Their entry points are the
-    model's ``prefill`` / ``decode_step`` and ``launch/dryrun.py``."""
+    model's ``prefill`` / ``decode_step`` and ``launch/dryrun.py``.
+
+    ``mesh``: serve on a mesh (module docstring); ``model`` is this card's
+    shard, built on ``mesh`` under ``serving_rules``."""
 
     def __init__(self, cfg: ModelConfig, model: T.Transformer,
-                 ecfg: EngineConfig, *, device="cuda"):
+                 ecfg: EngineConfig, *, device="cuda", mesh=None):
         if cfg.n_vision_tokens or cfg.n_codebooks:
             raise NotImplementedError(
                 f"{cfg.name}: the engine serves one token stream without "
@@ -94,8 +118,17 @@ class ServingEngine:
         self.cfg = cfg
         self.model = model
         self.ecfg = ecfg
+        layout = None
+        if mesh is not None:
+            rules = serving_rules(cfg, ecfg, mesh)
+            if model.layout is None or model.layout.rules != rules:
+                raise ValueError("on a mesh the model must be built under "
+                                 "serving_rules(cfg, ecfg, mesh)")
+            layout = model.layout
+        elif model.layout is not None:
+            raise ValueError("a model built on a mesh serves with mesh=")
         self.cache = T.init_cache(cfg, ecfg.max_batch, ecfg.max_seq,
-                                  device=self.device)
+                                  device=self.device, mesh=layout)
         self.blocks = BlockManager(
             n_blocks=ecfg.max_batch * (ecfg.max_seq // ecfg.block_size),
             block_size=ecfg.block_size)
@@ -155,7 +188,8 @@ class ServingEngine:
                 torch.from_numpy(toks).to(self.device))
             self.prefills += 1
             T.cache_insert(self.cfg, self.cache, pf_cache, slot, L)
-            first = self._sample(logits[:, L - 1], req)
+            first = self._sample(
+                self.model.gather_logits(logits[:, L - 1], 1), req)
             req.generated.append(first)
             req.first_token_t = time.time()
             self.blocks.append_token(req.rid)
@@ -196,6 +230,7 @@ class ServingEngine:
         logits, self.cache = self.model.decode_step(
             self.cache, torch.from_numpy(toks).to(self.device),
             torch.from_numpy(self.lengths.copy()), append=True)
+        logits = self.model.gather_logits(logits, self.ecfg.max_batch)
         self.decodes += 1
         greedy = torch.argmax(logits, dim=-1).tolist()
         now = time.time()

@@ -100,6 +100,23 @@ def update(params: Params, grads: Params, state: dict, kind: str, lr, *,
     raise ValueError(kind)
 
 
+def state_axes(params: Params, param_axes: dict, kind: str) -> dict:
+    """Logical axes of ``init``'s state (the reference's ``state_axes``, in
+    this module's layout): ``param_axes`` maps each parameter name to its
+    axes; Adafactor's row and column moments drop the last and the
+    second-to-last axis."""
+    if kind == "adamw":
+        return {"m": dict(param_axes), "v": dict(param_axes), "count": ()}
+    if kind == "adafactor":
+        fac = {}
+        for k, p in params.items():
+            a = param_axes[k]
+            fac[k] = ({"vr": tuple(a[:-1]), "vc": tuple(a[:-2]) + (a[-1],)}
+                      if p.dim() >= 2 else {"v": tuple(a)})
+        return {"fac": fac, "count": ()}
+    raise ValueError(kind)
+
+
 def lr_schedule(step, *, peak: float = 3e-4, warmup: int = 100,
                 total: int = 10_000, floor: float = 3e-5) -> torch.Tensor:
     """Linear warm-up to ``peak``, then a cosine down to ``floor`` at

@@ -280,4 +280,5 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.training.data", "repro_torch.training.optimizer",
             "repro_torch.training.train_loop", "repro_torch.launch.steps",
             "repro_torch.checkpoint.checkpoint",
+            "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
             "repro_torch.tree"} <= imported
