@@ -170,7 +170,8 @@ above is unchanged). It exits non-zero when fewer than 4 cards are
 visible, builds the kernels once, then starts one process a card
 (`torch.multiprocessing` spawn, NCCL, a 300 s process-group timeout so a
 hung rank fails the run; any rank's failure fails it). On a (data 1,
-model 4) mesh, under the reference's sharding rules:
+model 4) mesh (train tp: also (2, 2) and (4, 1)), under the reference's
+sharding rules:
   kernels tp  — (card 0) the decode kernel's partial mode (`start`, the
                (m, l, o) partials) against its plain version, and the
                merge of 4 partials by the combine pass against the
@@ -179,6 +180,20 @@ model 4) mesh, under the reference's sharding rules:
                empty shards, the new token merged on its owner card only,
                committed and append, fp32 2e-5 and bf16 2e-2; a kv-head
                view of a replicated cache; timings at the four-card shapes.
+  train tp    — the sharded train step (launch/steps.py build_cell(mesh=))
+               of qwen2-1.5b at full width on its first 2 layers, fp32, on
+               meshes (2, 2), (4, 1) and (1, 4), two steps from count 99
+               against one card's train step from the same weights on card
+               0 (loss 1e-5 and grad norm 1e-4 relative, every leaf within
+               1e-3 after the update), fsdp and micro8+bf16grad on (2, 2)
+               against the same variant on one card (bf16grad: grad norm
+               and leaves within bf16's 2e-2); losses equal on every rank,
+               collectives equal to steps.train_step_collectives, launches
+               exact; the flash kernel with lse at a card's training shape
+               against its plain version; then the train_4k records on mesh
+               (2, 2): qwen2-1.5b, internlm2-1.8b and minitron-4b (batch cut
+               by the measured peak), gemma2-27b not fitting, reckoned from
+               the specs before anything is built.
   path tp     — prefill and 4 teacher-forced decode steps (append and
                committed) on the mesh against the same weights on card 0
                without a mesh: qwen2-1.5b at full size (cache by
@@ -2911,6 +2926,14 @@ TP_SERVE_SEQ_FP32 = 1088
 TP_RECORDS = (("qwen2-1.5b", "decode_32k"), ("gemma2-27b", "decode_32k"),
               ("gemma2-27b", "long_500k"), ("qwen2-1.5b", "prefill_32k"))
 TP_TRACE_STEPS = 5
+# train tp: qwen2 at full width on 2 layers, fp32; (data, model) meshes
+TP_TRAIN_LAYERS, TP_TRAIN_BATCH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 2, 16, 1024, 2
+TP_TRAIN_CASES = (((2, 2), "baseline"), ((4, 1), "baseline"),
+                  ((1, 4), "baseline"), ((2, 2), "fsdp"),
+                  ((2, 2), "micro8+bf16grad"))
+TP_TRAIN_RECORDS = ("qwen2-1.5b", "internlm2-1.8b", "minitron-4b",
+                    "gemma2-27b")
+TP_TRAIN_NOT_FITTING = ("gemma2-27b",)
 
 
 def _free_port() -> int:
@@ -3116,6 +3139,10 @@ class _TPRun:
         self.dist.barrier()
         self.say(f"phase kernels tp: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
+        train_err = self.train_tp()
+        self.say(f"phase train tp: {time.perf_counter() - t:.1f} s")
+        self.memory("after train tp")
+        t = time.perf_counter()
         self.path_tp()
         self.say(f"phase path tp: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
@@ -3128,6 +3155,7 @@ class _TPRun:
         if self.rank != 0:
             return {}
         self.profile_tp(records)
+        rows[0]["train_lse_err"] = train_err
         for row in rows:
             row["launches_by_path"] = {
                 path: counts[row["counter"]]
@@ -3632,6 +3660,209 @@ class _TPRun:
             records.append((cfg, rec))
             self.dist.barrier()
         return records
+
+    # -- the sharded train step -----------------------------------------------
+    def train_tp(self) -> float:
+        """The train tp gates (module docstring), then the train_4k records
+        on mesh (2, 2). Returns the lse kernel's error at a card's training
+        shape."""
+        from repro_torch.configs import get_config
+        from repro_torch.launch.mesh import make_mesh
+        meshes = {(d, self.n // d): make_mesh(self.n, d)
+                  for d in sorted({m[0] for m, _ in TP_TRAIN_CASES})}
+        lse_err = self._train_lse() if self.rank == 0 else 0.0
+        self.dist.barrier()
+        base = dataclasses.replace(cut(get_config("qwen2-1.5b"),
+                                       TP_TRAIN_LAYERS),
+                                   dtype="float32", param_dtype="float32")
+        for shape, variant in TP_TRAIN_CASES:
+            self._train_gate(base, meshes[shape], shape, variant)
+        self.memory("before the train records")
+        self._train_records(meshes[(2, 2)])
+        return lse_err
+
+    def _train_lse(self) -> float:
+        """The flash kernel with lse at a card's share of qwen2's training
+        step on mesh (2, 2) (2 rows, 4096 tokens, 6 / 1 heads) against
+        ``ref.blockwise_fwd_lse``, fp32 and bf16; ms beside the plain
+        version's."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        worst, line = 0.0, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).split(".")[-1]
+            sets = [(self.rnd((2, 4096, 6, 128), dtype),
+                     self.rnd((2, 4096, 1, 128), dtype),
+                     self.rnd((2, 4096, 1, 128), dtype)) for _ in range(2)]
+            out, lse = self.fa.flash_attention(*sets[0], lse=True)
+            out_p, lse_p = ref.blockwise_fwd_lse(*sets[0])
+            e = max(self.err(out, out_p), self.err(lse, lse_p))
+            if not e < TOL[key]:
+                raise AssertionError(f"train tp lse {key}: {e}")
+            worst = max(worst, e) if key == "bfloat16" else worst
+            line[key] = {
+                "max_abs_err": e, "tol": TOL[key],
+                "ms": self.time_ms(lambda *a: self.fa.flash_attention(
+                    *a, lse=True), sets),
+                "plain_ms": self.time_ms(lambda *a: ref.blockwise_fwd_lse(
+                    *a), sets, iters=3)}
+            del sets, out, lse, out_p, lse_p
+            self.free()
+        self.say("train tp kernel: " + json.dumps({
+            "kernel": "flash_attention lse=True", "shape":
+            "B=2 S=4096 H=6 KVH=1 Dh=128 causal (qwen2's heads / 2)",
+            **line, "card": self._card()}))
+        return worst
+
+    def _train_run(self, cfg, mesh, variant):
+        """Two train steps of ``variant`` from count 99 on ``mesh`` (None:
+        this card alone): (metrics by step, whole parameters, launches,
+        collectives by step and their formula); the launch counters keep
+        the run's."""
+        torch = self.torch
+        from repro_torch.configs.shapes import ShapeCase
+        from repro_torch.distributed import sharding as SH
+        from repro_torch.launch import steps as ST
+        from repro_torch.models import transformer as T
+        from repro_torch.training.data import DataConfig, SyntheticDataset
+        case = ShapeCase("train tp", "train", TP_TRAIN_SEQ, TP_TRAIN_BATCH)
+        one = variant.replace("fsdp", "baseline")
+        sharded = mesh is not None
+        out = ST.build_cell(cfg, case, "meta", variant if sharded else one,
+                            mesh=mesh)
+        fn = out[0]
+        model = self.build(cfg, mesh, out[3] if sharded else None)
+        st = ST.init_opt_state(model)
+        st["count"] = torch.tensor(99, dtype=torch.int32, device=self.dev)
+        data = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=TP_TRAIN_SEQ,
+                                           global_batch=TP_TRAIN_BATCH))
+        metrics, calls = [], []
+        self.zero()
+        for i in range(TP_TRAIN_STEPS):
+            batch = {k: torch.from_numpy(v).to(self.dev)
+                     for k, v in data.batch(i).items()}
+            SH.reset_collectives()
+            st, m = fn(model, st, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            calls.append(SH.collectives()["calls"])
+        torch.cuda.synchronize()
+        launches = self.read()
+        nm = 8 if "micro8" in variant else 4
+        formula = (ST.train_step_collectives(model, TP_TRAIN_BATCH, nm)
+                   if mesh is not None else {})
+        if mesh is None:
+            params = {n: p.detach() for n, p in model.named_parameters()}
+        else:
+            full = dict(T.Transformer(cfg, device="meta").named_parameters())
+            params = {n: SH.gather_whole(p.detach(), model.layout,
+                                         model.layout.spec(
+                                             T._axes_of(cfg, n),
+                                             tuple(full[n].shape)))
+                      for n, p in model.named_parameters()}
+            del model, st
+        return metrics, params, launches, calls, formula
+
+    def _train_gate(self, cfg, mesh, shape, variant) -> None:
+        """One train tp case (module docstring)."""
+        t0 = time.perf_counter()
+        metrics, params, launches, calls, formula = self._train_run(
+            cfg, mesh, variant)
+        what = f"{cfg.name} {shape[0]}x{shape[1]} {variant} train tp"
+        self.expect_train(what, cfg, 8 if "micro8" in variant else 4,
+                          TP_TRAIN_STEPS)
+        every = self.all([metrics, calls])
+        if any(e[0] != every[0][0] for e in every):
+            raise AssertionError(f"{what}: metrics differ between ranks")
+        if any(c != formula for e in every for c in e[1]):
+            raise AssertionError(f"{what}: collectives "
+                                 f"{[e[1] for e in every]} != {formula}")
+        if self.rank == 0:
+            mesh_params, params = params, None
+            self.free()
+            ref_metrics, ref_params, *_ = self._train_run(cfg, None, variant)
+            tol_g = TOL["bfloat16"] if "bf16grad" in variant else GNORM_RTOL
+            tol_p = TOL["bfloat16"] if "bf16grad" in variant else LEAF_TOL
+            loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                           for a, b in zip(metrics, ref_metrics))
+            gn_err = max(abs(a["grad_norm"] - b["grad_norm"])
+                         / b["grad_norm"] for a, b in zip(metrics,
+                                                          ref_metrics))
+            leaf = max(self.err(mesh_params[n], p) / max(
+                1.0, float(p.abs().max())) for n, p in ref_params.items())
+            line = {"model": cfg.name, "layers": cfg.n_layers,
+                    "dtype": "float32", "mesh": list(shape),
+                    "variant": variant, "batch": [TP_TRAIN_BATCH,
+                                                  TP_TRAIN_SEQ],
+                    "losses": [m["loss"] for m in metrics],
+                    "one_card_losses": [m["loss"] for m in ref_metrics],
+                    "grad_norms": [m["grad_norm"] for m in metrics],
+                    "loss_rel_err": loss_err, "grad_norm_rel_err": gn_err,
+                    "max_leaf_err_after_update": leaf,
+                    "tol": [LOSS_RTOL, tol_g, tol_p],
+                    "collectives_a_step": calls[0],
+                    "launches_rank0": launches,
+                    "seconds": time.perf_counter() - t0}
+            self.say("train tp: " + json.dumps(line))
+            if not (loss_err < LOSS_RTOL and gn_err < tol_g
+                    and leaf < tol_p):
+                raise AssertionError(f"{what}: {line}")
+            del ref_params, mesh_params
+        else:
+            del params
+        self.free()
+        self.dist.barrier()
+
+    def _train_records(self, mesh) -> None:
+        """The train_4k records on ``mesh``: ok, 4 devices, finite and
+        equal losses on every card, collectives equal to the formula,
+        launches exact (the probe step at one row a card included), the
+        batch cut from 256; the not-fitting ones reckoned before anything
+        is built."""
+        from repro_torch.configs import get_config
+        from repro_torch.launch import dryrun
+        for arch in TP_TRAIN_RECORDS:
+            cfg = get_config(arch)
+            t0 = time.perf_counter()
+            self.zero()
+            rec = dryrun.run_cell(arch, "train_4k", ROOT / "results" /
+                                  "dryrun_torch", mesh=mesh)
+            self.free()
+            launches = self.read()
+            if arch in TP_TRAIN_NOT_FITTING:
+                if rec["ok"] or "not_fitting" not in rec or any(
+                        launches.values()):
+                    raise AssertionError(f"train record {arch}: {rec}")
+            else:
+                steps = rec["train_steps"] + rec.get("probe_steps", 0)
+                ok = (rec["ok"] is True and rec["devices"] == self.n
+                      and rec["flops"] > 0
+                      and rec["collectives"]["calls"]
+                      == rec["collectives_formula"]
+                      and "global_batch" in rec["reduced"])
+                if not ok:
+                    raise AssertionError(f"train record {arch}: {rec}")
+                self.expect_train(f"{arch} dry-run train_4k tp", cfg,
+                                  rec["n_micro"], steps)
+            self.say(f"dryrun tp: {json.dumps(rec)}")
+            self.say(f"dryrun tp time: {arch} train_4k "
+                     f"{time.perf_counter() - t0:.1f} s")
+            self.dist.barrier()
+
+    def expect_train(self, what, cfg, n_micro, steps) -> dict:
+        """This rank's launches against ``steps`` train steps of
+        ``n_micro`` microbatches under remat, equal on every rank."""
+        attn = sum(spec.kind == "attn" for spec in cfg.layer_specs())
+        runs = 2 if cfg.remat else 1
+        want = {"flash_attention": attn * runs * n_micro * steps,
+                "decode_attention": 0, "decode_merge": 0}
+        got = self.read()
+        every = self.all(got)
+        if any(g != want for g in every):
+            raise AssertionError(f"{what}: launches by rank {every}, "
+                                 f"expected {want}")
+        self.launches_by_path[what] = got
+        return got
 
     def profile_tp(self, records) -> None:
         """For each four-card decode record: the H100x4 MaxTput row it gives

@@ -22,6 +22,14 @@ ignores partial directories, ``keep`` bounds the committed steps kept, and
 with ``async_save`` the host copy is taken at ``save`` and the write runs
 on a thread, ``wait()`` being the barrier. ``restore`` casts each leaf to
 the dtype of its ``like`` leaf and puts it on that leaf's device.
+
+Across meshes (the reference's restore-time resharding): a save from a
+mesh (``save(..., shardings=, mesh=)``, every rank calling it with its
+shards and the spec tree, e.g. ``build_cell``'s) gathers each leaf whole
+and writes it once, from rank 0; ``restore(..., shardings=, mesh=)`` reads
+whole leaves and returns this card's shard of each under the spec tree on
+that mesh, which may differ from the one the checkpoint was written on (or
+be none: one process restores the whole leaves).
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.tree import Path_, flatten, keystr
 
 _MARKER = "_COMMITTED"
@@ -79,8 +88,23 @@ class Checkpointer:
         self._pending: Optional[cf.Future] = None
 
     # -- save ----------------------------------------------------------------
-    def save(self, step: int, tree: Any) -> None:
-        """Copy ``tree`` to the host now; write it now, or on the thread."""
+    def save(self, step: int, tree: Any, shardings: Any = None,
+             mesh=None) -> None:
+        """Copy ``tree`` to the host now; write it now, or on the thread.
+        With ``shardings`` (a spec tree matching ``tree``) and ``mesh`` (a
+        ``DeviceMesh``): ``tree`` holds this card's shards; every card
+        gathers each leaf whole, rank 0 writes them, and every card waits
+        for the write (a collective: every rank calls it)."""
+        if shardings is not None:
+            lay = _layout(mesh)
+            whole = [(p, SH.gather_whole(x, lay, _spec_at(shardings, p)))
+                     for p, x in flatten(tree)]
+            import torch.distributed as dist
+            if dist.get_rank() == 0:
+                self.wait()
+                self._write(step, {keystr(p): _to_host(x) for p, x in whole})
+            dist.barrier()
+            return
         host = {keystr(p): _to_host(x) for p, x in flatten(tree)}
         if self._pool is None:
             self._write(step, host)
@@ -153,10 +177,15 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any) -> Any:
+    def restore(self, step: int, like: Any, shardings: Any = None,
+                mesh=None) -> Any:
         """The tree of ``like`` (tensors, or anything with ``dtype`` and
         ``device``) filled from step ``step``: new tensors, each cast to
-        its ``like`` leaf's dtype and put on its device."""
+        its ``like`` leaf's dtype and put on its device. With ``shardings``
+        (a spec tree matching ``like``) and ``mesh`` (a ``DeviceMesh`` or a
+        ``sharding.Layout``), each leaf is this card's shard of the whole
+        one the checkpoint holds."""
+        lay = None if shardings is None else _layout(mesh)
         d = self.dir / f"step_{step}"
         if not (d / _MARKER).exists():
             raise FileNotFoundError(f"no committed checkpoint at {d}")
@@ -173,11 +202,26 @@ class Checkpointer:
             out = {}
             for p, leaf in flatten(like):
                 t = load(keystr(p))
+                if lay is not None:
+                    t = SH.local_shard(t, lay, _spec_at(shardings, p),
+                                       lay.coords).contiguous()
                 out[p] = t.to(device=leaf.device, dtype=leaf.dtype)
         finally:
             for f in files.values():
                 f.close()
         return _unflatten(like, out)
+
+
+def _layout(mesh) -> SH.Layout:
+    return mesh if isinstance(mesh, SH.Layout) else SH.Layout.of(mesh)
+
+
+def _spec_at(shardings: Any, path: Path_) -> tuple:
+    """The spec at ``path`` of a spec tree (whose leaves are tuples)."""
+    node = shardings
+    for p in path:
+        node = node[p]
+    return node
 
 
 def _unflatten(like: Any, leaves: dict, path: Path_ = ()) -> Any:

@@ -22,12 +22,24 @@ their place:
     coordinates), and works without a process group (the meta device);
   * ``all_reduce``, ``all_gather`` and ``gather_partials`` over named mesh
     axes: explicit collectives where the reference's ``constrain`` changes
-    a layout. Local shards are plain tensors, so no DTensor dispatch sits
-    on the decode step's host path. Each call is counted by kind with the
-    per-device link bytes of ``repro/launch/hlo_analysis.py::
-    analyze_collectives`` (``collectives()``: ``per_op``, ``total_bytes``,
-    ``count``); an axis of size 1 is no collective. On the meta device a
-    call only counts, so ``FlopCounterMode`` runs a sharded step there.
+    a layout (in place, no backward: the decode path's). Local shards are
+    plain tensors, so no DTensor dispatch sits on the decode step's host
+    path;
+  * the differentiable collectives of the train step (Megatron's pair and
+    two more, ``torch.autograd.Function``s): ``copy_to`` (identity
+    forward, all-reduce backward: the input of a column-parallel product),
+    ``reduce_from`` (all-reduce forward, identity backward: the output of
+    a row-parallel one), ``gather_from`` (all-gather forward; backward
+    this card's slice where the gathered tensor feeds the same work on
+    every card, else a reduce-scatter: an FSDP weight) and
+    ``reduce_scatter`` (backward an all-gather).
+
+Every call is counted by kind with the per-device link bytes of
+``repro/launch/hlo_analysis.py::analyze_collectives`` (``collectives()``:
+``per_op``, ``total_bytes``, ``count``), a backward's collective as a
+forward's, and a forward recomputed under remat again; an axis of size 1
+is no collective. On the meta device a call only counts, so
+``FlopCounterMode`` runs a sharded step there.
 
 Importing this module creates no process group and touches no device.
 """
@@ -323,16 +335,18 @@ def _live(layout: Layout, entry) -> tuple[tuple[str, ...], int]:
     return axes, mesh_axes_size(layout.sizes, axes)
 
 
-def all_reduce(x: torch.Tensor, layout: Layout, entry) -> torch.Tensor:
-    """Sum of ``x`` over the cards along ``entry``'s axes, in place (ring:
-    2 (k - 1) / k of its bytes a card)."""
+def all_reduce(x: torch.Tensor, layout: Layout, entry,
+               op: str = "sum") -> torch.Tensor:
+    """Sum (or ``op="max"``) of ``x`` over the cards along ``entry``'s axes,
+    in place (ring: 2 (k - 1) / k of its bytes a card)."""
     axes, k = _live(layout, entry)
     if k == 1:
         return x
     _count("all-reduce", 2 * x.numel() * x.element_size() * (k - 1) / k)
     if x.device.type != "meta":
         import torch.distributed as dist
-        dist.all_reduce(x, group=group(layout, axes))
+        dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=group(layout, axes))
     return x
 
 
@@ -363,3 +377,136 @@ def gather_partials(x: torch.Tensor, layout: Layout, entry, *,
         dist.all_gather_into_tensor(out.view(-1), x.contiguous().view(-1),
                                     group=group(layout, axes))
     return out
+
+
+def _scatter_sum(x: torch.Tensor, layout: Layout, entry,
+                 dim: int) -> torch.Tensor:
+    """The sum of ``x`` over the cards along ``entry``'s axes, cut on
+    ``dim`` into k pieces of which this card keeps its own (a ring
+    reduce-scatter: (k - 1) / k of the input's bytes a card)."""
+    axes, k = _live(layout, entry)
+    if k == 1:
+        return x
+    _count("reduce-scatter", x.numel() * x.element_size() * (k - 1) / k)
+    lead = x.movedim(dim, 0)
+    out = lead.new_empty((lead.shape[0] // k,) + tuple(lead.shape[1:]))
+    if x.device.type != "meta":
+        import torch.distributed as dist
+        dist.reduce_scatter_tensor(out.view(-1),
+                                   lead.contiguous().view(-1),
+                                   group=group(layout, axes))
+    return out.movedim(0, dim)
+
+
+def _own_slice(x: torch.Tensor, layout: Layout, entry,
+               dim: int) -> torch.Tensor:
+    """This card's piece of ``x`` cut on ``dim`` by ``entry``'s axes."""
+    start, n = shard_range(entry, x.shape[dim], layout.sizes, layout.coords)
+    return x.narrow(dim, start, n)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable collectives (the train step's)
+# ---------------------------------------------------------------------------
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, layout, entry):
+        ctx.layout, ctx.entry = layout, entry
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.layout,
+                          ctx.entry), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, layout, entry):
+        return all_reduce(x.contiguous().clone(), layout, entry)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, layout, entry, dim, scatter):
+        ctx.layout, ctx.entry, ctx.dim, ctx.scatter = layout, entry, dim, \
+            scatter
+        return all_gather(x, layout, entry, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.scatter:
+            g = _scatter_sum(g, ctx.layout, ctx.entry, ctx.dim)
+        else:
+            g = _own_slice(g, ctx.layout, ctx.entry, ctx.dim)
+        return g.contiguous(), None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, layout, entry, dim):
+        ctx.layout, ctx.entry, ctx.dim = layout, entry, dim
+        return _scatter_sum(x, layout, entry, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.layout, ctx.entry,
+                          ctx.dim), None, None, None
+
+
+def _trivial(layout: Optional[Layout], entry) -> bool:
+    return layout is None or _live(layout, entry)[1] == 1
+
+
+def copy_to(x: torch.Tensor, layout: Optional[Layout],
+            entry) -> torch.Tensor:
+    """Into the region sharded over ``entry``: identity forward, its
+    gradient all-reduced over ``entry``'s axes (each card's part of a
+    column-parallel product's input gradient summed)."""
+    return x if _trivial(layout, entry) else _CopyTo.apply(x, layout, entry)
+
+
+def reduce_from(x: torch.Tensor, layout: Optional[Layout],
+                entry) -> torch.Tensor:
+    """Out of the region: the cards' partial sums all-reduced over
+    ``entry``'s axes (a new tensor), the gradient passed through."""
+    if _trivial(layout, entry):
+        return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return all_reduce(x, layout, entry)       # in place, no backward
+    return _ReduceFrom.apply(x, layout, entry)
+
+
+def gather_from(x: torch.Tensor, layout: Optional[Layout], entry, dim: int,
+                *, scatter: bool = False) -> torch.Tensor:
+    """The cards' ``x`` along ``entry``'s axes concatenated on ``dim``. The
+    backward keeps this card's slice of the gradient where every card does
+    the same work with the gathered tensor, or with ``scatter`` (the cards
+    do different work with it: an FSDP weight over "data") reduce-scatters
+    it, summing the cards' gradients."""
+    if _trivial(layout, entry):
+        return x
+    return _GatherFrom.apply(x, layout, entry, dim, scatter)
+
+
+def reduce_scatter(x: torch.Tensor, layout: Optional[Layout], entry,
+                   dim: int) -> torch.Tensor:
+    """The cards' ``x`` summed over ``entry``'s axes, this card's slice on
+    ``dim``; the backward all-gathers the gradient."""
+    if _trivial(layout, entry):
+        return x
+    return _ReduceScatter.apply(x, layout, entry, dim)
+
+
+def gather_whole(x: torch.Tensor, layout: Layout, spec: Spec) -> torch.Tensor:
+    """The whole tensor of which ``x`` is this card's shard under ``spec``
+    (every card gets it: one all-gather per sharded dim; a checkpoint's and
+    the optimizer's whole leaves)."""
+    for dim, entry in enumerate(spec):
+        if _live(layout, entry)[1] > 1:
+            x = all_gather(x.contiguous(), layout, entry, dim)
+    return x

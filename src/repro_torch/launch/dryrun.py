@@ -64,8 +64,20 @@ steps of the slowest card's CUDA-event time, every step started after a
 barrier; ``device_busy_ms``, ``nccl_ms``, ``peak_mem_gb`` are listed by
 rank (``*_by_rank``). The batch is cut by each card's free memory and its
 bytes a sequence, the smallest over the cards. Rank 0 writes the record,
-named by arch, shape and mesh, beside the one-card ones. Train steps on a
-mesh raise (ROADMAP A9c).
+named by arch, shape and mesh, beside the one-card ones.
+
+A train record on a mesh (``train_4k``, the sharded step of
+``steps.build_train_step``): whether the weights, gradients and ZeRO-1
+moments fit is reckoned per card from the specs before anything is built
+(``not_fitting`` if not, as gemma2-27b on four cards); the batch is cut as
+the one-card record's, to ``TRAIN_ROWS`` rows a card a microbatch, and
+further where the peak memory a step at one row a card took says fewer
+fit (``MESH_TRAIN_CUT``); ``flops`` are one card's (one microbatch's
+``value_and_grad`` of rank 0's shards on the meta device, times n_micro);
+``bytes_accessed`` the busiest card's ``TRAIN_BYTES_SOURCE`` over its
+shards; ``collectives`` one step's, held to
+``steps.train_step_collectives``; step, compute, NCCL and peak memory by
+rank as for the other kinds.
 """
 from __future__ import annotations
 
@@ -89,7 +101,6 @@ from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import steps as ST
 from repro_torch.models import transformer as T
-from repro_torch.training import optimizer as OPT
 
 DEFAULT_OUT = Path("results/dryrun_torch")
 MESH = "single_card"
@@ -99,6 +110,13 @@ SEED = 0            # of the random weights and inputs
 TRAIN_BATCH = 8     # train_4k's global batch on one card
 TRAIN_CUT = ("global batch 256 cut to 8 sequences (n_micro microbatches): "
              "256 sequences at seq 4096 are 32 such steps of one card")
+TRAIN_ROWS = TRAIN_BATCH // 4     # rows a card a microbatch, as one card's
+MESH_TRAIN_CUT = (
+    "global batch 256 cut to n_micro x data x rows sequences: at most "
+    f"{TRAIN_ROWS} rows a card a microbatch (the one-card record's), fewer "
+    "where the peak memory of a step at one row a card leaves room for "
+    "fewer (85% of the card's budget)")
+ROWS_MARGIN = 0.85
 DECODE_VARIANT = "cacheappend"        # the engine's append-mode step
 
 BYTES_SOURCE = (
@@ -199,15 +217,37 @@ def prefill_traffic(cfg, model: T.Transformer, batch: int,
 
 def train_traffic(cfg, model: T.Transformer, opt_state: dict, batch: int,
                   seq_len: int, n_micro: int, grad_dtype) -> dict:
-    """The bytes of one train step (``TRAIN_BYTES_SOURCE``), by part."""
+    """The bytes of one train step (``TRAIN_BYTES_SOURCE``), by part; on a
+    mesh one card's (its shards, its rows of each microbatch and its vocab
+    columns of their logits)."""
     weights = _nbytes(list(model.parameters()))
     grad_elem = torch.finfo(grad_dtype).bits // 8
     n_params = sum(p.numel() for p in model.parameters())
     micro = batch // n_micro if batch % n_micro == 0 else batch
+    rows, vocab = micro, 1
+    if model.layout is not None:
+        (_, rows), = model.layout.ranges(("batch",), (micro,))
+        vocab = model.layout.size(model._unembed_vocab[0])
     return {"weights": 2 * weights, "grads": n_params * grad_elem,
             "optimizer": 2 * _nbytes(opt_state),
-            "logits": _logit_bytes(cfg, micro * seq_len) * (batch // micro),
-            "tokens": 2 * batch * seq_len * max(cfg.n_codebooks, 1) * 4}
+            "logits": _logit_bytes(cfg, rows * seq_len) * (batch // micro)
+            // vocab,
+            "tokens": 2 * rows * (batch // micro) * seq_len
+            * max(cfg.n_codebooks, 1) * 4}
+
+
+def train_state_bytes(cfg, variant: str, mesh=None, rules=None) -> dict:
+    """The bytes a card holds for training before any activation, from the
+    specs on the meta device: its weights, its gradients (fp32 or
+    bf16grad's bf16) and its optimizer state (on a mesh its ZeRO-1
+    slices)."""
+    grad_dtype = (torch.bfloat16 if "bf16grad" in ST.variant_tokens(variant)
+                  else torch.float32)
+    model = T.Transformer(cfg, device="meta", mesh=mesh, rules=rules)
+    n = sum(p.numel() for p in model.parameters())
+    return {"weights": _nbytes(list(model.parameters())),
+            "grads": n * grad_dtype.itemsize,
+            "optimizer": _nbytes(ST.init_opt_state(model))}
 
 
 def decode_tokens(cfg, batch: int, generator=None) -> torch.Tensor:
@@ -262,7 +302,8 @@ def count_flops(cfg, case, variant: str = "baseline", mesh=None,
         nm = _n_micro(variant, case.global_batch)
         micro = dataclasses.replace(case,
                                     global_batch=case.global_batch // nm)
-        _, kwargs, _ = ST.build_cell(cfg, micro, "meta", variant)
+        _, kwargs, *_ = ST.build_cell(cfg, micro, "meta", variant, mesh=mesh,
+                                      rules=rules)
         with FlopCounterMode(display=False) as counter:
             ST.value_and_grad(cfg, kwargs["params"], kwargs["batch"],
                               impl="plain")
@@ -283,7 +324,7 @@ def materialize(cfg, case, kwargs: dict, model: T.Transformer, dev,
                 generator: torch.Generator) -> list:
     """The inputs of ``case``'s cell (``kwargs`` from ``build_cell``) on
     ``dev`` in ``fn``'s order: "params" is ``model``; the optimizer state
-    ``OPT.init`` of its parameters; tokens and labels random ints below the
+    ``steps.init_opt_state`` of it; tokens and labels random ints below the
     vocabulary; vision embeddings N(0, 1); a decode cache zeros at the
     case's batch and seq_len, its lengths seq_len - 1 on the host (as the
     engine passes them: bounds-checked there), in the abstract dtypes."""
@@ -296,8 +337,7 @@ def materialize(cfg, case, kwargs: dict, model: T.Transformer, dev,
         if name == "params":
             out.append(model)
         elif name == "opt_state":
-            out.append(OPT.init(dict(model.named_parameters()),
-                                cfg.optimizer))
+            out.append(ST.init_opt_state(model))
         elif name == "batch":
             out.append({k: (torch.randn(t.shape, generator=generator)
                             .to(dev, t.dtype) if t.is_floating_point()
@@ -429,7 +469,8 @@ def run_cell(arch: str, shape: str, out_dir: Path = DEFAULT_OUT, *,
     if case.kind == "decode":
         variant = "+".join(sorted(ST.variant_tokens(variant)
                                   | {DECODE_VARIANT}))
-    cfg = ST.apply_variant_config(cfg, variant)   # sharding variants raise
+    # sharding variants raise on one card, expdata and seqpar on a mesh too
+    cfg = ST.apply_variant_config(cfg, variant, mesh)
     dev = T.resolve_device(device)
     S = case.seq_len if seq_len is None else seq_len
     ranks = _Ranks(mesh)
@@ -455,8 +496,6 @@ def run_cell(arch: str, shape: str, out_dir: Path = DEFAULT_OUT, *,
         rec["skipped"] = reason
         _write(out_dir, rec, ranks)
         return rec
-    if mesh is not None and case.kind == "train":
-        raise NotImplementedError(f"a sharded train step is {T.A9C}")
     weights = _weight_bytes(cfg, mesh, rules)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)    # peak_mem_gb: this cell's
@@ -466,6 +505,17 @@ def run_cell(arch: str, shape: str, out_dir: Path = DEFAULT_OUT, *,
                 f"the weights ({weights} bytes a card) do not fit "
                 f"({free} bytes free of {total}, 8% kept in reserve)"),
                 ranks)
+        if case.kind == "train":
+            state = train_state_bytes(
+                cfg, variant, None if mesh is None
+                else _flop_layout_of(mesh, rules), rules)
+            rec["state_bytes_a_card"] = state
+            if ranks.min(int(budget - sum(state.values()))) < 0:
+                return _not_fitting(out_dir, rec, (
+                    f"the weights, gradients and optimizer state "
+                    f"({sum(state.values())} bytes a card: {state}) do not "
+                    f"fit ({free} bytes free of {total}, 8% kept in "
+                    "reserve)"), ranks)
     model = T.Transformer(cfg, device=dev, generator=torch.Generator(
         device=dev).manual_seed(SEED), mesh=mesh, rules=rules)
     gen = torch.Generator().manual_seed(SEED)
@@ -475,7 +525,8 @@ def run_cell(arch: str, shape: str, out_dir: Path = DEFAULT_OUT, *,
     if case.kind == "prefill":
         return _prefill(rec, cfg, case, S, model, dev, gen, variant, out_dir,
                         ranks)
-    return _train(rec, cfg, case, S, model, dev, gen, variant, out_dir)
+    return _train(rec, cfg, case, S, model, dev, gen, variant, out_dir,
+                  ranks)
 
 
 def _not_fitting(out_dir: Path, rec: dict, why: str,
@@ -487,8 +538,11 @@ def _not_fitting(out_dir: Path, rec: dict, why: str,
 
 def _cell(cfg, case, variant: str, model, dev, gen):
     """(fn, its inputs on ``dev``) of ``case``'s cell, ``model`` its
-    params."""
-    fn, kwargs, _ = ST.build_cell(cfg, case, "meta", variant)
+    params (a train cell on a mesh built on the model's layout: its
+    sharding variants run only there)."""
+    lay = model.layout if case.kind == "train" else None
+    fn, kwargs, *_ = ST.build_cell(cfg, case, "meta", variant, mesh=lay,
+                                   rules=lay and lay.rules)
     return fn, materialize(cfg, case, kwargs, model, dev, gen)
 
 
@@ -497,9 +551,12 @@ def _flop_layout(model: T.Transformer) -> Optional[SH.Layout]:
     card's step on the meta device (every card's is the same size)."""
     if model.layout is None:
         return None
-    return SH.Layout(model.layout.sizes,
-                     {ax: 0 for ax in model.layout.sizes},
-                     model.layout.rules)
+    return _flop_layout_of(model.layout, model.layout.rules)
+
+
+def _flop_layout_of(mesh, rules) -> SH.Layout:
+    sizes = SH.axis_sizes(mesh)
+    return SH.Layout(sizes, {ax: 0 for ax in sizes}, rules)
 
 
 def _measure(rec: dict, dev, step, timed: int, warmup: int, profiled: int,
@@ -704,36 +761,50 @@ def _prefill(rec, cfg, case, S, model, dev, gen, variant, out_dir,
     return rec
 
 
-def _train(rec, cfg, case, S, model, dev, gen, variant, out_dir) -> dict:
-    batch = min(case.global_batch, TRAIN_BATCH)
-    _cut(rec, "global_batch", case.global_batch, batch, TRAIN_CUT)
-    rec["global_batch"] = batch
-    n_micro = _n_micro(variant, batch)
+def _train(rec, cfg, case, S, model, dev, gen, variant, out_dir,
+           ranks: _Ranks) -> dict:
     grad_dtype = (torch.bfloat16 if "bf16grad" in ST.variant_tokens(variant)
                   else torch.float32)
+    layout = model.layout
+    if layout is None:
+        batch = min(case.global_batch, TRAIN_BATCH)
+        _cut(rec, "global_batch", case.global_batch, batch, TRAIN_CUT)
+    else:      # n_micro chunks of rows a card over the data axes
+        per_row = _n_micro(variant, TRAIN_BATCH) * layout.size(
+            layout.spec(("batch",), (case.global_batch,))[0])
+        rows = TRAIN_ROWS
+        if dev.type == "cuda":
+            fit = _rows_that_fit(cfg, case, S, model, dev, gen, variant,
+                                 per_row, grad_dtype, rec, ranks)
+            if fit < 1:
+                return _not_fitting(out_dir, rec, (
+                    "a train step at one row a card a microbatch leaves no "
+                    f"room ({rec['bytes_one_row_peak']} bytes above the "
+                    "state)"), ranks)
+            rows = min(rows, fit)
+        batch = min(case.global_batch, per_row * rows)
+        _cut(rec, "global_batch", case.global_batch, batch, MESH_TRAIN_CUT)
+    rec["global_batch"] = batch
+    n_micro = _n_micro(variant, batch)
     rec.update(optimizer=cfg.optimizer, n_micro=n_micro,
                grad_dtype=str(grad_dtype).split(".")[-1], remat=cfg.remat)
-    if dev.type == "cuda":
-        params = dict(T.Transformer(cfg, device="meta").named_parameters())
-        state = _nbytes(OPT.init(params, cfg.optimizer)) + sum(
-            p.numel() for p in params.values()) * grad_dtype.itemsize
-        free, total, budget = _budget(dev)
-        if state > budget:
-            return _not_fitting(out_dir, rec, (
-                f"the optimizer state and gradients ({state} bytes) do not "
-                f"fit beside the weights ({free} bytes free of {total})"))
     cut_case = dataclasses.replace(case, global_batch=batch, seq_len=S)
-    rec["flops"] = rec["flops_tc"] = count_flops(cfg, cut_case, variant)
+    flop_layout = _flop_layout(model)
+    rec["flops"] = rec["flops_tc"] = count_flops(
+        cfg, cut_case, variant, mesh=flop_layout,
+        rules=layout and layout.rules)
     rec["flops_source"] = ("FlopCounterMode over one microbatch's loss and "
                            "gradients (forward, remat recompute, backward; "
                            "impl='plain') on the meta device, times "
-                           "n_micro")
+                           "n_micro" + ("" if layout is None
+                                        else ", one card's"))
     fn, args = _cell(cfg, cut_case, variant, model, dev, gen)
     traffic = train_traffic(cfg, model, args[1], batch, S, n_micro,
                             grad_dtype)
     rec["bytes_accessed"] = rec["bytes_tc"] = sum(traffic.values())
     rec["bytes_by_part"] = traffic
-    rec["bytes_source"] = TRAIN_BYTES_SOURCE
+    rec["bytes_source"] = TRAIN_BYTES_SOURCE + (
+        "" if layout is None else "; one card's")
     losses, ces = [], []
 
     def step():
@@ -741,23 +812,58 @@ def _train(rec, cfg, case, S, model, dev, gen, variant, out_dir) -> dict:
         losses.append(metrics["loss"])
         ces.append(metrics["ce"])
 
+    SH.reset_collectives()
     try:
         step()
     except torch.cuda.OutOfMemoryError as e:
         return _not_fitting(out_dir, rec, (
             f"a train step of {batch} sequences of {S} tokens does not fit "
             f"beside the weights and the optimizer state: "
-            f"{str(e).splitlines()[0]}"))
-    _measure(rec, dev, step, TRAIN_TIMED, 0, 1, host_activity=False)
+            f"{str(e).splitlines()[0]}"), ranks)
+    if layout is not None:
+        rec["collectives"] = SH.collectives()
+        rec["collectives_formula"] = ST.train_step_collectives(
+            model, batch, n_micro)
+        rec["collectives_source"] = (
+            "sharding.collectives() over one train step; the formula "
+            "steps.train_step_collectives")
+    _measure(rec, dev, step, TRAIN_TIMED, 0, 1, host_activity=False,
+             ranks=ranks)
     rec["losses"] = [float(x) for x in losses]
     rec["first_ce"] = float(ces[0])
     rec["train_steps"] = len(losses)
     if not all(torch.isfinite(torch.tensor(rec["losses"]))):
         raise AssertionError(f"{rec['arch']} at {rec['shape']}: losses "
                              f"{rec['losses']} are not all finite")
+    if layout is not None and any(r != rec["losses"]
+                                  for r in ranks.all(rec["losses"])):
+        raise AssertionError(f"{rec['arch']} at {rec['shape']}: losses "
+                             "differ between cards")
     rec["ok"] = True
-    _write(out_dir, rec)
+    _write(out_dir, rec, ranks)
     return rec
+
+
+def _rows_that_fit(cfg, case, S, model, dev, gen, variant, batch: int,
+                   grad_dtype, rec: dict, ranks: _Ranks) -> int:
+    """Rows a card a microbatch that fit (the smallest over the cards):
+    one step at ``batch`` (one row a card a microbatch) on ``model``, whose
+    peak above the weights and the optimizer state, less the gradients',
+    is one row's; ``ROWS_MARGIN`` of the budget left for them."""
+    probe = dataclasses.replace(case, global_batch=batch, seq_len=S)
+    fn, args = _cell(cfg, probe, variant, model, dev, gen)
+    grads = sum(p.numel() for p in model.parameters()) * grad_dtype.itemsize
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn(*args)
+    torch.cuda.synchronize()
+    one = torch.cuda.max_memory_allocated(dev) - base - grads
+    del fn, args
+    free, total, budget = _budget(dev)
+    rec["bytes_one_row_peak"] = one
+    rec["probe_steps"] = 1
+    return ranks.min(int(ROWS_MARGIN * (budget - grads) // max(one, 1)))
 
 
 def _write(out_dir: Path, rec: dict,

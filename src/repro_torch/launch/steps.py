@@ -10,15 +10,30 @@ data axes and heads / d_ff / vocab over "model"; decode adds the cache
 policy, by kv heads where they divide the model axis, else by sequence over
 "model", and by sequence over every axis at global_batch 1 (long_500k).
 On a mesh ``build_cell`` also returns the rules and the in / out spec
-trees. The port runs the prefill and decode steps on a mesh; a sharded
-train step, and the variants that only change sharding rules (``seqpar``,
-``expdata``, ``fsdp``), raise ``NotImplementedError`` (ROADMAP A9c).
+trees, and every step runs there: prefill, decode and the train step
+(data parallelism over the data axes, tensor parallelism over "model",
+ZeRO-1 moments, ``micro8``, ``bf16grad`` and ``fsdp``). The variants that
+only change sharding rules run only on a mesh; of them ``expdata`` and
+``seqpar`` still raise ``NotImplementedError`` (ROADMAP A9c items 1 and
+4), as do MoE, recurrent, cross-attention and codebook layers on a mesh.
 ``lower_cell`` has no counterpart: eager PyTorch lowers nothing; the
 cell's step runs as it is called.
+
+The sharded train step (``build_train_step`` on a model built on a mesh)
+follows the reference's ``train_step`` under its shardings: the global
+batch is split into ``n_micro`` consecutive chunks and each chunk's rows
+are sharded over the data axes (so a card's microbatch i is not a slice of
+its own contiguous rows); each card's gradients, of its rows' mean loss,
+are accumulated in ``grad_dtype`` and averaged over the data axes (in
+``grad_dtype``); gradients that are a card's part (``layers.
+partial_leaves``) are summed over "model" in the same all-reduce; the
+global norm sums each leaf's squares once (``MeshPlan.copies``); then the
+clip and ``optimizer.update`` with its ZeRO-1 slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -26,21 +41,25 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import ShapeCase
 from repro_torch.distributed import sharding as SH
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.training import optimizer as OPT
 
 # variants whose only effect in the reference is a sharding rule (expert
 # and data axes, sequence parallelism, FSDP)
 SHARDING_VARIANTS = ("seqpar", "expdata", "fsdp")
-MULTI_CARD = ("the multi-card slice of ROADMAP A9c (the sharded train "
-              "step, expert parallelism, sequence parallelism)")
+MULTI_CARD = ("the multi-card slice (build_cell(mesh=), run_cell(mesh=)): "
+              "one card has nothing to shard")
+# the sharding variants a mesh does not run yet
+WAITING = {"expdata": T.A9C_EXPERTS, "seqpar": T.A9C_SEQPAR}
 
 
 def variant_tokens(variant: str) -> set[str]:
     return {t for t in variant.split("+") if t and t != "baseline"}
 
 
-def apply_variant_config(cfg: ModelConfig, variant: str) -> ModelConfig:
+def apply_variant_config(cfg: ModelConfig, variant: str,
+                         mesh=None) -> ModelConfig:
     """The perf-lever variants that alter the model config, as the
     reference's: ``vocabpad`` pads the vocabulary to a multiple of 128,
     ``blockdispatch`` routes MoE tokens in 32 dispatch blocks. ``micro8``
@@ -51,15 +70,20 @@ def apply_variant_config(cfg: ModelConfig, variant: str) -> ModelConfig:
     counterpart: the port's scans always take their one-step path at T = 1
     (the kernels' walk, the plain path's single step), so there is nothing
     to switch, and it raises as an unknown token does. The sharding-only
-    variants raise ``NotImplementedError``."""
+    variants raise ``NotImplementedError`` without a ``mesh``, and
+    ``expdata`` / ``seqpar`` on one too (``WAITING``); ``fsdp`` changes
+    only ``rules_for``'s rules."""
     toks = variant_tokens(variant)
     sharding = sorted(toks & set(SHARDING_VARIANTS))
-    if sharding:
+    if sharding and mesh is None:
         raise NotImplementedError(
             f"variant {'+'.join(sharding)} only changes sharding rules, "
-            f"which the port does not run yet: {MULTI_CARD}")
+            f"which run on a mesh: {MULTI_CARD}")
+    waiting = [f"{t}: {WAITING[t]}" for t in sharding if t in WAITING]
+    if waiting:
+        raise NotImplementedError(f"variant {'; '.join(waiting)}")
     unknown = toks - {"vocabpad", "blockdispatch", "micro8", "bf16grad",
-                      "cacheappend"}
+                      "cacheappend", "fsdp"}
     if unknown:
         raise ValueError(f"unknown variant tokens {sorted(unknown)}")
     if "vocabpad" in toks:
@@ -153,6 +177,77 @@ def abstract_batch(cfg: ModelConfig, case: ShapeCase) -> dict:
     return batch
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """The train step's plan of a model on its mesh, per parameter name:
+    ``reduce``, the mesh axes its gradient is all-reduced over (the data
+    axes where the leaf is not sharded over them, "model" where a card's
+    gradient is a part: ``layers.partial_leaves``); ``copies``, the cards
+    holding each shard of the reduced gradient (the global norm divides
+    by it); ``zero``, the card's ZeRO-1 slice (``optimizer.ZeroLeaf``) and
+    ``opt_shapes`` its moments' shape; ``data`` the live data axes and
+    ``dp`` their size."""
+
+    layout: SH.Layout
+    reduce: dict
+    copies: dict
+    zero: dict
+    opt_shapes: dict
+    data: tuple
+    dp: int
+
+
+def mesh_plan(model: T.Transformer) -> MeshPlan:
+    """``model``'s ``MeshPlan`` under its layout and ``opt_rules`` (made
+    once a model)."""
+    plan = getattr(model, "_mesh_plan", None)
+    if plan is not None:
+        return plan
+    cfg, lay = model.cfg, model.layout
+    olay = lay.with_rules(opt_rules(lay.rules))
+    full = {n: tuple(p.shape) for n, p in
+            T.Transformer(cfg, device="meta").named_parameters()}
+    data = tuple(a for a in ("pod", "data") if lay.sizes.get(a, 1) > 1)
+    partial = set(L.partial_leaves(cfg, model.tp))
+    reduce, copies, zero, shapes = {}, {}, {}, {}
+    for name, p in model.named_parameters():
+        axes, shape = T._axes_of(cfg, name), full[name]
+        spec, ospec = lay.spec(axes, shape), olay.spec(axes, shape)
+        used = {a for e in spec for a in SH.entry_axes(e)}
+        copies[name] = math.prod(n for a, n in lay.sizes.items()
+                                 if a not in used)
+        red = set(data) - used
+        if ".mixer." in name and name.rsplit(".", 1)[1] in partial:
+            red.add("model")
+        reduce[name] = tuple(a for a in lay.sizes if a in red)
+        index, dim = [], None
+        for d, ((p0, pn), (o0, on)) in enumerate(zip(
+                lay.ranges(axes, shape), olay.ranges(axes, shape))):
+            if not (p0 <= o0 and o0 + on <= p0 + pn):
+                raise ValueError(f"{name}: the moments' slice of dim {d} "
+                                 "is not inside the parameter's")
+            index.append(slice(o0 - p0, o0 - p0 + on))
+            if on != pn:
+                dim = d
+        shapes[name] = tuple(sl.stop - sl.start for sl in index)
+        if dim is not None:
+            zero[name] = OPT.ZeroLeaf(tuple(index), dim, ospec[dim], lay)
+    plan = MeshPlan(lay, reduce, copies, zero, shapes, data,
+                    SH.mesh_axes_size(lay.sizes, data))
+    object.__setattr__(model, "_mesh_plan", plan)
+    return plan
+
+
+def init_opt_state(model: T.Transformer) -> dict:
+    """``cfg.optimizer``'s zeroed state for ``model``; on a mesh this card's
+    ZeRO-1 slices of the moments (``MeshPlan.opt_shapes``)."""
+    params = dict(model.named_parameters())
+    if model.layout is None:
+        return OPT.init(params, model.cfg.optimizer)
+    return OPT.init(params, model.cfg.optimizer,
+                    shapes=mesh_plan(model).opt_shapes)
+
+
 def value_and_grad(cfg: ModelConfig, model: T.Transformer, batch: dict, *,
                    n_micro: int = 1, grad_dtype=torch.float32,
                    impl: Optional[str] = None):
@@ -165,7 +260,13 @@ def value_and_grad(cfg: ModelConfig, model: T.Transformer, batch: dict, *,
     and summed in ``grad_dtype``, the loss summed the same way and each
     metric averaged; else over the whole batch, the gradients cast to
     ``grad_dtype``. Turns the parameters' gradients on. Returns (loss,
-    metrics, grads {name: tensor})."""
+    metrics, grads {name: tensor}).
+
+    On a mesh ``batch`` is global on every card and each microbatch's rows
+    are sharded over the data axes (``Transformer._rows``); the loss,
+    metrics and gradients come back averaged over them (the gradients in
+    ``grad_dtype``, parts summed over "model": ``MeshPlan.reduce``), equal
+    on every card that holds them."""
     params = dict(model.named_parameters())
     leaves = list(params.values())
     for p in leaves:
@@ -174,6 +275,7 @@ def value_and_grad(cfg: ModelConfig, model: T.Transformer, batch: dict, *,
     nm = n_micro if B % n_micro == 0 and B >= n_micro else 1
 
     def one(mb):
+        mb = {k: model._rows(v) for k, v in mb.items()}
         loss, metrics = T.loss_fn(cfg, model, mb, impl=impl)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
@@ -181,24 +283,70 @@ def value_and_grad(cfg: ModelConfig, model: T.Transformer, batch: dict, *,
 
     if nm == 1:
         loss, metrics, gs = one(batch)
-        return loss, metrics, {k: g.to(grad_dtype)
-                               for k, g in zip(params, gs)}
-    acc = {k: torch.zeros(p.shape, dtype=grad_dtype, device=p.device)
-           for k, p in params.items()}
-    loss_acc = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    per_micro = []
-    for i in range(nm):
-        mb = {k: v.reshape((nm, B // nm) + v.shape[1:])[i]
-              for k, v in batch.items()}
-        loss, metrics, gs = one(mb)
-        for k, g in zip(params, gs):
-            acc[k] += (g / nm).to(grad_dtype)
-        del gs
-        loss_acc = loss_acc + loss / nm
-        per_micro.append(metrics)
-    metrics = {k: torch.stack([m[k] for m in per_micro]).mean()
-               for k in per_micro[0]}
-    return loss_acc, metrics, acc
+        grads = {k: g.to(grad_dtype) for k, g in zip(params, gs)}
+    else:
+        grads = {k: torch.zeros(p.shape, dtype=grad_dtype, device=p.device)
+                 for k, p in params.items()}
+        loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        per_micro = []
+        for i in range(nm):
+            mb = {k: v.reshape((nm, B // nm) + v.shape[1:])[i]
+                  for k, v in batch.items()}
+            ls, m, gs = one(mb)
+            for k, g in zip(params, gs):
+                grads[k] += (g / nm).to(grad_dtype)
+            del gs
+            loss = loss + ls / nm
+            per_micro.append(m)
+        metrics = {k: torch.stack([m[k] for m in per_micro]).mean()
+                   for k in per_micro[0]}
+    if model.layout is None:
+        return loss, metrics, grads
+    return _reduce_over_mesh(model, loss, metrics, grads)
+
+
+def _reduce_over_mesh(model: T.Transformer, loss, metrics: dict,
+                      grads: dict):
+    """The cards' loss, metrics and gradients averaged over the data axes,
+    the gradients' parts summed over "model" (one all-reduce a leaf, in
+    its dtype, and one for the metrics)."""
+    plan = mesh_plan(model)
+    lay = plan.layout
+    for name, g in grads.items():
+        if plan.reduce[name]:
+            SH.all_reduce(g, lay, plan.reduce[name])
+        if plan.dp > 1:
+            g.div_(plan.dp)
+    if plan.dp == 1:
+        return loss, metrics, grads
+    keys = sorted(metrics)
+    both = torch.stack([loss.float()] + [metrics[k].float() for k in keys])
+    both = SH.all_reduce(both, lay, plan.data) / plan.dp
+    return both[0], dict(zip(keys, both[1:].unbind())), grads
+
+
+def train_step_collectives(model: T.Transformer, batch_size: int,
+                           n_micro: int) -> dict:
+    """The collectives of one sharded train step of ``batch_size``
+    sequences, by kind (what ``sharding.collectives()`` counts):
+    ``Transformer``'s ``train_collectives`` for each microbatch, one
+    all-reduce per gradient with axes to reduce, one for the metrics over
+    the data axes, one for the global norm, and an all-gather per ZeRO-1
+    slice."""
+    if model.layout is None:
+        return {}
+    plan = mesh_plan(model)
+    nm = n_micro if batch_size % n_micro == 0 and batch_size >= n_micro \
+        else 1
+    n = {k: v * nm for k, v in T.train_collectives(model).items()}
+    live = [a for a, k in plan.layout.sizes.items() if k > 1]
+    extra = {"all-reduce": sum(bool(r) for r in plan.reduce.values())
+             + (plan.dp > 1) + bool(live),
+             "all-gather": len(plan.zero)}
+    for k, v in extra.items():
+        if v:
+            n[k] = n.get(k, 0) + v
+    return n
 
 
 def build_train_step(cfg: ModelConfig, n_micro: int = 4,
@@ -212,7 +360,11 @@ def build_train_step(cfg: ModelConfig, n_micro: int = 4,
 
     ``grad_dtype=torch.bfloat16`` halves the accumulators (the
     reference's lever; the update still runs in fp32). ``impl`` goes to
-    every kernel call (``"plain"``: the plain versions)."""
+    every kernel call (``"plain"``: the plain versions).
+
+    On a mesh (a model built on one, its state from ``init_opt_state``):
+    the module docstring's sharded step; the metrics are equal on every
+    card."""
     kind = cfg.optimizer
 
     def train_step(model: T.Transformer, opt_state: dict, batch: dict):
@@ -220,13 +372,22 @@ def build_train_step(cfg: ModelConfig, n_micro: int = 4,
         loss, metrics, grads = value_and_grad(
             cfg, model, batch, n_micro=n_micro, grad_dtype=grad_dtype,
             impl=impl)
-        gsq = sum(torch.sum(torch.square(g.float())) for g in grads.values())
+        plan = None if model.layout is None else mesh_plan(model)
+        if plan is None:
+            gsq = sum(torch.sum(torch.square(g.float()))
+                      for g in grads.values())
+        else:          # each shard's squares once, over every card
+            gsq = sum(torch.sum(torch.square(g.float())) / plan.copies[k]
+                      for k, g in grads.items()).reshape(1)
+            gsq = SH.all_reduce(gsq, plan.layout, tuple(
+                a for a, n in plan.layout.sizes.items() if n > 1))[0]
         gnorm = torch.sqrt(gsq)
         clip = torch.clamp(1.0 / torch.clamp(gnorm, min=1e-9), max=1.0)
         for g in grads.values():
             g.mul_(clip.to(g.dtype))
         opt_state = OPT.update(dict(model.named_parameters()), grads,
-                               opt_state, kind, lr)
+                               opt_state, kind, lr,
+                               zero=None if plan is None else plan.zero)
         return opt_state, {"loss": loss, "grad_norm": gnorm, "lr": lr,
                            **metrics}
 
@@ -279,13 +440,14 @@ def build_cell(cfg: ModelConfig, case: ShapeCase, device="cuda",
     follow ``param_axes`` / ``cache_axes`` / ``batch_axes`` (the optimizer
     state's under ``opt_rules``), in_specs keyed as ``kwargs`` and
     out_specs (params, opt_state, None) for train, None for prefill,
-    (None, cache) for decode. The train step raises on a mesh (ROADMAP
-    A9c); configs whose layers the port does not run on a mesh raise when
-    their model is built (``T.check_shardable``). ``rules`` replaces
-    ``rules_for``'s (a cell whose batch was cut keeps its case's)."""
+    (None, cache) for decode; the optimizer state is this card's ZeRO-1
+    slices (``init_opt_state``). Configs whose layers the port does not
+    run on a mesh raise when their model is built (``T.check_shardable``).
+    ``rules`` replaces ``rules_for``'s (a cell whose batch was cut keeps
+    its case's)."""
     if torch.device(device).type != "meta":
         T.resolve_device(device)
-    cfg = apply_variant_config(cfg, variant)
+    cfg = apply_variant_config(cfg, variant, mesh)
     toks = variant_tokens(variant)
     if mesh is not None and rules is None:
         rules = rules_for(cfg, case, mesh, variant)
@@ -296,7 +458,7 @@ def build_cell(cfg: ModelConfig, case: ShapeCase, device="cuda",
             cfg, n_micro=8 if "micro8" in toks else 4,
             grad_dtype=torch.bfloat16 if "bf16grad" in toks
             else torch.float32, impl=impl)
-        opt_state = OPT.init(dict(model.named_parameters()), cfg.optimizer)
+        opt_state = init_opt_state(model)
         kwargs = {"params": model, "opt_state": opt_state,
                   "batch": abstract_batch(cfg, case)}
         donate = ("params", "opt_state")
@@ -318,9 +480,6 @@ def build_cell(cfg: ModelConfig, case: ShapeCase, device="cuda",
     if mesh is None:
         return fn, kwargs, donate
     in_specs, out_specs = _specs(cfg, case, mesh, rules, kwargs)
-    if case.kind == "train":
-        def fn(*args, **kw):
-            raise NotImplementedError(f"a sharded train step is {T.A9C}")
     return fn, kwargs, donate, rules, in_specs, out_specs
 
 

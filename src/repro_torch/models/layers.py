@@ -13,7 +13,14 @@ slices of the weights that the reference's logical-axis rules give it and
 computes at its local widths. ``wq`` / ``wo`` are sharded over heads,
 ``wk`` / ``wv`` over kv heads where they divide the axis, else replicated;
 the MLP's ``w_up`` / ``w_gate`` over d_ff by columns and ``w_down`` by rows.
-After ``wo`` and after ``w_down`` the cards' partial sums are all-reduced.
+After ``wo`` and after ``w_down`` the cards' partial sums are all-reduced
+(``sharding.reduce_from``), and the input of the column-parallel products
+goes through ``sharding.copy_to``, whose backward all-reduces its gradient:
+the residual stream's gradient is whole on every card (Megatron's pair), so
+the norms' gradients are equal across "model". Where ``wk`` / ``wv`` are
+replicated and the heads are not, a card's gradients of them (and of
+``bk`` / ``bv``) hold only its query heads' part: the train step sums them
+over "model" (``partial_leaves``).
 Where ``wk`` is replicated, a card's query heads read only the kv heads
 they map to (qwen2's 12 / 2 heads over 4 cards: 3 query heads and one kv
 head a card). A decode cache sharded by kv heads is read as on one card; a
@@ -117,10 +124,30 @@ def _kv_for_q(cfg: ModelConfig, tp: Optional[TPPlan], k: torch.Tensor,
 def row_parallel(out: torch.Tensor, tp: Optional[TPPlan],
                  entry) -> torch.Tensor:
     """The cards' partial sums of a row-parallel product, all-reduced over
-    ``entry`` (nothing where it is replicated)."""
+    ``entry`` (nothing where it is replicated); the gradient passes
+    through."""
     if tp is None or entry is None:
         return out
-    return SH.all_reduce(out, tp.layout, entry)
+    return SH.reduce_from(out, tp.layout, entry)
+
+
+def column_parallel(x: torch.Tensor, tp: Optional[TPPlan],
+                    entry) -> torch.Tensor:
+    """The input of column-parallel products sharded over ``entry``:
+    itself, its gradient all-reduced over ``entry`` in the backward."""
+    if tp is None or entry is None:
+        return x
+    return SH.copy_to(x, tp.layout, entry)
+
+
+def partial_leaves(cfg: ModelConfig, tp: Optional[TPPlan]) -> tuple:
+    """The attention leaves whose gradient on a card is a part to be summed
+    over "model": ``wk`` / ``wv`` (and their biases) where they are
+    replicated and the query heads are sharded, each card reading only its
+    heads' kv heads."""
+    if tp is None or tp.heads is None or tp.kv is not None:
+        return ()
+    return ("wk", "wv") + (("bk", "bv") if cfg.qkv_bias else ())
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -200,6 +227,8 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: Params,
     "v"} of shape (B, S, KVH, Dh), or (B, Nv, KVH, Dh) for a cross layer,
     whose K/V is static across decode). With ``tp`` the heads and the K/V
     are this card's (``wk``'s kv heads) and ``out`` is all-reduced."""
+    if tp is not None:
+        x = column_parallel(x, tp, tp.heads)
     q = _q(p, x)
     if spec.attn_type == "cross":
         k, v = _kv(p, vision_kv)
@@ -367,6 +396,8 @@ def mlp_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """The dense MLP; with ``tp`` at this card's d_ff columns, the output
     all-reduced."""
     dt = x.dtype
+    if tp is not None:
+        x = column_parallel(x, tp, tp.ff)
     h = x @ p["w_up"].to(dt)
     if "w_gate" in p:
         h = _act(cfg.mlp_act, x @ p["w_gate"].to(dt)) * h

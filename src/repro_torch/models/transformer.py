@@ -53,9 +53,20 @@ attention and dense-MLP layers are tensor-parallel (``layers.TPPlan``).
 cache (``ShardedCache``, which carries its layout): by kv heads where they
 divide the model axis, else by sequence, as ``launch/steps.py::rules_for``
 decides. Inputs (tokens, lengths) are global on every card; each card takes
-its batch rows. ``gather_logits`` assembles the full logits. Serving runs
-attention with dense MLPs this way; recurrent, MoE, cross-attention and
-codebook layers on a mesh, and training on one, are ROADMAP A9c.
+its batch rows. ``gather_logits`` assembles the full logits. Serving and
+training run attention with dense MLPs this way; recurrent, MoE,
+cross-attention and codebook layers on a mesh are ROADMAP A9c.
+
+Training on a mesh (``train_forward`` over this card's batch rows, the
+train step of ``launch/steps.py``): the collectives are differentiable
+(``sharding.copy_to`` / ``reduce_from``, Megatron's pair), the embedding's
+backward stays on this card's vocab rows, and ``loss_fn`` is vocab-parallel:
+each card takes its shard's row max, sum of exponentials and gold logit and
+reduces them over "model" into the logsumexp, so no card holds the full
+logits. Under ``fsdp`` (``model_d`` over "data") each weight's D dim is
+gathered over "data" just before its layer uses it (inside the remat
+region, so the recompute gathers again) and its gradient reduce-scattered
+back (``sharding.gather_from(..., scatter=True)``).
 """
 from __future__ import annotations
 
@@ -107,24 +118,30 @@ def check_trainable(cfg: ModelConfig) -> None:
     check_supported(cfg)
 
 
-A9C = "ROADMAP A9c"
+# what still waits on a mesh, by its item of ROADMAP A9c
+A9C_EXPERTS = "ROADMAP A9c item 1 (expert parallelism)"
+A9C_RECURRENT = "ROADMAP A9c item 2 (d_inner / rwkv_heads sharding)"
+A9C_MODALITY = "ROADMAP A9c item 3 (cross-attention and codebooks)"
+A9C_SEQPAR = "ROADMAP A9c item 4 (seqpar)"
 
 
 def check_shardable(cfg: ModelConfig) -> None:
     """Raise unless the port runs ``cfg`` on a mesh: self-attention layers
     with dense MLPs (or none) and one token stream without vision inputs.
-    Recurrent, MoE, cross-attention and codebook layers on a mesh are
-    ROADMAP A9c."""
+    MoE, recurrent, cross-attention and codebook layers on a mesh are
+    ROADMAP A9c items 1-3."""
     check_supported(cfg)
     for spec in cfg.layer_specs():
-        if spec.kind != "attn" or spec.attn_type == "cross" \
-                or spec.mlp == "moe":
+        item = (A9C_RECURRENT if spec.kind != "attn" else A9C_MODALITY
+                if spec.attn_type == "cross" else A9C_EXPERTS
+                if spec.mlp == "moe" else None)
+        if item:
             raise NotImplementedError(
                 f"{cfg.name}: {spec.kind} {spec.attn_type or ''} "
-                f"{spec.mlp} layers on a mesh are {A9C}")
+                f"{spec.mlp} layers on a mesh are {item}")
     if cfg.n_codebooks or cfg.n_vision_tokens:
         raise NotImplementedError(f"{cfg.name}: codebook and vision models "
-                                  f"on a mesh are {A9C}")
+                                  f"on a mesh are {A9C_MODALITY}")
 
 
 def _axes_of(cfg: ModelConfig, name: str) -> tuple:
@@ -273,6 +290,8 @@ class Transformer(nn.Module):
         self.layout = _layout(mesh, rules)
         if self.layout is not None:
             check_shardable(cfg)
+        # leaves whose model_d dim is sharded (fsdp): name -> (dim, entry)
+        self._fsdp: dict = {}
         dev = resolve_device(device)
         pd = getattr(torch, cfg.param_dtype)
         if generator is None and dev.type != "meta":
@@ -284,7 +303,13 @@ class Transformer(nn.Module):
             full = draw()
             if self.layout is None:
                 return full
-            part = self.layout.local(full, _axes_of(cfg, name))
+            axes = _axes_of(cfg, name)
+            if "model_d" in axes:
+                dim = axes.index("model_d")
+                entry = self.layout.spec(axes, full.shape)[dim]
+                if self.layout.size(entry) > 1:
+                    self._fsdp[name] = (dim, entry)
+            part = self.layout.local(full, axes)
             if part.shape == full.shape:
                 return full
             if full.is_cuda:
@@ -350,12 +375,33 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def _full(self, name: str, t: torch.Tensor, lead: int = 0):
+        """Leaf ``name`` (``t``: its view, ``lead`` leading dims dropped)
+        with its D dim gathered over "data" where ``fsdp`` shards it; the
+        backward reduce-scatters its gradient."""
+        d = self._fsdp.get(name)
+        if d is None:
+            return t
+        return SH.gather_from(t, self.layout, d[1], d[0] - lead,
+                              scatter=True)
+
+    def _full_layer(self, prefix: Optional[str], p: dict) -> dict:
+        """One layer's views (``_LayerStack.per_layer``) with every
+        ``fsdp`` leaf gathered."""
+        if not self._fsdp or prefix is None:
+            return p
+        return {k: ({leaf: self._full(f"{prefix}.{k}.{leaf}", t, 1)
+                     for leaf, t in v.items()} if isinstance(v, dict)
+                    else self._full(f"{prefix}.{k}", v, 1))
+                for k, v in p.items()}
+
     # -- pieces ----------------------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S), or (B, S, C) with codebooks: the C embeddings
         summed in codebook order. On a mesh with the vocab sharded, a
         masked lookup of this card's rows, all-reduced."""
-        emb = self.embed.to(getattr(torch, self.cfg.dtype))
+        emb = self._full("embed", self.embed).to(getattr(torch,
+                                                         self.cfg.dtype))
         if self.cfg.n_codebooks:
             return sum(emb[c][tokens[..., c]]
                        for c in range(self.cfg.n_codebooks))
@@ -365,19 +411,22 @@ class Transformer(nn.Module):
         local = tokens - v0
         mine = (local >= 0) & (local < n)
         h = torch.where(mine[..., None], emb[local.clamp(0, n - 1)], 0.0)
-        return SH.all_reduce(h.to(emb.dtype), self.layout, entry)
+        return SH.reduce_from(h.to(emb.dtype), self.layout, entry)
 
     def _unembed(self, h: torch.Tensor) -> torch.Tensor:
         """Logits (B, S, Vp), or (B, S, C, Vp) with codebooks; padded vocab
-        rows masked to -1e30."""
+        rows masked to -1e30. On a mesh this card's vocab columns (``h``'s
+        gradient all-reduced over them in the backward)."""
         cfg = self.cfg
+        if self.tp is not None:
+            h = SH.copy_to(h, self.layout, self._unembed_vocab[0])
         if cfg.tie_embeddings:
-            logits = h @ self.embed.to(h.dtype).T
+            logits = h @ self._full("embed", self.embed).to(h.dtype).T
         elif cfg.n_codebooks:
             logits = torch.einsum("bsd,cdv->bscv", h,
                                   self.lm_head.to(h.dtype))
         else:
-            logits = h @ self.lm_head.to(h.dtype)
+            logits = h @ self._full("lm_head", self.lm_head).to(h.dtype)
         if cfg.final_softcap is not None:
             logits = cfg.final_softcap * torch.tanh(
                 logits.float() / cfg.final_softcap).to(logits.dtype)
@@ -434,15 +483,17 @@ class Transformer(nn.Module):
 
     def _layer(self, spec: LayerSpec, p: dict, x: torch.Tensor, *,
                positions=None, cache=None, lengths=None, append=False,
-               vision_kv=None, impl=None, tp=None):
+               vision_kv=None, impl=None, tp=None, prefix=None):
         """One layer. ``cache`` None: prefill (attention returns its K/V,
         a cross layer that of ``vision_kv``, a recurrent layer starts from
         a zero state); else this layer's cache views (decode: attention
         writes K/V into them, or with ``append`` returns its {"k_new",
         "v_new"}). Returns (x, the layer's new K/V, deltas or recurrent
         state, its MoE aux losses or None). ``tp`` the card's plan on a
-        mesh (``layers.TPPlan``)."""
+        mesh (``layers.TPPlan``); ``prefix`` the layer's ``g{i}.{j}``, whose
+        ``fsdp`` leaves are gathered here."""
         cfg = self.cfg
+        p = self._full_layer(prefix, p)
         h_in = L.rms_norm(x, p["norm1"], cfg.norm_eps)
         if spec.kind == "attn":
             if cache is None:
@@ -526,13 +577,14 @@ class Transformer(nn.Module):
                     h, new, _ = self._layer(spec, views[li][r], h,
                                             positions=positions,
                                             vision_kv=vision_kv, impl=impl,
-                                            tp=self.tp)
+                                            tp=self.tp, prefix=f"g{gi}.{li}")
                     per_pos[li].append(new)
             caches[f"g{gi}"] = tuple(
                 {"mixer": {name: torch.stack([st[name] for st in sts])
                            for name in sts[0]}}
                 for sts in per_pos)
-        h = L.rms_norm(h, self.final_norm, self.cfg.norm_eps)
+        h = L.rms_norm(h, self._full("final_norm", self.final_norm),
+                       self.cfg.norm_eps)
         return self._unembed(h), caches
 
     def forward(self, tokens: torch.Tensor, *,
@@ -546,15 +598,16 @@ class Transformer(nn.Module):
 
     def _period(self, period, views: list, h: torch.Tensor,
                 positions: torch.Tensor, vision_kv: Optional[torch.Tensor],
-                impl: Optional[str]):
-        """One repeat of a group's period in training: (h, lb_loss, z_loss),
-        the aux losses summed over its MoE layers (the reference's scan
-        body); cross layers attend over ``vision_kv``."""
+                impl: Optional[str], gi: int = 0):
+        """One repeat of group ``gi``'s period in training: (h, lb_loss,
+        z_loss), the aux losses summed over its MoE layers (the reference's
+        scan body); cross layers attend over ``vision_kv``."""
         lb = torch.zeros((), dtype=torch.float32, device=h.device)
         z = torch.zeros((), dtype=torch.float32, device=h.device)
-        for spec, p in zip(period, views):
+        for li, (spec, p) in enumerate(zip(period, views)):
             h, _, aux = self._layer(spec, p, h, positions=positions,
-                                    vision_kv=vision_kv, impl=impl)
+                                    vision_kv=vision_kv, impl=impl,
+                                    tp=self.tp, prefix=f"g{gi}.{li}")
             if aux is not None:
                 lb, z = lb + aux["lb_loss"], z + aux["z_loss"]
         return h, lb, z
@@ -569,22 +622,21 @@ class Transformer(nn.Module):
         V) or (B, S, C, V), {"lb_loss", "z_loss"} summed over the MoE
         layers). Under ``cfg.remat`` every period is recomputed in the
         backward, so each attention and scan layer's kernels run twice a
-        step."""
+        step. On a mesh ``tokens`` are this card's batch rows (the train
+        step takes them) and the logits its vocab shard."""
         cfg = self.cfg
         check_trainable(cfg)
-        if self.layout is not None:
-            raise NotImplementedError(f"training on a mesh is {A9C}")
         h = self._embed(tokens)
         B, S = tokens.shape[:2]
         positions = torch.arange(S, device=h.device).expand(B, S)
         vision_kv = self._vision_kv(vision_embeds, h.dtype)
         lb_tot = torch.zeros((), dtype=torch.float32, device=h.device)
         z_tot = torch.zeros((), dtype=torch.float32, device=h.device)
-        for _, period, rep, views in self._groups():
+        for gi, period, rep, views in self._groups():
             lbs, zs = [], []
             for r in range(rep):
                 args = (period, [v[r] for v in views], h, positions,
-                        vision_kv, impl)
+                        vision_kv, impl, gi)
                 if cfg.remat:
                     h, lb, z = checkpoint(self._period, *args,
                                           use_reentrant=False)
@@ -594,7 +646,8 @@ class Transformer(nn.Module):
                 zs.append(z)
             lb_tot = lb_tot + torch.stack(lbs).sum()
             z_tot = z_tot + torch.stack(zs).sum()
-        h = L.rms_norm(h, self.final_norm, cfg.norm_eps)
+        h = L.rms_norm(h, self._full("final_norm", self.final_norm),
+                       cfg.norm_eps)
         return self._unembed(h), {"lb_loss": lb_tot, "z_loss": z_tot}
 
     @torch.no_grad()
@@ -654,7 +707,8 @@ class Transformer(nn.Module):
                     h, new, _ = self._layer(spec, views[li][r], h,
                                             cache=layer_cache,
                                             lengths=lengths, append=append,
-                                            impl=impl, tp=tp)
+                                            impl=impl, tp=tp,
+                                            prefix=f"g{gi}.{li}")
                     if spec.kind == "attn":
                         if append:
                             deltas[li].append(new)
@@ -676,7 +730,8 @@ class Transformer(nn.Module):
                         L.write_owned(leaves[name], bidx, lengths, new, s0)
                     else:
                         leaves[name][:, bidx, lengths] = new
-        h = L.rms_norm(h, self.final_norm, self.cfg.norm_eps)
+        h = L.rms_norm(h, self._full("final_norm", self.final_norm),
+                       self.cfg.norm_eps)
         return self._unembed(h)[:, 0], cache
 
 
@@ -880,16 +935,85 @@ def loss_fn(cfg: ModelConfig, model: Transformer, batch: dict, *,
     logits (padded vocab rows masked by ``_unembed``; with codebooks every
     (position, codebook) is one term of the mean), plus 1e-4 x the mean
     squared logsumexp z, 1e-2 x lb_loss and 1e-3 x the router z_loss.
-    ``cfg`` must be the model's."""
+    ``cfg`` must be the model's.
+
+    On a mesh the batch is this card's rows and the loss their mean; with
+    the vocab sharded the cross-entropy is vocab-parallel (``vocab_lse``):
+    the logits stay this card's columns."""
     if cfg != model.cfg:
         raise ValueError(f"loss_fn: cfg {cfg.name} is not the model's")
     logits, aux = model.train_forward(
         batch["tokens"].long(), vision_embeds=batch.get("vision_embeds"),
         impl=impl)
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = lf.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    labels = batch["labels"].long()
+    if model.tp is not None and model.layout.size(model._unembed_vocab[0]) > 1:
+        lse, gold = vocab_lse(lf, labels, model.layout,
+                              *model._unembed_vocab)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = lf.gather(-1, labels[..., None])[..., 0]
     ce = (lse - gold).mean()
     z = (lse ** 2).mean()
     loss = ce + 1e-4 * z + 1e-2 * aux["lb_loss"] + 1e-3 * aux["z_loss"]
     return loss, {"ce": ce, "z": z, **aux}
+
+
+def vocab_lse(lf: torch.Tensor, labels: torch.Tensor, layout: SH.Layout,
+              entry, v0: int, n: int):
+    """(logsumexp, gold logit) of each row of fp32 logits sharded over the
+    vocab: ``lf`` (..., n) this card's columns from global column ``v0``
+    (padded ones already -1e30), ``labels`` global. The row max is
+    all-reduced (max, no gradient); the sum of exponentials below it and
+    the gold logit (0 off this card) are all-reduced together, their
+    gradients passing through to this card's columns."""
+    m = lf.detach().amax(dim=-1)
+    SH.all_reduce(m, layout, entry, op="max")
+    local = labels - v0
+    mine = (local >= 0) & (local < n)
+    gold = lf.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    parts = torch.stack([torch.exp(lf - m[..., None]).sum(dim=-1),
+                         torch.where(mine, gold, 0.0)], dim=-1)
+    parts = SH.reduce_from(parts, layout, entry)
+    return m + torch.log(parts[..., 0]), parts[..., 1]
+
+
+def train_collectives(model: Transformer) -> dict:
+    """The collectives one microbatch's ``loss_fn`` and its backward make
+    on a mesh, by kind, from the layout (what ``sharding.collectives()``
+    counts for it): the embedding's all-reduce; with the vocab sharded the
+    unembedding's input gradient and the loss's max and sums (3
+    all-reduces); per attention layer and dense MLP with their heads or
+    d_ff sharded, the output's all-reduce (again in the recompute under
+    remat, except a period's last MLP without a post norm: the
+    checkpoint's recompute stops after the last saved tensor) and the
+    input gradient's; under ``fsdp`` an all-gather of every sharded leaf
+    at each use (the recompute gathers a period's again) and a
+    reduce-scatter of its gradient."""
+    if model.tp is None:
+        return {}
+    cfg, tp, lay = model.cfg, model.tp, model.layout
+    live = lambda entry: lay.size(entry) > 1     # noqa: E731
+    n = {"all-reduce": int(live(model._embed_vocab[0])),
+         "all-gather": 0, "reduce-scatter": 0}
+    if live(model._unembed_vocab[0]):
+        n["all-reduce"] += 3
+    top = {"embed": 1 + cfg.tie_embeddings, "final_norm": 1, "lm_head": 1}
+    runs = 2 if cfg.remat else 1
+    for name in model._fsdp:
+        if name in top:
+            n["all-gather"] += top[name]
+            n["reduce-scatter"] += top[name]
+        else:               # a stacked leaf: each layer's view, each run
+            rep = cfg.groups[int(name.split(".")[0][1:])][1]
+            n["all-gather"] += rep * runs
+            n["reduce-scatter"] += rep
+    for period, rep in cfg.groups:
+        for li, spec in enumerate(period):
+            last = li == len(period) - 1
+            n["all-reduce"] += rep * (runs + 1) * live(tp.heads)
+            if spec.mlp == "dense" and live(tp.ff):
+                recomputed = runs - (cfg.remat and last
+                                     and not cfg.use_post_norms)
+                n["all-reduce"] += rep * (recomputed + 1)
+    return {k: v for k, v in n.items() if v}

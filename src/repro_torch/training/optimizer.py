@@ -15,19 +15,53 @@ them), so a step holds no second copy of either; the arithmetic is the
 reference's, in fp32, each parameter rounded to its dtype at the end.
 ``state_to_tree`` / ``state_from_tree`` convert the state to and from the
 JAX structure, in which the checkpoint stores it.
+
+On a mesh (ZeRO-1, the reference's ``opt_rules``: ``model_d`` over the data
+axes) ``init(..., shapes=)`` gives each card only its slice of ``m`` and
+``v``, and ``update(..., zero=)`` updates that slice of each parameter
+(``ZeroLeaf.index`` of the card's parameter shard) and all-gathers the
+parameter over "data". Under ``fsdp`` a parameter and its moments share one
+spec: the whole local shard is updated and nothing is gathered.
+``state_to_tree`` / ``state_from_tree`` with ``specs`` and ``layout`` give
+and take whole leaves. AdamW is what the dense configs use; a sharded
+Adafactor comes with Jamba and kimi-k2 on a mesh (ROADMAP A9c item 1) and
+raises until then.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any, Optional
 
 import torch
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.tree import keystr, name_of, named, nest, path_of
+
+ADAFACTOR_ON_A_MESH = ("a sharded Adafactor (Jamba and kimi-k2 on a mesh) "
+                       "is ROADMAP A9c item 1 (expert parallelism)")
 
 Params = dict
 
 
-def init(params: Params, kind: str) -> dict:
+@dataclasses.dataclass(frozen=True)
+class ZeroLeaf:
+    """Where a card's moments of one parameter sit in its shard of it:
+    ``index`` (slices of the parameter's local shard), and the dim and spec
+    entry over which the updated slice is all-gathered (None: the slice is
+    the whole shard)."""
+
+    index: tuple
+    dim: Optional[int]
+    entry: Any
+    layout: Any
+
+
+def init(params: Params, kind: str,
+         shapes: Optional[dict] = None) -> dict:
+    """Zeroed state of ``kind`` for ``params``; ``shapes`` ({name: shape})
+    gives AdamW moments other shapes than the parameters' (a card's ZeRO-1
+    slices)."""
     dev = next(iter(params.values())).device
     count = torch.zeros((), dtype=torch.int32, device=dev)
 
@@ -35,9 +69,12 @@ def init(params: Params, kind: str) -> dict:
         return torch.zeros(shape, dtype=torch.float32, device=dev)
 
     if kind == "adamw":
-        return {"m": {k: zeros(p.shape) for k, p in params.items()},
-                "v": {k: zeros(p.shape) for k, p in params.items()},
+        shp = {k: (shapes or {}).get(k, p.shape) for k, p in params.items()}
+        return {"m": {k: zeros(shp[k]) for k in params},
+                "v": {k: zeros(shp[k]) for k in params},
                 "count": count}
+    if shapes is not None:
+        raise NotImplementedError(ADAFACTOR_ON_A_MESH)
     if kind == "adafactor":
         fac = {}
         for k, p in params.items():
@@ -83,15 +120,29 @@ def _adafactor_update(p, g, st, lr, decay):
 @torch.no_grad()
 def update(params: Params, grads: Params, state: dict, kind: str, lr, *,
            b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-           weight_decay: float = 0.0, fac_decay: float = 0.99) -> dict:
+           weight_decay: float = 0.0, fac_decay: float = 0.99,
+           zero: Optional[dict] = None) -> dict:
     """One step at learning rate ``lr`` (a number or a 0-dim tensor).
     Writes ``params`` and the moments in place; returns the state with
-    ``count`` advanced."""
+    ``count`` advanced. ``zero`` ({name: ``ZeroLeaf``}, a mesh's): each
+    card updates its moments' slice of each parameter shard and
+    all-gathers it."""
     count = state["count"] + 1
+    if zero is not None and kind != "adamw":
+        raise NotImplementedError(ADAFACTOR_ON_A_MESH)
     if kind == "adamw":
         for k, p in params.items():
-            _adamw_update(p, grads[k], state["m"][k], state["v"][k], lr, b1,
-                          b2, eps, weight_decay, count)
+            z = zero.get(k) if zero is not None else None
+            if z is None:
+                _adamw_update(p, grads[k], state["m"][k], state["v"][k], lr,
+                              b1, b2, eps, weight_decay, count)
+                continue
+            part = p[z.index]                    # a view: written in place
+            _adamw_update(part, grads[k][z.index], state["m"][k],
+                          state["v"][k], lr, b1, b2, eps, weight_decay, count)
+            if z.dim is not None:
+                p.copy_(SH.all_gather(part.contiguous(), z.layout, z.entry,
+                                      z.dim))
         return {"m": state["m"], "v": state["v"], "count": count}
     if kind == "adafactor":
         for k, p in params.items():
@@ -131,9 +182,19 @@ def lr_schedule(step, *, peak: float = 3e-4, warmup: int = 100,
 # ---------------------------------------------------------------------------
 # The JAX structure (checkpoints)
 # ---------------------------------------------------------------------------
-def state_to_tree(state: dict, kind: str) -> dict:
+def state_to_tree(state: dict, kind: str, specs: Optional[dict] = None,
+                  layout=None) -> dict:
     """The reference's optimizer-state pytree: AdamW moments nested as the
-    params are, Adafactor's ``fac`` keyed by the params' keystrs."""
+    params are, Adafactor's ``fac`` keyed by the params' keystrs. With
+    ``specs`` (the state's spec tree in this module's layout, e.g.
+    ``build_cell``'s) and ``layout`` (this card's), every card's moments
+    gathered into whole leaves (a collective: every card calls it)."""
+    if specs is not None and kind != "adamw":
+        raise NotImplementedError(ADAFACTOR_ON_A_MESH)
+    if specs is not None:
+        state = {**state, **{k: {n: SH.gather_whole(t, layout, specs[k][n])
+                                 for n, t in state[k].items()}
+                             for k in ("m", "v")}}
     if kind == "adamw":
         return {"m": nest(state["m"]), "v": nest(state["v"]),
                 "count": state["count"]}
@@ -144,11 +205,19 @@ def state_to_tree(state: dict, kind: str) -> dict:
     raise ValueError(kind)
 
 
-def state_from_tree(tree: dict, kind: str) -> dict:
-    """The inverse of ``state_to_tree``."""
+def state_from_tree(tree: dict, kind: str, specs: Optional[dict] = None,
+                    layout=None) -> dict:
+    """The inverse of ``state_to_tree``: with ``specs`` and ``layout`` it
+    takes whole leaves and keeps this card's slice of each."""
     if kind == "adamw":
-        return {"m": named(tree["m"]), "v": named(tree["v"]),
-                "count": tree["count"]}
+        state = {"m": named(tree["m"]), "v": named(tree["v"]),
+                 "count": tree["count"]}
+        if specs is not None:
+            for k in ("m", "v"):
+                state[k] = {n: SH.local_shard(t, layout, specs[k][n],
+                                             layout.coords).contiguous()
+                            for n, t in state[k].items()}
+        return state
     if kind == "adafactor":
         return {"fac": {name_of(ks): st for ks, st in tree["fac"].items()},
                 "count": tree["count"]}

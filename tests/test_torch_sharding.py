@@ -2,8 +2,9 @@
 sharding, repro_torch.launch.steps) against the JAX package's on the CPU.
 
 For all ten configs, the four shape cases and the meshes 1x1, 1x4, 2x2 and
-16x16, the spec of every parameter, decode-cache, batch and optimizer-state
-leaf that the port gives (``steps.shardings_of`` over ``param_axes`` /
+16x16 (and for the dense configs' train cells under ``fsdp`` and
+``micro8+bf16grad``), the spec of every parameter, decode-cache, batch and
+optimizer-state leaf that the port gives (``steps.shardings_of`` over ``param_axes`` /
 ``cache_axes`` / ``batch_axes`` / ``optimizer.state_axes`` under
 ``rules_for`` / ``opt_rules``) equals the reference's ``_resolve`` over its
 own axes trees and rules. The reference's ``rules_for`` reads only
@@ -26,7 +27,7 @@ from repro.launch import steps as JS
 from repro.models import transformer as JT
 from repro.training import optimizer as JOPT
 from repro_torch.configs import get_config, list_archs
-from repro_torch.configs.shapes import SHAPES
+from repro_torch.configs.shapes import SHAPES, ShapeCase
 from repro_torch.distributed import sharding as SH
 from repro_torch.launch import steps as ST
 from repro_torch.models import transformer as T
@@ -158,6 +159,58 @@ def test_specs_match_reference(trees, arch, mesh_name):
                            JS.opt_rules(rules_j)), shape
 
 
+DENSE = ("qwen2-1.5b", "internlm2-1.8b", "minitron-4b", "gemma2-27b")
+
+
+@pytest.mark.parametrize("variant", ["fsdp", "micro8+bf16grad"])
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch", DENSE)
+def test_train_cell_specs_match_reference(trees, arch, mesh_name, variant):
+    """``build_cell(mesh=)``'s train cell under ``fsdp`` and
+    ``micro8+bf16grad``: its rules, and its parameter and optimizer-state
+    spec trees, equal the reference's ``rules_for`` / ``opt_rules`` over its
+    own axes trees (its ``build_cell``'s shardings); its parameters are
+    the shards the parameter specs give rank 0."""
+    cfg, cfg_j, model, p_axes_j, _ = trees[arch]
+    mesh = _Mesh(*MESHES[mesh_name])
+    case = SHAPES["train_4k"]
+    lay = SH.Layout(mesh.shape, {"data": 0, "model": 0}, SH.ShardingRules())
+    _, kw, _, rules, ins, outs = ST.build_cell(cfg, case, "meta", variant,
+                                               mesh=lay)
+    rules_j = JS.rules_for(cfg_j, jax_get_shape("train_4k"), mesh, variant)
+    assert dict(rules.rules) == dict(rules_j.rules)
+    params = T.param_tree(model)
+    p_shapes = _shapes(params)
+    assert _specs(ins["params"]) == _ref(mesh, p_axes_j, p_shapes, rules_j)
+    named = dict(model.named_parameters())
+    o_shapes = _shapes(OPT.state_to_tree(OPT.init(named, cfg.optimizer),
+                                         cfg.optimizer))
+    o_axes_j = JOPT.state_axes(params, p_axes_j, cfg_j.optimizer)
+    assert _specs(OPT.state_to_tree(ins["opt_state"], cfg.optimizer)) == \
+        _ref(mesh, o_axes_j, o_shapes, JS.opt_rules(rules_j))
+    assert outs[:2] == (ins["params"], ins["opt_state"])
+    local = {keystr(p): tuple(t.shape) for p, t in
+             flatten(T.param_tree(kw["params"]))}
+    for k, spec in _specs(ins["params"]).items():
+        assert local[k] == tuple(n // lay.size(e) for e, n in
+                                 zip(spec, p_shapes[k])), k
+
+
+@pytest.mark.parametrize("variant,item", [("expdata", "A9c item 1"),
+                                          ("seqpar", "A9c item 4")])
+def test_waiting_sharding_variants_raise_on_a_mesh(variant, item):
+    """The sharding variants a mesh does not run yet raise naming their
+    ROADMAP A9c item, in ``build_cell`` and ``apply_variant_config``."""
+    mesh = _Mesh(2, 2)
+    cfg = get_config("qwen2-1.5b")
+    with pytest.raises(NotImplementedError, match=item):
+        ST.apply_variant_config(cfg, variant, mesh)
+    with pytest.raises(NotImplementedError, match=item):
+        ST.build_cell(cfg, SHAPES["train_4k"], "meta", variant,
+                      mesh=SH.Layout(mesh.shape, {"data": 0, "model": 0},
+                                     SH.ShardingRules()))
+
+
 def test_resolver_cases_as_the_reference():
     """tests/test_sharding_dryrun.py's resolver cases on both packages."""
     sizes = {"pod": 2, "data": 16, "model": 16}
@@ -239,7 +292,10 @@ def test_meta_collectives_only_count():
 def test_sharded_cell_on_the_meta_device():
     """``build_cell`` on a mesh: rank 2's shards of qwen2 at decode_32k (the
     cache by sequence, batch 128 uncut: 8192 rows a card) and gemma2 (by
-    kv heads); its spec trees; the train step raises (ROADMAP A9c)."""
+    kv heads); its spec trees; the train step's ZeRO-1 moments, and the
+    step itself on the meta device (its collectives only counted, equal
+    to ``train_step_collectives``); the sharding variants that still wait
+    raise naming their ROADMAP A9c item."""
     lay = SH.Layout({"data": 1, "model": 4}, {"data": 0, "model": 2},
                     SH.ShardingRules())
     fn, kw, donate, rules, ins, outs = ST.build_cell(
@@ -259,16 +315,30 @@ def test_sharded_cell_on_the_meta_device():
                               "meta", mesh=lay)
     assert kw["cache"]["g0"][1]["mixer"]["k"].shape == (23, 1, 131072, 16,
                                                         128)
-    fn, *_ = ST.build_cell(get_config("qwen2-1.5b"), SHAPES["train_4k"],
-                           "meta", mesh=lay)
-    with pytest.raises(NotImplementedError, match="A9c"):
-        fn()
-    with pytest.raises(NotImplementedError, match="A9c"):
+    lay22 = SH.Layout({"data": 2, "model": 2}, {"data": 1, "model": 0},
+                      SH.ShardingRules())
+    fn, kw, *_ = ST.build_cell(get_config("qwen2-1.5b"), SHAPES["train_4k"],
+                               "meta", mesh=lay22)
+    assert kw["params"].g0[0].mixer["wq"].shape == (28, 1536, 6, 128)
+    assert kw["opt_state"]["m"]["g0.0.mixer.wq"].shape == (28, 768, 6, 128)
+    assert kw["opt_state"]["v"]["embed"].shape == (75968, 768)
+    cfg = get_config("qwen2-1.5b").reduced()
+    for variant in ("baseline", "fsdp", "micro8+bf16grad"):
+        fn, kw, *_ = ST.build_cell(cfg, ShapeCase("t", "train", 32, 8),
+                                   "meta", variant, mesh=lay22)
+        kw["opt_state"]["count"] = torch.zeros((), dtype=torch.int32,
+                                               device="meta")
+        SH.reset_collectives()
+        fn(*kw.values())
+        assert SH.collectives()["calls"] == ST.train_step_collectives(
+            kw["params"], 8, 8 if "micro8" in variant else 4), variant
+    with pytest.raises(NotImplementedError, match="A9c item 1"):
         ST.build_cell(get_config("granite-moe-1b-a400m"),
                       SHAPES["decode_32k"], "meta", mesh=lay)
-    for variant in ST.SHARDING_VARIANTS:
-        with pytest.raises(NotImplementedError):
-            ST.build_cell(get_config("qwen2-1.5b"), SHAPES["decode_32k"],
+    for variant, item in (("expdata", "A9c item 1"), ("seqpar", "A9c item 4"),
+                          ("fsdp+seqpar", "A9c item 4")):
+        with pytest.raises(NotImplementedError, match=item):
+            ST.build_cell(get_config("qwen2-1.5b"), SHAPES["train_4k"],
                           "meta", variant, mesh=lay)
 
 
