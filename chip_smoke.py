@@ -165,8 +165,8 @@ repository beside it, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --cards 4
 
-is the tensor-parallel mode on four cards of one host (the default run
-above is unchanged). It exits non-zero when fewer than 4 cards are
+is the tensor- and expert-parallel mode on four cards of one host (the
+default run above is unchanged). It exits non-zero when fewer than 4 cards are
 visible, builds the kernels once, then starts one process a card
 (`torch.multiprocessing` spawn, NCCL, a 300 s process-group timeout so a
 hung rank fails the run; any rank's failure fails it). On a (data 1,
@@ -179,7 +179,12 @@ sharding rules:
                heads at Dh 128, start > 0, windows across shard edges,
                empty shards, the new token merged on its owner card only,
                committed and append, fp32 2e-5 and bf16 2e-2; a kv-head
-               view of a replicated cache; timings at the four-card shapes.
+               view of a replicated cache; timings at the four-card shapes;
+               the routing kernel at the global tokens every card routes
+               (granite's train_4k microbatch on 2x2: T = 8192 at the
+               block limit; its decode_32k step: T = 128; kimi-k2's served
+               step: T = 8, E = 384), every integer against the plain
+               version.
   train tp    — the sharded train step (launch/steps.py build_cell(mesh=))
                of qwen2-1.5b at full width on its first 2 layers, fp32, on
                meshes (2, 2), (4, 1) and (1, 4), two steps from count 99
@@ -190,7 +195,8 @@ sharding rules:
                and leaves within bf16's 2e-2); losses equal on every rank,
                collectives equal to steps.train_step_collectives, launches
                exact; the flash kernel with lse at a card's training shape
-               against its plain version; then the train_4k records on mesh
+               against its plain version (and aten's flash attention with
+               its lse); then the train_4k records on mesh
                (2, 2): qwen2-1.5b, internlm2-1.8b and minitron-4b (batch cut
                by the measured peak), gemma2-27b not fitting, reckoned from
                the specs before anything is built.
@@ -210,9 +216,35 @@ sharding rules:
                gemma2 decode_32k, gemma2 long_500k and qwen2 prefill_32k;
                ok, 4 devices, collectives equal to the formula, launches
                exact.
-  profile tp  — each decode record's H100x4 MaxTput row beside the analytic
-               H100x4 and H100 rows, the engine model's step beside the
-               measured one.
+  path ep     — expert parallelism (the MoE layers' experts over "model",
+               their d_ff over "data"): granite-moe-1b-a400m at full size
+               in fp32 on meshes 1x4 and 2x2, and kimi-k2 at full width on
+               its first 2 layers (bf16 weights computed in fp32) on 1x4,
+               prefill and 4 teacher-forced decode steps (append and
+               committed) against card 0 without a mesh: PATH_TOL_FP32,
+               argmax and every expert choice equal (``ops.moe_route``
+               wrapped), launches exact.
+  serving ep  — phase 3's 8 requests through ServingEngine on mesh 1x4:
+               granite in bf16 (tokens equal on every rank; TTFT, TPOT,
+               busy, NCCL and idle a decode step by rank), granite in fp32
+               compute (tokens equal to the one-card engine's), kimi-k2 at
+               full width on the most layers four cards hold, reckoned
+               from the specs (shards drawn on the cards), tokens equal on
+               every rank.
+  train ep    — granite at full width on its first 2 layers, fp32, two
+               steps from count 99 against one card's step, as train tp:
+               meshes 2x2, 4x1 and 1x4; expdata, fsdp and blockdispatch on
+               2x2; granite with Adafactor on 2x2 (a gate-only config
+               change); then kimi-k2's Adafactor step in bf16 on 2x2 on
+               its first 2 layers (finite losses, equal on every rank,
+               first cross-entropy in phase 8's band, collectives exact).
+  dryrun ep   — granite's decode_32k on 1x4 (batch 128 uncut) and train_4k
+               on 2x2 (the batch cut to the routing kernel's block: one
+               row a card a microbatch); kimi-k2's decode_32k and train_4k
+               not fitting, reckoned from the specs.
+  profile tp  — each decode record's (granite's too) H100x4 MaxTput row
+               beside the analytic H100x4 and H100 rows, the engine
+               model's step beside the measured one.
 It ends with a {"kernels": [...]} line, the cards' names and power limits,
 and the same last line with "count": 4.
 """
@@ -2934,6 +2966,38 @@ TP_TRAIN_CASES = (((2, 2), "baseline"), ((4, 1), "baseline"),
 TP_TRAIN_RECORDS = ("qwen2-1.5b", "internlm2-1.8b", "minitron-4b",
                     "gemma2-27b")
 TP_TRAIN_NOT_FITTING = ("gemma2-27b",)
+# A route the mesh and one card choose apart: fp32 sums in another order
+# (the row-parallel all-reduces, the combine's parts summed over the cards)
+# move a router logit by ~1e-6, which swaps a token's k-th and (k+1)-th
+# expert where their logits are that close (about one token in 1e5 at
+# granite's 32 experts, a few in a full-size prefill). The one-card run
+# then takes the mesh's choice, and only where this run's own gap between
+# the two logits is below NEAR_TIE, 100x that noise; a wider gap fails.
+NEAR_TIE = 1e-4
+# the expert-parallel (ep) phases: granite-moe at full size, fp32, on the
+# (data, model) meshes below against card 0 without a mesh (batch, max_seq,
+# prompt lengths), then kimi-k2 at full width on its first 2 layers
+EP_ARCH, EP_KIMI = "granite-moe-1b-a400m", "kimi-k2-1t-a32b"
+EP_PATH_MESHES = ((1, 4), (2, 2))
+EP_PATH = (4, 2048, (300, 700, 1100, 1535))
+EP_KIMI_PATH = (4, 2048, (100, 257, 600, 1023))
+# train ep: granite at full width on its first 2 layers, fp32, as train tp
+EP_TRAIN_CASES = (((2, 2), "baseline"), ((4, 1), "baseline"),
+                  ((1, 4), "baseline"), ((2, 2), "expdata"),
+                  ((2, 2), "fsdp"), ((2, 2), "blockdispatch"),
+                  ((2, 2), "adafactor"))
+# kimi-k2's Adafactor step in bf16 on mesh 2x2: its first 2 layers (8.45 GB
+# of bf16 experts a card and their fp32 gradients, 25 GB), one row a card
+EP_KIMI_TRAIN = (2, 2, 1024, 2)           # layers, batch, seq, steps
+EP_RECORDS = ((EP_ARCH, "decode_32k", (1, 4)), (EP_ARCH, "train_4k", (2, 2)),
+              (EP_KIMI, "decode_32k", (1, 4)), (EP_KIMI, "train_4k", (2, 2)))
+EP_NOT_FITTING = (EP_KIMI,)
+# serving ep: kimi-k2's depth on mesh 1x4 is the most layers whose weights
+# leave this much of the smallest card's free memory for the cache, the
+# activations and NCCL (its shards drawn on the cards: a whole 22.5 GB fp32
+# expert leaf drawn on each card, as the model's init does, would not fit
+# beside the layers before it)
+EP_KIMI_RESERVE_BYTES = 12e9
 
 
 def _free_port() -> int:
@@ -3009,10 +3073,12 @@ class _TPRun:
     def __init__(self, torch, dist, rank, mesh):
         from repro_torch.kernels import decode_attention as da
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import moe_gating as mg
         self.torch, self.dist, self.rank, self.mesh = torch, dist, rank, mesh
         self.n = mesh.size()
         self.dev = torch.device("cuda", rank)
-        self.da, self.fa = da, fa
+        self.da, self.fa, self.mg = da, fa, mg
+        self.meshes = {(1, mesh.size()): mesh}
         self.gen = torch.Generator(device=self.dev).manual_seed(rank)
         self.launches_by_path = {}
         self.t_start = time.perf_counter()
@@ -3033,19 +3099,31 @@ class _TPRun:
 
     def zero(self) -> None:
         self.fa.launches = self.da.launches = self.da.merge_launches = 0
+        self.mg.launches = 0
 
     def read(self) -> dict:
         return {"flash_attention": self.fa.launches,
                 "decode_attention": self.da.launches,
-                "decode_merge": self.da.merge_launches}
+                "decode_merge": self.da.merge_launches,
+                "moe_route": self.mg.launches}
+
+    def mesh_of(self, shape):
+        """The (data, model) mesh of this shape, made once."""
+        if shape not in self.meshes:
+            from repro_torch.launch.mesh import make_mesh
+            self.meshes[shape] = make_mesh(self.n, shape[0])
+        return self.meshes[shape]
 
     def expect(self, what, cfg, prefills, decodes, seq_sharded) -> dict:
         """This rank's launches against the layer counts, equal on every
-        rank; kept under ``what`` for the kernels line."""
+        rank; kept under ``what`` for the kernels line. Every MoE layer
+        call routes its global tokens once on every card."""
         attn = sum(spec.kind == "attn" for spec in cfg.layer_specs())
+        moe = sum(spec.mlp == "moe" for spec in cfg.layer_specs())
         want = {"flash_attention": attn * prefills,
                 "decode_attention": attn * decodes,
-                "decode_merge": attn * decodes if seq_sharded else 0}
+                "decode_merge": attn * decodes if seq_sharded else 0,
+                "moe_route": moe * (prefills + decodes)}
         got = self.read()
         every = self.all(got)
         if any(g != want for g in every):
@@ -3152,10 +3230,12 @@ class _TPRun:
         t = time.perf_counter()
         records = self.dryrun_tp()
         self.say(f"phase dryrun tp: {time.perf_counter() - t:.1f} s")
+        records += self.ep_phases()
         if self.rank != 0:
             return {}
         self.profile_tp(records)
-        rows[0]["train_lse_err"] = train_err
+        rows[0]["train_lse_err"] = train_err["max_abs_err"]
+        rows[0]["train_shape"] = train_err
         for row in rows:
             row["launches_by_path"] = {
                 path: counts[row["counter"]]
@@ -3398,76 +3478,82 @@ class _TPRun:
             if not row["max_abs_err"] <= row["tol"]:
                 raise AssertionError(f"kernels tp {row['name']}: "
                                      f"{row['max_abs_err']}")
+        del fsets, lib_sets, gq, gk, gv
+        self.free()
+        route_row = self.route_row()
         self.say("kernels tp timing: " + json.dumps(
             {r["name"]: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                            "library_ms")}
-             for r in (decode_row, merge_row, flash_row)}))
-        del fsets, lib_sets, gq, gk, gv
+             for r in (decode_row, merge_row, flash_row, route_row)}))
+        return [flash_row, decode_row, merge_row, route_row]
+
+    def route_row(self) -> dict:
+        """The kernels line's routing row at the four-card shapes: the
+        global tokens every card routes in granite's train_4k microbatch on
+        mesh 2x2 (2 rows of 4096: T * k at the block limit), its
+        decode_32k step on 1x4 (T = 128) and kimi-k2's served decode step
+        (T = 8, E = 384); every integer against the plain version."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import ops
+        from repro_torch.models.moe import capacity
+        res = {}
+        for arch, T_ in ((EP_ARCH, 8192), (EP_ARCH, 128), (EP_KIMI, B_D)):
+            cfg = get_config(arch)
+            E, k = cfg.n_experts, cfg.moe_top_k
+            cap = capacity(cfg, T_)
+            sets = [(self.rnd((T_, E), torch.float32) * 2,)
+                    for _ in range(4)]
+
+            def kernel(x, impl="cuda"):
+                return ops.moe_route(x, k, cap=cap, nb=1, impl=impl)
+
+            got, want = kernel(*sets[0]), kernel(*sets[0], impl="plain")
+            if not all(torch.equal(a.long(), b.long())
+                       for a, b in zip(got[1:5], want[1:5])):
+                raise AssertionError(f"route row T={T_} E={E}: integers "
+                                     "differ from the plain version")
+            nbytes = T_ * E * 4 + T_ * k * 16 + 2 * (E * cap + 1) * 8
+            n_ops = T_ * E * (5 + k)
+            bound = {"bytes": nbytes / PEAK_BYTES * 1e3,
+                     "operations": n_ops / PEAK_FP32_FLOPS * 1e3}
+            res[f"{arch} T={T_} E={E} k={k} cap={cap}"] = {
+                "max_abs_err": self.err(got[0], want[0]),
+                "ms": self.device_ms(kernel, sets),
+                "call_ms": self.time_ms(kernel, sets),
+                "plain_ms": self.time_ms(lambda x: kernel(x, "plain"),
+                                         sets),
+                "bound_ms": max(bound.values()),
+                "bound_by": max(bound, key=bound.get),
+                "bytes": nbytes, "operations": n_ops}
+            del sets
+        (shape, first), = list(res.items())[:1]
+        row = {"name": "moe_gating", "counter": "moe_route", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/moe_gating.cu",
+               "replaces": "src/repro/kernels/moe_gating.py:43",
+               "entry": "ops.moe_route: one launch a MoE layer call on "
+                        "every card, over the layer's global tokens",
+               "shape": shape, **first, "tol": GATING_TOL,
+               "max_abs_err": max(r["max_abs_err"] for r in res.values()),
+               "library_ms": None,
+               "library": "none: no one PyTorch call computes the routing",
+               "shapes": res}
         self.free()
-        return [flash_row, decode_row, merge_row]
+        return row
 
     def path_tp(self) -> None:
         """Prefill and teacher-forced decode (append and committed) on the
         mesh against the same weights on card 0 without a mesh: fp32
         gated (1e-3, argmax equal), bf16 reported; launches exact."""
-        torch = self.torch
         from repro_torch.configs import get_config
-        from repro_torch.configs.shapes import ShapeCase
-        from repro_torch.launch import steps as ST
-        from repro_torch.models import transformer as T
         for arch, layers, B, max_seq, lens in TP_PATH:
             base = get_config(arch)
             if layers:
                 base = cut(base, layers)
             for dtype in ("float32", "bfloat16"):
                 cfg = dataclasses.replace(base, dtype=dtype, param_dtype=dtype)
-                rules = ST.rules_for(cfg, ShapeCase("path", "decode",
-                                                    max_seq, B), self.mesh)
-                rng = np.random.default_rng(0)
-                tokens = rng.integers(0, cfg.vocab_size, size=(B, max(lens)))
-                steps = rng.integers(0, cfg.vocab_size,
-                                     size=(TP_PATH_STEPS, B))
-                model = self.build(cfg, self.mesh, rules)
-                self.zero()
-                mesh_out = self._path_run(cfg, model, tokens, steps, lens,
-                                          max_seq)
-                _, _, seq, kv, _ = T.init_cache(
-                    cfg, B, max_seq, device="meta",
-                    mesh=model.layout).spec(cfg)
-                sharded = model.layout.size(seq) > 1
-                layout = ("by sequence" if sharded else "by kv heads"
-                          if model.layout.size(kv) > 1 else "replicated")
-                what = (f"{cfg.name} B={B} max_seq={max_seq} {dtype} path "
-                        f"tp")
-                self.expect(what, cfg, B, 2 * TP_PATH_STEPS, sharded)
-                del model
-                self.free()
-                if self.rank == 0:
-                    one = self.build(cfg)
-                    ref_out = self._path_run(cfg, one, tokens, steps, lens,
-                                             max_seq)
-                    del one
-                    self.free()
-                    diffs = {k: self.err(mesh_out[k], ref_out[k])
-                             for k in ref_out}
-                    argmax = {k: bool(torch.equal(
-                        mesh_out[k].argmax(-1), ref_out[k].argmax(-1)))
-                        for k in ref_out}
-                    worst = max(diffs.values())
-                    line = {"model": cfg.name, "layers": cfg.n_layers,
-                            "dtype": dtype, "batch": B, "max_seq": max_seq,
-                            "prompt_lens": list(lens),
-                            "cache": layout,
-                            "max_abs_diff": worst, "diffs": diffs,
-                            "argmax_equal": all(argmax.values()),
-                            "launches_rank0": self.launches_by_path[what]}
-                    self.say("path tp: " + json.dumps(line))
-                    if dtype == "float32" and not (
-                            worst <= PATH_TOL_FP32 and all(argmax.values())):
-                        raise AssertionError(f"path tp {what}: {line}")
-                del mesh_out
-                self.free()
-                self.dist.barrier()
+                self._path_gate(cfg, (1, self.n), B, max_seq, lens,
+                                "path tp", gate=dtype == "float32")
 
     def _path_run(self, cfg, model, tokens, steps, lens, max_seq):
         """The last prefill rows of every prompt and each decode step's
@@ -3499,15 +3585,17 @@ class _TPRun:
         del caches
         return out
 
-    def serving_tp(self) -> None:
+    def serving_tp(self, archs=("qwen2-1.5b", "gemma2-27b"),
+                   label="serving tp") -> None:
         """Phase 3's 8 requests through ServingEngine on the mesh: bf16 at
         max_seq 2048 (tokens equal on every rank; TTFT, TPOT; busy, idle
         and NCCL time a decode step by rank), then computed in fp32 over the
-        bf16 weights, tokens equal to the one-card engine's on card 0."""
+        bf16 weights, tokens equal to the one-card engine's on card 0 (which
+        takes the mesh's expert choices at near ties: ``follow``)."""
         from repro_torch.configs import get_config
         from repro_torch.serving import EngineConfig, ServingEngine
         from repro_torch.serving.engine import serving_rules
-        for arch in ("qwen2-1.5b", "gemma2-27b"):
+        for arch in archs:
             for dtype, max_seq in (("bfloat16", S_D),
                                    ("float32", TP_SERVE_SEQ_FP32)):
                 cfg = dataclasses.replace(get_config(arch), dtype=dtype)
@@ -3516,32 +3604,42 @@ class _TPRun:
                 model = self.build(cfg, self.mesh, rules)
                 eng = ServingEngine(cfg, model, ecfg, mesh=self.mesh)
                 sharded = eng.cache.layout.size(eng.cache.spec(cfg)[2]) > 1
-                res = self._serve(cfg, eng, sharded, dtype == "bfloat16")
+                with self.routes() as mesh_ids:
+                    res = self._serve(cfg, eng, sharded, dtype == "bfloat16",
+                                      label=label)
                 every = self.all(res["tokens"])
                 if any(t != every[0] for t in every):
-                    raise AssertionError(f"serving tp {cfg.name}: tokens "
+                    raise AssertionError(f"{label} {cfg.name}: tokens "
                                          "differ between ranks")
                 del eng, model
                 self.free()
                 if dtype == "float32" and self.rank == 0:
                     one = self.build(cfg)
                     eng = ServingEngine(cfg, one, ecfg)
-                    ref = self._serve(cfg, eng, False, False,
-                                      counted=False)["tokens"]
+                    flips = []
+                    with self.follow(mesh_ids, flips):
+                        ref = self._serve(cfg, eng, False, False,
+                                          counted=False)["tokens"]
                     del eng, one
                     self.free()
                     same = [a == b for a, b in zip(ref, every[0])]
                     res["equal_to_one_card"] = sum(same)
+                    if cfg.n_experts:
+                        res["near_tie_tokens_followed"] = sum(
+                            f[0] for f in flips)
+                        res["near_tie_largest_gap"] = max(
+                            (f[1] for f in flips), default=None)
                     if not all(same):
                         raise AssertionError(
-                            f"serving tp {cfg.name} fp32: tokens of "
+                            f"{label} {cfg.name} fp32: tokens of "
                             f"{len(same) - sum(same)} requests differ from "
                             "the one-card engine's")
                 res.pop("tokens")
-                self.say("serving tp: " + json.dumps(res))
+                self.say(f"{label}: " + json.dumps(res))
                 self.dist.barrier()
 
-    def _serve(self, cfg, eng, sharded, trace, counted=True) -> dict:
+    def _serve(self, cfg, eng, sharded, trace, counted=True,
+               label="serving tp") -> dict:
         torch = self.torch
         from repro_torch.serving import LatencyStats, Request
         rng = np.random.default_rng(0)
@@ -3575,8 +3673,8 @@ class _TPRun:
                "tokens": [r.generated for r in done]}
         if counted:
             res["launches"] = self.expect(
-                f"{cfg.name} {cfg.dtype} serving tp", cfg, eng.prefills,
-                eng.decodes, sharded)
+                f"{cfg.name} {cfg.n_layers} layers {cfg.dtype} {label}",
+                cfg, eng.prefills, eng.decodes, sharded)
         stats = LatencyStats()
         for r in done:
             stats.observe(r.ttft, r.tpot)
@@ -3667,10 +3765,8 @@ class _TPRun:
         on mesh (2, 2). Returns the lse kernel's error at a card's training
         shape."""
         from repro_torch.configs import get_config
-        from repro_torch.launch.mesh import make_mesh
-        meshes = {(d, self.n // d): make_mesh(self.n, d)
-                  for d in sorted({m[0] for m, _ in TP_TRAIN_CASES})}
-        lse_err = self._train_lse() if self.rank == 0 else 0.0
+        meshes = {m: self.mesh_of(m) for m, _ in TP_TRAIN_CASES}
+        lse_err = self._train_lse() if self.rank == 0 else {}
         self.dist.barrier()
         base = dataclasses.replace(cut(get_config("qwen2-1.5b"),
                                        TP_TRAIN_LAYERS),
@@ -3681,11 +3777,13 @@ class _TPRun:
         self._train_records(meshes[(2, 2)])
         return lse_err
 
-    def _train_lse(self) -> float:
+    def _train_lse(self) -> dict:
         """The flash kernel with lse at a card's share of qwen2's training
         step on mesh (2, 2) (2 rows, 4096 tokens, 6 / 1 heads) against
         ``ref.blockwise_fwd_lse``, fp32 and bf16; ms beside the plain
-        version's."""
+        version's and, in bf16, aten's flash attention with its lse (kv
+        heads repeated to 6: ``library_flash_lse``). Returns the bf16
+        numbers (the kernels line's flash row)."""
         torch = self.torch
         from repro_torch.kernels import ref
         worst, line = 0.0, {}
@@ -3706,50 +3804,62 @@ class _TPRun:
                     *a, lse=True), sets),
                 "plain_ms": self.time_ms(lambda *a: ref.blockwise_fwd_lse(
                     *a), sets, iters=3)}
+            if key == "bfloat16":
+                lib = [(q.transpose(1, 2), k.repeat_interleave(6, 2)
+                        .transpose(1, 2).contiguous(),
+                        v.repeat_interleave(6, 2).transpose(1, 2)
+                        .contiguous()) for q, k, v in sets]
+                line[key]["library_ms"] = self.time_ms(
+                    lambda *a: library_flash_lse(torch, *a), lib)
+                del lib
             del sets, out, lse, out_p, lse_p
             self.free()
         self.say("train tp kernel: " + json.dumps({
             "kernel": "flash_attention lse=True", "shape":
             "B=2 S=4096 H=6 KVH=1 Dh=128 causal (qwen2's heads / 2)",
             **line, "card": self._card()}))
-        return worst
+        return {"shape": "lse=True B=2 S=4096 H=6 KVH=1 Dh=128 causal bf16 "
+                         "(a card's share of qwen2's train step on 2x2)",
+                **line["bfloat16"], "max_abs_err": worst}
 
-    def _train_run(self, cfg, mesh, variant):
+    def _train_run(self, cfg, mesh, variant, batch=TP_TRAIN_BATCH,
+                   seq=TP_TRAIN_SEQ):
         """Two train steps of ``variant`` from count 99 on ``mesh`` (None:
-        this card alone): (metrics by step, whole parameters, launches,
-        collectives by step and their formula); the launch counters keep
-        the run's."""
+        this card alone, the variant without its sharding-only tokens):
+        (metrics by step, whole parameters, launches, collectives by step
+        and their formula); the launch counters keep the run's."""
         torch = self.torch
         from repro_torch.configs.shapes import ShapeCase
         from repro_torch.distributed import sharding as SH
         from repro_torch.launch import steps as ST
         from repro_torch.models import transformer as T
         from repro_torch.training.data import DataConfig, SyntheticDataset
-        case = ShapeCase("train tp", "train", TP_TRAIN_SEQ, TP_TRAIN_BATCH)
-        one = variant.replace("fsdp", "baseline")
+        case = ShapeCase("train tp", "train", seq, batch)
+        one = "+".join(sorted(ST.variant_tokens(variant)
+                              - set(ST.SHARDING_VARIANTS))) or "baseline"
         sharded = mesh is not None
         out = ST.build_cell(cfg, case, "meta", variant if sharded else one,
                             mesh=mesh)
         fn = out[0]
-        model = self.build(cfg, mesh, out[3] if sharded else None)
+        model = self.build(ST.apply_variant_config(cfg, one), mesh,
+                           out[3] if sharded else None)
         st = ST.init_opt_state(model)
         st["count"] = torch.tensor(99, dtype=torch.int32, device=self.dev)
         data = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size,
-                                           seq_len=TP_TRAIN_SEQ,
-                                           global_batch=TP_TRAIN_BATCH))
+                                           seq_len=seq, global_batch=batch))
         metrics, calls = [], []
         self.zero()
         for i in range(TP_TRAIN_STEPS):
-            batch = {k: torch.from_numpy(v).to(self.dev)
-                     for k, v in data.batch(i).items()}
+            b = {k: torch.from_numpy(v).to(self.dev)
+                 for k, v in data.batch(i).items()}
             SH.reset_collectives()
-            st, m = fn(model, st, batch)
+            st, m = fn(model, st, b)
             metrics.append({k: float(v) for k, v in m.items()})
             calls.append(SH.collectives()["calls"])
         torch.cuda.synchronize()
         launches = self.read()
         nm = 8 if "micro8" in variant else 4
-        formula = (ST.train_step_collectives(model, TP_TRAIN_BATCH, nm)
+        formula = (ST.train_step_collectives(model, batch, nm, seq)
                    if mesh is not None else {})
         if mesh is None:
             params = {n: p.detach() for n, p in model.named_parameters()}
@@ -3763,12 +3873,13 @@ class _TPRun:
             del model, st
         return metrics, params, launches, calls, formula
 
-    def _train_gate(self, cfg, mesh, shape, variant) -> None:
-        """One train tp case (module docstring)."""
+    def _train_gate(self, cfg, mesh, shape, variant, label="tp") -> None:
+        """One train tp (or ep) case (module docstring)."""
         t0 = time.perf_counter()
         metrics, params, launches, calls, formula = self._train_run(
             cfg, mesh, variant)
-        what = f"{cfg.name} {shape[0]}x{shape[1]} {variant} train tp"
+        what = (f"{cfg.name} {shape[0]}x{shape[1]} {variant} "
+                f"{cfg.optimizer} train {label}")
         self.expect_train(what, cfg, 8 if "micro8" in variant else 4,
                           TP_TRAIN_STEPS)
         every = self.all([metrics, calls])
@@ -3792,8 +3903,8 @@ class _TPRun:
                 1.0, float(p.abs().max())) for n, p in ref_params.items())
             line = {"model": cfg.name, "layers": cfg.n_layers,
                     "dtype": "float32", "mesh": list(shape),
-                    "variant": variant, "batch": [TP_TRAIN_BATCH,
-                                                  TP_TRAIN_SEQ],
+                    "variant": variant, "optimizer": cfg.optimizer,
+                    "batch": [TP_TRAIN_BATCH, TP_TRAIN_SEQ],
                     "losses": [m["loss"] for m in metrics],
                     "one_card_losses": [m["loss"] for m in ref_metrics],
                     "grad_norms": [m["grad_norm"] for m in metrics],
@@ -3803,7 +3914,7 @@ class _TPRun:
                     "collectives_a_step": calls[0],
                     "launches_rank0": launches,
                     "seconds": time.perf_counter() - t0}
-            self.say("train tp: " + json.dumps(line))
+            self.say(f"train {label}: " + json.dumps(line))
             if not (loss_err < LOSS_RTOL and gn_err < tol_g
                     and leaf < tol_p):
                 raise AssertionError(f"{what}: {line}")
@@ -3849,13 +3960,407 @@ class _TPRun:
                      f"{time.perf_counter() - t0:.1f} s")
             self.dist.barrier()
 
+    # -- expert parallelism (the ep phases) ---------------------------------
+    def ep_phases(self) -> list:
+        """path ep, serving ep, train ep and dryrun ep (module docstring);
+        returns the dryrun ep records for profile ep."""
+        for name, phase in (("path ep", self.path_ep),
+                            ("serving ep", self.serving_ep),
+                            ("train ep", self.train_ep)):
+            t = time.perf_counter()
+            phase()
+            self.say(f"phase {name}: {time.perf_counter() - t:.1f} s")
+            self.memory(f"after {name}")
+        t = time.perf_counter()
+        records = self.dryrun_ep()
+        self.say(f"phase dryrun ep: {time.perf_counter() - t:.1f} s")
+        return records
+
+    def routes(self):
+        """A context that records the ids of every ``ops.moe_route`` call
+        (the MoE layers' one gating entry on every path): yields the list."""
+        import contextlib
+        from repro_torch.kernels import ops
+
+        @contextlib.contextmanager
+        def spy():
+            route, ids = ops.moe_route, []
+
+            def wrapped(logits, top_k, **kw):
+                out = route(logits, top_k, **kw)
+                ids.append(out[1])
+                return out
+
+            ops.moe_route = wrapped
+            try:
+                yield ids
+            finally:
+                ops.moe_route = route
+
+        return spy()
+
+    def follow(self, ids_from, flips):
+        """A context in which ``ops.moe_route`` takes ``ids_from``'s choices
+        (another run's ids, call by call) for the tokens whose own choices
+        differ from them at a near tie (NEAR_TIE), the weights renormalised
+        over them and the maps built from them; a wider gap raises. Each
+        such call appends (tokens, largest gap) to ``flips``."""
+        import contextlib
+        from repro_torch.kernels import ops, ref
+        torch = self.torch
+
+        @contextlib.contextmanager
+        def spy():
+            route, calls = ops.moe_route, iter(ids_from)
+
+            def wrapped(logits, top_k, *, cap, nb, impl=None):
+                out = route(logits, top_k, cap=cap, nb=nb, impl=impl)
+                want = next(calls).to(out[1].device)
+                rows = (out[1].sort(-1)[0] != want.sort(-1)[0]).any(-1)
+                if not bool(rows.any()):
+                    return out
+                top = logits.float()[rows].sort(-1, descending=True)[0]
+                gap = float((top[:, top_k - 1] - top[:, top_k]).max())
+                flips.append((int(rows.sum()), gap))
+                if not gap <= NEAR_TIE:
+                    raise AssertionError(f"a route differs at a logit gap "
+                                         f"of {gap} (near tie {NEAR_TIE})")
+                vals = torch.softmax(logits.float(), -1).gather(
+                    1, want.long())
+                maps = ref.dispatch_indices(
+                    want.long().reshape(nb, -1, top_k), logits.shape[1], cap)
+                return (vals / vals.sum(-1, keepdim=True),
+                        want.to(out[1].dtype), *maps, out[-1])
+
+            ops.moe_route = wrapped
+            try:
+                yield flips
+            finally:
+                ops.moe_route = route
+                if next(calls, None) is not None:
+                    raise AssertionError("fewer route calls than the run "
+                                         "followed")
+
+        return spy()
+
+    def path_ep(self) -> None:
+        """Prefill and teacher-forced decode (append and committed) of
+        granite at full size in fp32 on meshes 1x4 and 2x2, and of kimi-k2
+        at full width on its first 2 layers (bf16 weights computed in fp32,
+        PR 22's gate) on 1x4, each against the same weights on card 0
+        without a mesh: PATH_TOL_FP32, argmax and every expert choice
+        equal, but where the card's own logits put two experts within
+        NEAR_TIE, which it then takes from the mesh (``follow``, counted);
+        launches exact on every rank."""
+        from repro_torch.configs import get_config
+        base = get_config(EP_ARCH)
+        cases = [(dataclasses.replace(base, dtype="float32",
+                                      param_dtype="float32"), shape, EP_PATH)
+                 for shape in EP_PATH_MESHES]
+        kimi = dataclasses.replace(cut(get_config(EP_KIMI), 2),
+                                   dtype="float32")
+        cases.append((kimi, (1, self.n), EP_KIMI_PATH))
+        for cfg, shape, (B, max_seq, lens) in cases:
+            self._path_gate(cfg, shape, B, max_seq, lens, "path ep")
+
+    def _path_gate(self, cfg, shape, B, max_seq, lens, label,
+                   gate=True) -> None:
+        """One path case on the (data, model) mesh ``shape`` against card
+        0 (``path_tp``, ``path_ep``): the logits within PATH_TOL_FP32 and
+        argmax equal where ``gate``, every expert choice equal but at
+        near ties, which card 0 takes from the mesh (``follow``)."""
+        torch = self.torch
+        from repro_torch.configs.shapes import ShapeCase
+        from repro_torch.launch import steps as ST
+        from repro_torch.models import transformer as T
+        mesh = self.mesh_of(shape)
+        rules = ST.rules_for(cfg, ShapeCase("path", "decode", max_seq, B),
+                             mesh)
+        rng = np.random.default_rng(0)
+        tokens = rng.integers(0, cfg.vocab_size, size=(B, max(lens)))
+        steps = rng.integers(0, cfg.vocab_size, size=(TP_PATH_STEPS, B))
+        t0 = time.perf_counter()
+        model = self.build(cfg, mesh, rules)
+        self.zero()
+        with self.routes() as mesh_ids:
+            mesh_out = self._path_run(cfg, model, tokens, steps, lens,
+                                      max_seq)
+        what = (f"{cfg.name} {cfg.n_layers} layers {shape[0]}x{shape[1]} "
+                f"B={B} max_seq={max_seq} {cfg.dtype} {label}")
+        _, _, seq, kv, _ = T.init_cache(cfg, B, max_seq, device="meta",
+                                        mesh=model.layout).spec(cfg)
+        sharded = model.layout.size(seq) > 1
+        model_kv = model.layout.size(kv)
+        self.expect(what, cfg, B, 2 * TP_PATH_STEPS, sharded)
+        del model
+        self.free()
+        if self.rank == 0:
+            one = self.build(cfg)
+            flips = []
+            with self.routes() as one_ids, self.follow(mesh_ids, flips):
+                ref_out = self._path_run(cfg, one, tokens, steps, lens,
+                                         max_seq)
+            del one
+            self.free()
+            diffs = {k: self.err(mesh_out[k], ref_out[k]) for k in ref_out}
+            argmax = all(bool(torch.equal(mesh_out[k].argmax(-1),
+                                          ref_out[k].argmax(-1)))
+                         for k in ref_out)
+            differing = sum(int((a.sort(-1)[0] != b.sort(-1)[0]).any(-1)
+                                .sum()) for a, b in zip(mesh_ids, one_ids))
+            choices = sum(int(a.numel()) for a in mesh_ids)
+            worst = max(diffs.values())
+            line = {"model": cfg.name, "layers": cfg.n_layers,
+                    "dtype": cfg.dtype, "weights": cfg.param_dtype,
+                    "mesh": list(shape), "batch": B, "max_seq": max_seq,
+                    "prompt_lens": list(lens),
+                    "cache": ("by sequence" if sharded else "by kv heads"
+                              if model_kv > 1 else "replicated"),
+                    "max_abs_diff": worst,
+                    "diffs": diffs, "argmax_equal": argmax,
+                    "route_calls": [len(mesh_ids), len(one_ids)],
+                    "expert_choices": choices,
+                    "tokens_with_differing_choices": differing,
+                    "near_tie_tokens_followed": sum(f[0] for f in flips),
+                    "near_tie_largest_gap": max((f[1] for f in flips),
+                                                default=None),
+                    "tol": PATH_TOL_FP32,
+                    "launches_rank0": self.launches_by_path[what],
+                    "seconds": time.perf_counter() - t0}
+            self.say(f"{label}: " + json.dumps(line))
+            if gate and not (worst <= PATH_TOL_FP32 and argmax
+                             and differing == sum(f[0] for f in flips)
+                             and len(mesh_ids) == len(one_ids)):
+                raise AssertionError(f"{what}: {line}")
+            del ref_out
+        del mesh_out
+        self.free()
+        self.dist.barrier()
+
+    def _kimi_depth(self, mesh, rules) -> tuple:
+        """(kimi-k2's layers on ``mesh``, its weights' bytes a card): the
+        most whose weights leave EP_KIMI_RESERVE_BYTES of the smallest
+        card's free memory, reckoned from the specs on the meta device."""
+        from repro_torch.configs import get_config
+        from repro_torch.launch.dryrun import _weight_bytes
+        self.free()
+        free = min(self.all(self.torch.cuda.mem_get_info(self.dev)[0]))
+        full = get_config(EP_KIMI)
+        n, nbytes = 1, _weight_bytes(cut(full, 1), mesh, rules)
+        while n < full.n_layers:
+            more = _weight_bytes(cut(full, n + 1), mesh, rules)
+            if more > free - EP_KIMI_RESERVE_BYTES:
+                break
+            n, nbytes = n + 1, more
+        return n, nbytes, free
+
+    def _drawn_shards(self, cfg, mesh, rules):
+        """``cfg``'s model on ``mesh`` with each card's shards drawn on the
+        card: every leaf normal at its fan-in's scale (norms 1, the
+        embedding and head 0.02, as the init), a shard's values seeded by
+        its place in the whole leaf, so a replicated leaf is equal on every
+        card and the cards' shards make one model."""
+        torch = self.torch
+        from repro_torch.models import transformer as T
+        t0 = time.perf_counter()
+        model = T.Transformer(cfg, device="meta", mesh=mesh, rules=rules)
+        model = model.to_empty(device=self.dev)
+        full = {n: tuple(p.shape) for n, p in
+                T.Transformer(cfg, device="meta").named_parameters()}
+        with torch.no_grad():
+            for i, (name, p) in enumerate(model.named_parameters()):
+                starts = [s for s, _ in model.layout.ranges(
+                    T._axes_of(cfg, name), full[name])]
+                seed = (i * 1_000_003 + sum(
+                    (k + 1) * 7919 * s for k, s in enumerate(starts))) \
+                    % (2 ** 62)
+                g = torch.Generator(device=self.dev).manual_seed(seed)
+                leaf = name.rsplit(".", 1)[-1]
+                if "norm" in leaf:
+                    p.fill_(1.0)
+                else:
+                    std = 0.02 if leaf in ("embed", "lm_head") else \
+                        full[name][-2] ** -0.5
+                    p.normal_(0.0, std, generator=g)
+        torch.cuda.synchronize()
+        self.say(f"model: {cfg.name} {cfg.n_layers} layers {cfg.dtype} on "
+                 f"the mesh, shards drawn on the cards, "
+                 f"{sum(p.numel() for p in model.parameters())} params on "
+                 f"rank 0, {time.perf_counter() - t0:.1f} s")
+        return model
+
+    def serving_ep(self) -> None:
+        """Phase 3's 8 requests through ServingEngine on mesh 1x4: granite
+        as in serving tp (bf16, and fp32 against the one-card engine), then
+        kimi-k2 at full width on the deepest cut the four cards hold
+        (tokens equal on every rank)."""
+        from repro_torch.configs import get_config
+        from repro_torch.serving import EngineConfig, ServingEngine
+        from repro_torch.serving.engine import serving_rules
+        self.serving_tp((EP_ARCH,), "serving ep")
+        full = get_config(EP_KIMI)
+        ecfg = EngineConfig(max_batch=8, max_seq=S_D)
+        rules = serving_rules(full, ecfg, self.mesh)
+        n, nbytes, free = self._kimi_depth(self.mesh, rules)
+        cfg = cut(full, n)
+        self.say(f"serving ep kimi cut: kimi-k2-1t-a32b at full width cut "
+                 f"to its first {n} of {full.n_layers} layers (the dense "
+                 f"layer 0 and {n - 1} MoE layers), {cfg.param_count()} "
+                 f"parameters, {nbytes / 1e9:.2f} GB of bf16 weights a card "
+                 f"on 4 cards ({free / 1e9:.2f} GB free on the smallest "
+                 f"card, {EP_KIMI_RESERVE_BYTES / 1e9:.0f} GB kept for the "
+                 "cache, activations and NCCL)")
+        model = self._drawn_shards(cfg, self.mesh, rules)
+        eng = ServingEngine(cfg, model, ecfg, mesh=self.mesh)
+        sharded = eng.cache.layout.size(eng.cache.spec(cfg)[2]) > 1
+        res = self._serve(cfg, eng, sharded, True, label="serving ep")
+        every = self.all(res["tokens"])
+        if any(t != every[0] for t in every):
+            raise AssertionError("serving ep kimi-k2: tokens differ "
+                                 "between ranks")
+        res.pop("tokens")
+        res["layers"] = n
+        self.say("serving ep: " + json.dumps(res))
+        del eng, model
+        self.free()
+        self.dist.barrier()
+
+    def train_ep(self) -> None:
+        """The train ep gates (module docstring): granite's cases against
+        one card's step, then kimi-k2's Adafactor step in bf16 on mesh
+        2x2."""
+        from repro_torch.configs import get_config
+        base = dataclasses.replace(cut(get_config(EP_ARCH), TP_TRAIN_LAYERS),
+                                   dtype="float32", param_dtype="float32")
+        for shape, variant in EP_TRAIN_CASES:
+            cfg = base
+            if variant == "adafactor":
+                # a gate-only config change: granite trains with AdamW;
+                # Adafactor is kimi-k2's, which no card can step alone
+                cfg, variant = dataclasses.replace(
+                    base, optimizer="adafactor"), "baseline"
+            self._train_gate(cfg, self.mesh_of(shape), shape, variant,
+                             label="ep")
+        self._kimi_train()
+
+    def _kimi_train(self) -> None:
+        """kimi-k2 at full width on its first 2 layers, bf16, Adafactor,
+        on mesh 2x2: two steps, losses finite and equal on every card, the
+        first cross-entropy in phase 8's band, collectives equal to the
+        formula, launches exact."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.configs.shapes import ShapeCase
+        from repro_torch.distributed import sharding as SH
+        from repro_torch.launch import steps as ST
+        from repro_torch.training.data import DataConfig, SyntheticDataset
+        layers, batch, seq, steps = EP_KIMI_TRAIN
+        cfg = cut(get_config(EP_KIMI), layers)
+        mesh = self.mesh_of((2, 2))
+        t0 = time.perf_counter()
+        fn, _, _, rules, *_ = ST.build_cell(
+            cfg, ShapeCase("train ep", "train", seq, batch), "meta",
+            mesh=mesh)
+        model = self.build(cfg, mesh, rules)
+        st = ST.init_opt_state(model)
+        data = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=seq, global_batch=batch))
+        self.zero()
+        losses, ces, calls = [], [], []
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        for i in range(steps):
+            b = {k: torch.from_numpy(v).to(self.dev)
+                 for k, v in data.batch(i).items()}
+            SH.reset_collectives()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st, m = fn(model, st, b)
+            losses.append(float(m["loss"]))
+            ces.append(float(m["ce"]))
+            calls.append((SH.collectives()["calls"],
+                          (time.perf_counter() - t1) * 1e3))
+        nm = 4 if batch % 4 == 0 and batch >= 4 else 1
+        formula = ST.train_step_collectives(model, batch, nm, seq)
+        what = f"{cfg.name} {layers} layers 2x2 bf16 adafactor train ep"
+        self.expect_train(what, cfg, nm, steps)
+        every = self.all(losses)
+        center = math.log(cfg.vocab_size) + 0.5 * 0.02 ** 2 * cfg.d_model
+        line = {"model": cfg.name, "layers": layers, "dtype": cfg.dtype,
+                "optimizer": cfg.optimizer, "mesh": [2, 2],
+                "batch": [batch, seq], "n_micro": nm, "losses": losses,
+                "first_ce": ces[0], "first_ce_center": center,
+                "step_ms": [c[1] for c in calls],
+                "collectives_a_step": calls[0][0], "formula": formula,
+                "peak_mem_gb_by_rank": self.all(
+                    torch.cuda.max_memory_allocated(self.dev) / 1e9),
+                "seconds": time.perf_counter() - t0, "card": self._card()}
+        self.say("train ep: " + json.dumps(line))
+        if not (all(map(math.isfinite, losses)) and all(e == losses
+                                                        for e in every)
+                and abs(ces[0] - center)
+                <= FIRST_LOSS_RTOL * math.log(cfg.vocab_size)
+                and all(c[0] == formula for c in calls)):
+            raise AssertionError(f"train ep {what}: {line}")
+        del model, st
+        self.free()
+        self.dist.barrier()
+
+    def dryrun_ep(self) -> list:
+        """granite's decode_32k record on mesh 1x4 and train_4k on 2x2
+        (the batch cut to the routing kernel's block), kimi-k2's two as
+        not fitting, reckoned from the specs before anything is built."""
+        from repro_torch.configs import get_config
+        from repro_torch.launch import dryrun
+        records = []
+        for arch, shape, mshape in EP_RECORDS:
+            cfg = get_config(arch)
+            self.memory(f"before {arch} {shape}")
+            t0 = time.perf_counter()
+            self.zero()
+            rec = dryrun.run_cell(arch, shape, ROOT / "results" /
+                                  "dryrun_torch", mesh=self.mesh_of(mshape))
+            self.free()
+            launches = self.read()
+            if arch in EP_NOT_FITTING:
+                if rec["ok"] or "not_fitting" not in rec or any(
+                        launches.values()):
+                    raise AssertionError(f"dryrun ep {arch} {shape}: {rec}")
+            else:
+                ok = (rec["ok"] is True and rec["devices"] == self.n
+                      and rec["flops"] > 0 and rec["collectives"]["calls"]
+                      == rec["collectives_formula"])
+                if not ok:
+                    raise AssertionError(f"dryrun ep {arch} {shape}: {rec}")
+                if rec["kind"] == "decode":
+                    if "global_batch" in rec["reduced"]:
+                        raise AssertionError(f"dryrun ep {arch} {shape}: "
+                                             f"batch cut {rec['reduced']}")
+                    self.expect(f"{arch} dry-run {shape} ep", cfg, 0,
+                                rec["decode_steps"],
+                                rec["cache_spec"][2] is not None)
+                    records.append((cfg, rec))
+                else:
+                    steps = rec["train_steps"] + rec.get("probe_steps", 0)
+                    if not (all(map(math.isfinite, rec["losses"]))
+                            and "global_batch" in rec["reduced"]):
+                        raise AssertionError(f"dryrun ep {arch}: {rec}")
+                    self.expect_train(f"{arch} dry-run {shape} ep", cfg,
+                                      rec["n_micro"], steps)
+            self.say(f"dryrun ep: {json.dumps(rec)}")
+            self.say(f"dryrun ep time: {arch} {shape} "
+                     f"{time.perf_counter() - t0:.1f} s")
+            self.dist.barrier()
+        return records
+
     def expect_train(self, what, cfg, n_micro, steps) -> dict:
         """This rank's launches against ``steps`` train steps of
         ``n_micro`` microbatches under remat, equal on every rank."""
         attn = sum(spec.kind == "attn" for spec in cfg.layer_specs())
+        moe = sum(spec.mlp == "moe" for spec in cfg.layer_specs())
         runs = 2 if cfg.remat else 1
         want = {"flash_attention": attn * runs * n_micro * steps,
-                "decode_attention": 0, "decode_merge": 0}
+                "decode_attention": 0, "decode_merge": 0,
+                "moe_route": moe * runs * n_micro * steps}
         got = self.read()
         every = self.all(got)
         if any(g != want for g in every):

@@ -72,7 +72,10 @@ moments fit is reckoned per card from the specs before anything is built
 (``not_fitting`` if not, as gemma2-27b on four cards); the batch is cut as
 the one-card record's, to ``TRAIN_ROWS`` rows a card a microbatch, and
 further where the peak memory a step at one row a card took says fewer
-fit (``MESH_TRAIN_CUT``); ``flops`` are one card's (one microbatch's
+fit (``MESH_TRAIN_CUT``), and for a MoE config to the rows whose
+microbatch the routing kernel takes in one block (``ROUTE_CUT``: Tb * k
+<= 65,536; granite at 4096 tokens routes 2 rows a microbatch, one a card
+on mesh 2x2; a bigger microbatch raises); ``flops`` are one card's (one microbatch's
 ``value_and_grad`` of rank 0's shards on the meta device, times n_micro);
 ``bytes_accessed`` the busiest card's ``TRAIN_BYTES_SOURCE`` over its
 shards; ``collectives`` one step's, held to
@@ -98,6 +101,7 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.shapes import SHAPES, applicable, get_shape
 from repro_torch.core.engine_model import DEFAULT_ENGINE
 from repro_torch.distributed import sharding as SH
+from repro_torch.kernels import moe_gating as MG
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import steps as ST
 from repro_torch.models import transformer as T
@@ -117,6 +121,8 @@ MESH_TRAIN_CUT = (
     "where the peak memory of a step at one row a card leaves room for "
     "fewer (85% of the card's budget)")
 ROWS_MARGIN = 0.85
+ROUTE_CUT = ("a MoE microbatch's tokens times top_k within the routing "
+             "kernel's block of 65,536 entries (moe_gating.plan_route)")
 DECODE_VARIANT = "cacheappend"        # the engine's append-mode step
 
 BYTES_SOURCE = (
@@ -750,7 +756,8 @@ def _prefill(rec, cfg, case, S, model, dev, gen, variant, out_dir,
     del out
     if model.tp is not None:
         rec["collectives"] = SH.collectives()
-        rec["collectives_formula"] = model.step_collectives()
+        rec["collectives_formula"] = model.step_collectives(batch=batch,
+                                                            seq=S)
         rec["collectives_source"] = (
             "sharding.collectives() over one prefill step; the formula "
             "Transformer.step_collectives")
@@ -770,9 +777,17 @@ def _train(rec, cfg, case, S, model, dev, gen, variant, out_dir,
         batch = min(case.global_batch, TRAIN_BATCH)
         _cut(rec, "global_batch", case.global_batch, batch, TRAIN_CUT)
     else:      # n_micro chunks of rows a card over the data axes
-        per_row = _n_micro(variant, TRAIN_BATCH) * layout.size(
-            layout.spec(("batch",), (case.global_batch,))[0])
-        rows = TRAIN_ROWS
+        dp = layout.size(layout.spec(("batch",), (case.global_batch,))[0])
+        per_row = _n_micro(variant, TRAIN_BATCH) * dp
+        rows, why = TRAIN_ROWS, MESH_TRAIN_CUT
+        if cfg.n_experts:
+            routed = route_rows(cfg, S) // dp
+            if routed < 1:
+                return _not_fitting(out_dir, rec, (
+                    f"one row a card of {S} tokens is more than {ROUTE_CUT}"),
+                    ranks)
+            if routed < rows:
+                rows, why = routed, f"{MESH_TRAIN_CUT}; {ROUTE_CUT}"
         if dev.type == "cuda":
             fit = _rows_that_fit(cfg, case, S, model, dev, gen, variant,
                                  per_row, grad_dtype, rec, ranks)
@@ -783,7 +798,7 @@ def _train(rec, cfg, case, S, model, dev, gen, variant, out_dir,
                     "state)"), ranks)
             rows = min(rows, fit)
         batch = min(case.global_batch, per_row * rows)
-        _cut(rec, "global_batch", case.global_batch, batch, MESH_TRAIN_CUT)
+        _cut(rec, "global_batch", case.global_batch, batch, why)
     rec["global_batch"] = batch
     n_micro = _n_micro(variant, batch)
     rec.update(optimizer=cfg.optimizer, n_micro=n_micro,
@@ -823,7 +838,7 @@ def _train(rec, cfg, case, S, model, dev, gen, variant, out_dir,
     if layout is not None:
         rec["collectives"] = SH.collectives()
         rec["collectives_formula"] = ST.train_step_collectives(
-            model, batch, n_micro)
+            model, batch, n_micro, S)
         rec["collectives_source"] = (
             "sharding.collectives() over one train step; the formula "
             "steps.train_step_collectives")
@@ -842,6 +857,14 @@ def _train(rec, cfg, case, S, model, dev, gen, variant, out_dir,
     rec["ok"] = True
     _write(out_dir, rec, ranks)
     return rec
+
+
+def route_rows(cfg, S: int) -> int:
+    """The most rows of ``S`` tokens a MoE microbatch may hold: its tokens
+    times top_k within the routing kernel's block limit, over the
+    config's dispatch blocks."""
+    nb = cfg.moe_block_dispatch or 1
+    return MG.MAX_CTAS * MG.MAX_CTA_ENTRIES * nb // (cfg.moe_top_k * S)
 
 
 def _rows_that_fit(cfg, case, S, model, dev, gen, variant, batch: int,

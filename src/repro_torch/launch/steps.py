@@ -12,10 +12,11 @@ policy, by kv heads where they divide the model axis, else by sequence over
 On a mesh ``build_cell`` also returns the rules and the in / out spec
 trees, and every step runs there: prefill, decode and the train step
 (data parallelism over the data axes, tensor parallelism over "model",
-ZeRO-1 moments, ``micro8``, ``bf16grad`` and ``fsdp``). The variants that
-only change sharding rules run only on a mesh; of them ``expdata`` and
-``seqpar`` still raise ``NotImplementedError`` (ROADMAP A9c items 1 and
-4), as do MoE, recurrent, cross-attention and codebook layers on a mesh.
+expert parallelism in the MoE layers, ZeRO-1 moments or a sharded
+Adafactor, ``micro8``, ``bf16grad``, ``fsdp`` and ``expdata``). The
+variants that only change sharding rules run only on a mesh; of them
+``seqpar`` still raises ``NotImplementedError`` (ROADMAP A9c item 4), as
+do recurrent, cross-attention and codebook layers on a mesh.
 ``lower_cell`` has no counterpart: eager PyTorch lowers nothing; the
 cell's step runs as it is called.
 
@@ -51,7 +52,7 @@ SHARDING_VARIANTS = ("seqpar", "expdata", "fsdp")
 MULTI_CARD = ("the multi-card slice (build_cell(mesh=), run_cell(mesh=)): "
               "one card has nothing to shard")
 # the sharding variants a mesh does not run yet
-WAITING = {"expdata": T.A9C_EXPERTS, "seqpar": T.A9C_SEQPAR}
+WAITING = {"seqpar": T.A9C_SEQPAR}
 
 
 def variant_tokens(variant: str) -> set[str]:
@@ -71,7 +72,7 @@ def apply_variant_config(cfg: ModelConfig, variant: str,
     (the kernels' walk, the plain path's single step), so there is nothing
     to switch, and it raises as an unknown token does. The sharding-only
     variants raise ``NotImplementedError`` without a ``mesh``, and
-    ``expdata`` / ``seqpar`` on one too (``WAITING``); ``fsdp`` changes
+    ``seqpar`` on one too (``WAITING``); ``fsdp`` and ``expdata`` change
     only ``rules_for``'s rules."""
     toks = variant_tokens(variant)
     sharding = sorted(toks & set(SHARDING_VARIANTS))
@@ -83,7 +84,7 @@ def apply_variant_config(cfg: ModelConfig, variant: str,
     if waiting:
         raise NotImplementedError(f"variant {'; '.join(waiting)}")
     unknown = toks - {"vocabpad", "blockdispatch", "micro8", "bf16grad",
-                      "cacheappend", "fsdp"}
+                      "cacheappend", "fsdp", "expdata"}
     if unknown:
         raise ValueError(f"unknown variant tokens {sorted(unknown)}")
     if "vocabpad" in toks:
@@ -184,8 +185,9 @@ class MeshPlan:
     axes where the leaf is not sharded over them, "model" where a card's
     gradient is a part: ``layers.partial_leaves``); ``copies``, the cards
     holding each shard of the reduced gradient (the global norm divides
-    by it); ``zero``, the card's ZeRO-1 slice (``optimizer.ZeroLeaf``) and
-    ``opt_shapes`` its moments' shape; ``data`` the live data axes and
+    by it); ``zero``, the card's ZeRO-1 slice (``optimizer.ZeroLeaf``) or
+    its sharded Adafactor leaf (``optimizer.FactorLeaf``) and
+    ``opt_shapes`` its state's shapes; ``data`` the live data axes and
     ``dp`` their size."""
 
     layout: SH.Layout
@@ -220,27 +222,87 @@ def mesh_plan(model: T.Transformer) -> MeshPlan:
         if ".mixer." in name and name.rsplit(".", 1)[1] in partial:
             red.add("model")
         reduce[name] = tuple(a for a in lay.sizes if a in red)
-        index, dim = [], None
-        for d, ((p0, pn), (o0, on)) in enumerate(zip(
-                lay.ranges(axes, shape), olay.ranges(axes, shape))):
-            if not (p0 <= o0 and o0 + on <= p0 + pn):
-                raise ValueError(f"{name}: the moments' slice of dim {d} "
-                                 "is not inside the parameter's")
-            index.append(slice(o0 - p0, o0 - p0 + on))
-            if on != pn:
-                dim = d
-        shapes[name] = tuple(sl.stop - sl.start for sl in index)
-        if dim is not None:
-            zero[name] = OPT.ZeroLeaf(tuple(index), dim, ospec[dim], lay)
+        if cfg.optimizer == "adafactor":
+            zero[name], shapes[name] = _factor_leaf(lay, olay, axes, shape)
+            continue
+        z, shapes[name] = _zero_leaf(name, lay, olay, axes, shape)
+        if z is not None:
+            zero[name] = z
     plan = MeshPlan(lay, reduce, copies, zero, shapes, data,
                     SH.mesh_axes_size(lay.sizes, data))
     object.__setattr__(model, "_mesh_plan", plan)
     return plan
 
 
+def _zero_leaf(name, lay, olay, axes, shape):
+    """(the ``ZeroLeaf`` of a parameter or None, its moments' shape): the
+    moments' slice under ``olay`` within the parameter's shard under
+    ``lay``, the dims where it is not inside the shard gathered first."""
+    spec, ospec = lay.spec(axes, shape), olay.spec(axes, shape)
+    pre, cover = [], []
+    for d, ((p0, pn), (o0, on)) in enumerate(zip(lay.ranges(axes, shape),
+                                                 olay.ranges(axes, shape))):
+        if p0 <= o0 and o0 + on <= p0 + pn:
+            cover.append((p0, pn))
+        else:
+            pre.append((d, spec[d]))
+            cover.append((0, shape[d]))
+    index, back, dims = [], [], []
+    for d, ((p0, pn), (o0, on), (c0, cn)) in enumerate(zip(
+            lay.ranges(axes, shape), olay.ranges(axes, shape), cover)):
+        index.append(slice(o0 - c0, o0 - c0 + on))
+        back.append(slice(p0 - c0, p0 - c0 + pn))
+        if on != cn:
+            dims.append(d)
+    if len(dims) > 1:
+        raise NotImplementedError(f"{name}: its moments are cut on dims "
+                                  f"{dims}; one dim is gathered back")
+    shape_o = tuple(sl.stop - sl.start for sl in index)
+    if not dims and not pre:
+        return None, shape_o
+    dim = dims[0] if dims else None
+    return OPT.ZeroLeaf(tuple(index), dim, None if dim is None
+                        else ospec[dim], lay, tuple(pre),
+                        tuple(back) if pre else ()), shape_o
+
+
+def _factor_leaf(lay, olay, axes, shape):
+    """(the ``FactorLeaf`` of a parameter, its Adafactor state's shapes):
+    each state leaf's slice under ``olay`` against the values the
+    parameter's shard under ``lay`` needs."""
+    pr = lay.ranges(axes, shape)
+    keep = ({"vr": list(range(len(shape) - 1)),
+             "vc": list(range(len(shape) - 2)) + [len(shape) - 1]}
+            if len(shape) >= 2 else {"v": list(range(len(shape)))})
+    gather, take, put, shapes = {}, {}, {}, {}
+    for key, dims in keep.items():
+        s_axes = tuple(axes[d] for d in dims)
+        s_shape = tuple(shape[d] for d in dims)
+        ospec = olay.spec(s_axes, s_shape)
+        g, t, u = [], [], []
+        for i, ((o0, on), d) in enumerate(zip(olay.ranges(s_axes, s_shape),
+                                              dims)):
+            p0, pn = pr[d]
+            if (o0, on) == (p0, pn):
+                t.append(slice(None))
+                u.append(slice(None))
+            elif p0 <= o0 and o0 + on <= p0 + pn:
+                g.append((i, ospec[i]))     # whole dim once gathered
+                t.append(slice(p0, p0 + pn))
+                u.append(slice(o0 - p0, o0 - p0 + on))
+            else:
+                raise NotImplementedError(
+                    f"{axes}: the Adafactor {key} slice of dim {d} is not "
+                    "inside the parameter's shard")
+        gather[key], take[key], put[key] = tuple(g), tuple(t), tuple(u)
+        shapes[key] = tuple(on for _, on in olay.ranges(s_axes, s_shape))
+    return OPT.FactorLeaf(lay, tuple(shape), lay.spec(axes, shape), gather,
+                          take, put), shapes
+
+
 def init_opt_state(model: T.Transformer) -> dict:
     """``cfg.optimizer``'s zeroed state for ``model``; on a mesh this card's
-    ZeRO-1 slices of the moments (``MeshPlan.opt_shapes``)."""
+    slices of it (``MeshPlan.opt_shapes``)."""
     params = dict(model.named_parameters())
     if model.layout is None:
         return OPT.init(params, model.cfg.optimizer)
@@ -326,23 +388,28 @@ def _reduce_over_mesh(model: T.Transformer, loss, metrics: dict,
 
 
 def train_step_collectives(model: T.Transformer, batch_size: int,
-                           n_micro: int) -> dict:
+                           n_micro: int,
+                           seq_len: Optional[int] = None) -> dict:
     """The collectives of one sharded train step of ``batch_size``
-    sequences, by kind (what ``sharding.collectives()`` counts):
-    ``Transformer``'s ``train_collectives`` for each microbatch, one
-    all-reduce per gradient with axes to reduce, one for the metrics over
-    the data axes, one for the global norm, and an all-gather per ZeRO-1
-    slice."""
+    sequences (of ``seq_len`` tokens: a MoE config needs it), by kind
+    (what ``sharding.collectives()`` counts): ``Transformer``'s
+    ``train_collectives`` for each microbatch, one all-reduce per gradient
+    with axes to reduce, one for the metrics over the data axes, one for
+    the global norm, and the optimizer's (``ZeroLeaf.calls`` /
+    ``FactorLeaf.calls``)."""
     if model.layout is None:
         return {}
     plan = mesh_plan(model)
     nm = n_micro if batch_size % n_micro == 0 and batch_size >= n_micro \
         else 1
-    n = {k: v * nm for k, v in T.train_collectives(model).items()}
+    n = {k: v * nm for k, v in T.train_collectives(
+        model, batch_size // nm, seq_len).items()}
     live = [a for a, k in plan.layout.sizes.items() if k > 1]
     extra = {"all-reduce": sum(bool(r) for r in plan.reduce.values())
-             + (plan.dp > 1) + bool(live),
-             "all-gather": len(plan.zero)}
+             + (plan.dp > 1) + bool(live)}
+    for z in plan.zero.values():
+        for k, v in z.calls().items():
+            extra[k] = extra.get(k, 0) + v
     for k, v in extra.items():
         if v:
             n[k] = n.get(k, 0) + v

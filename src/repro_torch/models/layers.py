@@ -8,7 +8,8 @@ hand-written kernels. A cross layer attends, without RoPE or a mask, over
 K/V projected from the vision tokens; its cache holds them and is static
 across decode.
 
-Tensor parallelism (a model on a mesh, ``TPPlan``): each card holds the
+Tensor parallelism (a model on a mesh, ``TPPlan``; the MoE layers' expert
+parallelism is ``moe.py``'s): each card holds the
 slices of the weights that the reference's logical-axis rules give it and
 computes at its local widths. ``wq`` / ``wo`` are sharded over heads,
 ``wk`` / ``wv`` over kv heads where they divide the axis, else replicated;
@@ -83,17 +84,31 @@ class TPPlan:
     s0: int = 0
     cache_kv: Any = None
     cache_kv0: int = 0
+    experts: Any = None
+    expert_ff: Any = None
+    e0: int = 0
+    el: int = 0
 
 
 def tp_plan(cfg: ModelConfig, layout: SH.Layout) -> TPPlan:
-    """The plan of ``cfg``'s attention and MLP layers under ``layout``."""
+    """The plan of ``cfg``'s attention, MLP and MoE layers under
+    ``layout``: a MoE layer's experts [e0, e0 + el) and the spec entries of
+    its experts and expert d_ff dims (``moe.MOE_AXES``)."""
     H, KV, Dh, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     heads = layout.spec(ATTN_AXES["wq"], (D, H, Dh))[1]
     kv = layout.spec(ATTN_AXES["wk"], (D, KV, Dh))[1]
     ff = layout.spec(MLP_AXES["w_up"], (D, cfg.d_ff))[1]
     hl, kvl = H // layout.size(heads), KV // layout.size(kv)
+    E = cfg.n_experts
+    ex = exf = None
+    el = E
+    if E:
+        ex, _, exf = layout.spec(("experts", "model_d", "expert_ff"),
+                                 (E, D, cfg.moe_d_ff))
+        el = E // layout.size(ex)
     return TPPlan(layout, heads, layout.index(heads) * hl, hl, kv,
-                  layout.index(kv) * kvl, kvl, ff)
+                  layout.index(kv) * kvl, kvl, ff, experts=ex,
+                  expert_ff=exf, e0=layout.index(ex) * el, el=el)
 
 
 def _q_kv_heads(cfg: ModelConfig, tp: TPPlan) -> tuple[int, int]:

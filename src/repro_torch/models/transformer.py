@@ -54,8 +54,10 @@ cache (``ShardedCache``, which carries its layout): by kv heads where they
 divide the model axis, else by sequence, as ``launch/steps.py::rules_for``
 decides. Inputs (tokens, lengths) are global on every card; each card takes
 its batch rows. ``gather_logits`` assembles the full logits. Serving and
-training run attention with dense MLPs this way; recurrent, MoE,
-cross-attention and codebook layers on a mesh are ROADMAP A9c.
+training run attention with dense or MoE MLPs this way (a MoE layer's
+experts over "model", their d_ff over "data": ``moe.py``'s expert
+parallelism); recurrent, cross-attention and codebook layers on a mesh are
+ROADMAP A9c items 2-3.
 
 Training on a mesh (``train_forward`` over this card's batch rows, the
 train step of ``launch/steps.py``): the collectives are differentiable
@@ -119,7 +121,6 @@ def check_trainable(cfg: ModelConfig) -> None:
 
 
 # what still waits on a mesh, by its item of ROADMAP A9c
-A9C_EXPERTS = "ROADMAP A9c item 1 (expert parallelism)"
 A9C_RECURRENT = "ROADMAP A9c item 2 (d_inner / rwkv_heads sharding)"
 A9C_MODALITY = "ROADMAP A9c item 3 (cross-attention and codebooks)"
 A9C_SEQPAR = "ROADMAP A9c item 4 (seqpar)"
@@ -127,14 +128,13 @@ A9C_SEQPAR = "ROADMAP A9c item 4 (seqpar)"
 
 def check_shardable(cfg: ModelConfig) -> None:
     """Raise unless the port runs ``cfg`` on a mesh: self-attention layers
-    with dense MLPs (or none) and one token stream without vision inputs.
-    MoE, recurrent, cross-attention and codebook layers on a mesh are
-    ROADMAP A9c items 1-3."""
+    with dense or MoE MLPs (or none) and one token stream without vision
+    inputs. Recurrent, cross-attention and codebook layers on a mesh are
+    ROADMAP A9c items 2-3."""
     check_supported(cfg)
     for spec in cfg.layer_specs():
         item = (A9C_RECURRENT if spec.kind != "attn" else A9C_MODALITY
-                if spec.attn_type == "cross" else A9C_EXPERTS
-                if spec.mlp == "moe" else None)
+                if spec.attn_type == "cross" else None)
         if item:
             raise NotImplementedError(
                 f"{cfg.name}: {spec.kind} {spec.attn_type or ''} "
@@ -356,6 +356,7 @@ class Transformer(nn.Module):
                 [_LayerStack(cfg, spec, rep, init, place, f"g{gi}.{j}")
                  for j, spec in enumerate(period)]))
         self.tp = None
+        self.row_entry = None
         if self.layout is not None:
             self.tp = L.tp_plan(cfg, self.layout)
             # the vocab shards of the embedding and of the unembedding
@@ -450,34 +451,55 @@ class Transformer(nn.Module):
         entry = self.layout.spec(("batch",), (batch,))[0]
         return SH.all_gather(logits, self.layout, entry, dim=0)
 
-    def step_collectives(self, cache: Optional[dict] = None) -> dict:
-        """The collectives one prefill (``cache`` None) or decode step on
+    def step_collectives(self, cache: Optional[dict] = None, *,
+                         batch: Optional[int] = None,
+                         seq: Optional[int] = None) -> dict:
+        """The collectives one prefill (``cache`` None; a MoE config
+        needs its global ``batch`` and ``seq``) or decode step on
         ``cache`` makes on a mesh, by kind, from the layout (the formula
         the counts of ``sharding.collectives()`` are held to): the
         embedding's all-reduce; per attention layer the all-reduce after
         ``wo``, and over a sequence-sharded cache the all-gathers of the
         query heads and of the decode partials; per dense MLP the
-        all-reduce after ``w_down``. A dim sharded over axes of size 1 is
-        no collective; ``gather_logits`` is not part of a step."""
+        all-reduce after ``w_down``; per MoE layer its ``moe.EPPlan``'s.
+        A dim sharded over axes of size 1 is no collective;
+        ``gather_logits`` is not part of a step."""
         if self.tp is None:
             return {}
         tp = self.tp if cache is None else cache.plan(self)[0]
         live = lambda entry: self.layout.size(entry) > 1   # noqa: E731
         n = {"all-reduce": int(live(self._embed_vocab[0])), "all-gather": 0}
+        moe = {}
+        if self.cfg.n_experts:
+            if cache is not None:
+                batch, seq, lay = cache.batch, 1, cache.layout
+            elif batch is None or seq is None:
+                raise ValueError("a MoE prefill's collectives need its "
+                                 "batch and seq")
+            else:
+                lay = self.layout
+            moe = MOE.ep_plan(self.cfg, tp, lay.spec(("batch",), (batch,))[0],
+                              batch * seq).collectives()
         for spec in self.cfg.layer_specs():
             n["all-reduce"] += live(tp.heads) + (spec.mlp == "dense"
                                                  and live(tp.ff))
             if cache is not None and live(tp.seq):
                 n["all-gather"] += 1 + live(tp.heads)
+            if spec.mlp == "moe":
+                for k, v in moe.items():
+                    n[k] = n.get(k, 0) + v
         return {k: v for k, v in n.items() if v}
 
     def _rows(self, x: torch.Tensor,
               layout: Optional[SH.Layout] = None) -> torch.Tensor:
         """This card's batch rows of a global input (all rows on one card,
-        or where the batch is not sharded)."""
+        or where the batch is not sharded). Keeps the batch dim's spec
+        entry as ``row_entry``, over which the MoE layers gather their
+        tokens (a caller that cuts the rows itself sets it)."""
         layout = layout or self.layout
         if layout is None:
             return x
+        self.row_entry = layout.spec(("batch",), (x.shape[0],))[0]
         (b0, n), = layout.ranges(("batch",), (x.shape[0],))
         return x[b0:b0 + n]
 
@@ -529,7 +551,8 @@ class Transformer(nn.Module):
         h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
         aux = None
         if spec.mlp == "moe":
-            mlp_out, aux = MOE.moe_forward(cfg, p["mlp"], h2, impl=impl)
+            mlp_out, aux = MOE.moe_forward(cfg, p["mlp"], h2, impl=impl,
+                                           tp=tp, rows=self.row_entry)
         else:
             mlp_out = L.mlp_forward(cfg, p["mlp"], h2, tp=tp)
         if cfg.use_post_norms:
@@ -918,12 +941,20 @@ def param_tree(model: Transformer) -> dict:
 def to_jax_params(model: Transformer) -> dict:
     """The inverse of ``from_jax_params``: a JAX params pytree of numpy
     arrays on the host. numpy has no bfloat16, so bf16 leaves come back as
-    float32 (exactly)."""
+    float32 (exactly). On a mesh every leaf is gathered whole from the
+    cards' shards (a collective: every card calls it)."""
     def host(p):
         t = p.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    return nest({name: host(p) for name, p in model.named_parameters()})
+    lay = model.layout
+    if lay is None:
+        return nest({name: host(p) for name, p in model.named_parameters()})
+    full = {n: tuple(p.shape) for n, p in
+            Transformer(model.cfg, device="meta").named_parameters()}
+    return nest({name: host(SH.gather_whole(
+        p.detach(), lay, lay.spec(_axes_of(model.cfg, name), full[name])))
+        for name, p in model.named_parameters()})
 
 
 def loss_fn(cfg: ModelConfig, model: Transformer, batch: dict, *,
@@ -978,7 +1009,8 @@ def vocab_lse(lf: torch.Tensor, labels: torch.Tensor, layout: SH.Layout,
     return m + torch.log(parts[..., 0]), parts[..., 1]
 
 
-def train_collectives(model: Transformer) -> dict:
+def train_collectives(model: Transformer, batch: Optional[int] = None,
+                      seq: Optional[int] = None) -> dict:
     """The collectives one microbatch's ``loss_fn`` and its backward make
     on a mesh, by kind, from the layout (what ``sharding.collectives()``
     counts for it): the embedding's all-reduce; with the vocab sharded the
@@ -987,9 +1019,12 @@ def train_collectives(model: Transformer) -> dict:
     d_ff sharded, the output's all-reduce (again in the recompute under
     remat, except a period's last MLP without a post norm: the
     checkpoint's recompute stops after the last saved tensor) and the
-    input gradient's; under ``fsdp`` an all-gather of every sharded leaf
-    at each use (the recompute gathers a period's again) and a
-    reduce-scatter of its gradient."""
+    input gradient's; per MoE layer its ``moe.EPPlan``'s forward, backward
+    and recompute (the same stop after its combine), for a microbatch of
+    ``batch`` global rows of ``seq`` tokens (a MoE config needs both);
+    under ``fsdp`` an all-gather of every sharded leaf at each use (the
+    recompute gathers a period's again) and a reduce-scatter of its
+    gradient."""
     if model.tp is None:
         return {}
     cfg, tp, lay = model.cfg, model.tp, model.layout
@@ -1008,12 +1043,22 @@ def train_collectives(model: Transformer) -> dict:
             rep = cfg.groups[int(name.split(".")[0][1:])][1]
             n["all-gather"] += rep * runs
             n["reduce-scatter"] += rep
+    if cfg.n_experts and (batch is None or seq is None):
+        raise ValueError("a MoE microbatch's collectives need its batch "
+                         "and seq")
     for period, rep in cfg.groups:
         for li, spec in enumerate(period):
             last = li == len(period) - 1
+            tail = not (cfg.remat and last and not cfg.use_post_norms)
             n["all-reduce"] += rep * (runs + 1) * live(tp.heads)
             if spec.mlp == "dense" and live(tp.ff):
-                recomputed = runs - (cfg.remat and last
-                                     and not cfg.use_post_norms)
+                recomputed = runs - (not tail)
                 n["all-reduce"] += rep * (recomputed + 1)
+            if spec.mlp == "moe":
+                moe = MOE.ep_plan(
+                    cfg, tp, lay.spec(("batch",), (batch,))[0],
+                    batch * seq, train=True).collectives(
+                        train=True, recompute=runs - 1, recompute_out=tail)
+                for k, v in moe.items():
+                    n[k] = n.get(k, 0) + rep * v
     return {k: v for k, v in n.items() if v}

@@ -21,11 +21,23 @@ axes) ``init(..., shapes=)`` gives each card only its slice of ``m`` and
 ``v``, and ``update(..., zero=)`` updates that slice of each parameter
 (``ZeroLeaf.index`` of the card's parameter shard) and all-gathers the
 parameter over "data". Under ``fsdp`` a parameter and its moments share one
-spec: the whole local shard is updated and nothing is gathered.
-``state_to_tree`` / ``state_from_tree`` with ``specs`` and ``layout`` give
-and take whole leaves. AdamW is what the dense configs use; a sharded
-Adafactor comes with Jamba and kimi-k2 on a mesh (ROADMAP A9c item 1) and
-raises until then.
+spec: the whole local shard is updated and nothing is gathered. Where the
+moments' slice is not inside the parameter's shard (an expert leaf: its
+d_ff over "data" in the parameter, its D over "data" in the moments), the
+gradient and the parameter are first gathered over the dims the moments
+hold whole (``ZeroLeaf.pre``), and the updated slice is gathered back and
+cut to the shard.
+
+Adafactor on a mesh (``update(..., zero=)`` with a ``FactorLeaf`` a
+parameter): the state is the card's slice of ``vr`` / ``vc`` / ``v`` under
+``opt_rules``, and each of the reference's four statistics becomes an
+all-reduce over the axes that shard its dim: the row mean of g² (over the
+last dim), the column mean (over the second-last), the row normaliser
+``vr.mean(-1)`` and the update's RMS over the whole stacked leaf. The
+factored moments are small: a card gathers what its parameter shard needs
+where its slice is smaller (``FactorLeaf.take``) and keeps its own slice of
+the result. ``state_to_tree`` / ``state_from_tree`` with ``specs`` and
+``layout`` give and take whole leaves of either optimizer.
 """
 from __future__ import annotations
 
@@ -38,30 +50,76 @@ import torch
 from repro_torch.distributed import sharding as SH
 from repro_torch.tree import keystr, name_of, named, nest, path_of
 
-ADAFACTOR_ON_A_MESH = ("a sharded Adafactor (Jamba and kimi-k2 on a mesh) "
-                       "is ROADMAP A9c item 1 (expert parallelism)")
-
 Params = dict
 
 
 @dataclasses.dataclass(frozen=True)
 class ZeroLeaf:
-    """Where a card's moments of one parameter sit in its shard of it:
-    ``index`` (slices of the parameter's local shard), and the dim and spec
+    """Where a card's AdamW moments of one parameter sit in its shard of
+    it: ``index`` (slices of the parameter's local shard, or of it gathered
+    over ``pre``'s (dim, spec entry) pairs first), and the dim and spec
     entry over which the updated slice is all-gathered (None: the slice is
-    the whole shard)."""
+    the whole shard, or the whole gathered part), then cut by ``back`` to
+    the shard."""
 
     index: tuple
     dim: Optional[int]
     entry: Any
     layout: Any
+    pre: tuple = ()
+    back: tuple = ()
+
+    def calls(self) -> dict:
+        """Its all-gathers a step: the gradient and the parameter over each
+        ``pre`` dim, the updated slice over ``dim``."""
+        n = 2 * len(self.pre) + (self.dim is not None)
+        return {"all-gather": n} if n else {}
+
+
+@dataclasses.dataclass(frozen=True)
+class FactorLeaf:
+    """A parameter's sharded Adafactor update: its global ``shape``, the
+    spec of its shard ``pspec``, and per state leaf ("vr", "vc" or "v")
+    how the card's slice (under ``opt_rules``) meets the values of the
+    parameter's shard: ``gather`` (dim, spec entry) pairs over which the
+    slice is all-gathered, then ``take`` slices of the result; ``put``
+    slices of the shard's values that are the card's slice."""
+
+    layout: Any
+    shape: tuple
+    pspec: tuple
+    gather: dict
+    take_index: dict
+    put_index: dict
+
+    def take(self, key: str, st: torch.Tensor) -> torch.Tensor:
+        for d, entry in self.gather[key]:
+            st = SH.all_gather(st.contiguous(), self.layout, entry, d)
+        return st[self.take_index[key]]
+
+    def put(self, key: str, st: torch.Tensor, new: torch.Tensor) -> None:
+        st.copy_(new[self.put_index[key]])
+
+    def live(self, entry) -> bool:
+        return self.layout.size(entry) > 1
+
+    def calls(self) -> dict:
+        """Its collectives a step (the module docstring's statistics)."""
+        p = self.pspec
+        ar = any(self.live(e) for e in p)
+        if len(self.shape) >= 2:
+            ar += self.live(p[-1]) + 2 * self.live(p[-2])
+        ag = sum(len(v) for v in self.gather.values())
+        return {k: v for k, v in (("all-reduce", ar), ("all-gather", ag))
+                if v}
 
 
 def init(params: Params, kind: str,
          shapes: Optional[dict] = None) -> dict:
-    """Zeroed state of ``kind`` for ``params``; ``shapes`` ({name: shape})
-    gives AdamW moments other shapes than the parameters' (a card's ZeRO-1
-    slices)."""
+    """Zeroed state of ``kind`` for ``params``; ``shapes`` gives the state
+    other shapes than the parameters' (a card's slices on a mesh): {name:
+    shape} of the AdamW moments, {name: {"vr": shape, "vc": shape} or
+    {"v": shape}} of Adafactor's."""
     dev = next(iter(params.values())).device
     count = torch.zeros((), dtype=torch.int32, device=dev)
 
@@ -73,12 +131,12 @@ def init(params: Params, kind: str,
         return {"m": {k: zeros(shp[k]) for k in params},
                 "v": {k: zeros(shp[k]) for k in params},
                 "count": count}
-    if shapes is not None:
-        raise NotImplementedError(ADAFACTOR_ON_A_MESH)
     if kind == "adafactor":
         fac = {}
         for k, p in params.items():
-            if p.dim() >= 2:
+            if shapes is not None and k in shapes:
+                fac[k] = {n: zeros(s) for n, s in shapes[k].items()}
+            elif p.dim() >= 2:
                 fac[k] = {"vr": zeros(p.shape[:-1]),
                           "vc": zeros(p.shape[:-2] + p.shape[-1:])}
             else:
@@ -117,6 +175,37 @@ def _adafactor_update(p, g, st, lr, decay):
     p.copy_(p.float() - lr * upd)
 
 
+def _adafactor_sharded(p, g, st, lr, decay, f: FactorLeaf):
+    """``_adafactor_update`` of this card's shard ``p`` (the module
+    docstring's mesh form): each statistic summed over the shard and
+    all-reduced over the axes of its dim."""
+    lay, n, spec = f.layout, f.shape, f.pspec
+    gf = g.float()
+    g2 = gf * gf + 1e-30
+    if p.dim() >= 2:
+        r = SH.all_reduce(g2.sum(dim=-1), lay, spec[-1]) / n[-1]
+        c = SH.all_reduce(g2.sum(dim=-2), lay, spec[-2]) / n[-2]
+        vr = decay * f.take("vr", st["vr"]) + (1 - decay) * r
+        vc = decay * f.take("vc", st["vc"]) + (1 - decay) * c
+        f.put("vr", st["vr"], vr)
+        f.put("vc", st["vc"], vc)
+        row = SH.all_reduce(vr.sum(dim=-1, keepdim=True), lay,
+                            spec[-2]) / n[-2]
+        denom = (vr / torch.clamp(row, min=1e-30))[..., None] \
+            * vc[..., None, :]
+        upd = gf * torch.rsqrt(torch.clamp(denom, min=1e-30))
+    else:
+        v = decay * f.take("v", st["v"]) + (1 - decay) * g2
+        f.put("v", st["v"], v)
+        upd = gf * torch.rsqrt(torch.clamp(v, min=1e-30))
+    used = {a for e in spec for a in SH.entry_axes(e)}
+    axes = tuple(a for a in lay.sizes if a in used)       # mesh order
+    ssq = SH.all_reduce(torch.sum(upd * upd).reshape(1), lay, axes)
+    rms = torch.sqrt(ssq[0] / math.prod(n) + 1e-30)
+    upd = upd / torch.clamp(rms, min=1.0)
+    p.copy_(p.float() - lr * upd)
+
+
 @torch.no_grad()
 def update(params: Params, grads: Params, state: dict, kind: str, lr, *,
            b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
@@ -124,12 +213,10 @@ def update(params: Params, grads: Params, state: dict, kind: str, lr, *,
            zero: Optional[dict] = None) -> dict:
     """One step at learning rate ``lr`` (a number or a 0-dim tensor).
     Writes ``params`` and the moments in place; returns the state with
-    ``count`` advanced. ``zero`` ({name: ``ZeroLeaf``}, a mesh's): each
-    card updates its moments' slice of each parameter shard and
-    all-gathers it."""
+    ``count`` advanced. ``zero`` (a mesh's: {name: ``ZeroLeaf``} for
+    AdamW, each card updating its moments' slice of each parameter shard
+    and all-gathering it; {name: ``FactorLeaf``} for Adafactor)."""
     count = state["count"] + 1
-    if zero is not None and kind != "adamw":
-        raise NotImplementedError(ADAFACTOR_ON_A_MESH)
     if kind == "adamw":
         for k, p in params.items():
             z = zero.get(k) if zero is not None else None
@@ -137,16 +224,28 @@ def update(params: Params, grads: Params, state: dict, kind: str, lr, *,
                 _adamw_update(p, grads[k], state["m"][k], state["v"][k], lr,
                               b1, b2, eps, weight_decay, count)
                 continue
-            part = p[z.index]                    # a view: written in place
-            _adamw_update(part, grads[k][z.index], state["m"][k],
-                          state["v"][k], lr, b1, b2, eps, weight_decay, count)
+            g, whole = grads[k], p
+            for d, entry in z.pre:
+                g = SH.all_gather(g.contiguous(), z.layout, entry, d)
+                whole = SH.all_gather(whole.contiguous(), z.layout, entry, d)
+            part = whole[z.index]                # a view: written in place
+            _adamw_update(part, g[z.index], state["m"][k], state["v"][k],
+                          lr, b1, b2, eps, weight_decay, count)
             if z.dim is not None:
-                p.copy_(SH.all_gather(part.contiguous(), z.layout, z.entry,
-                                      z.dim))
+                whole = SH.all_gather(part.contiguous(), z.layout, z.entry,
+                                      z.dim)
+            if whole is not p:
+                p.copy_(whole[z.back] if z.back else whole)
         return {"m": state["m"], "v": state["v"], "count": count}
     if kind == "adafactor":
         for k, p in params.items():
-            _adafactor_update(p, grads[k], state["fac"][k], lr, fac_decay)
+            f = zero.get(k) if zero is not None else None
+            if f is None:
+                _adafactor_update(p, grads[k], state["fac"][k], lr,
+                                  fac_decay)
+            else:
+                _adafactor_sharded(p, grads[k], state["fac"][k], lr,
+                                   fac_decay, f)
         return {"fac": state["fac"], "count": count}
     raise ValueError(kind)
 
@@ -189,12 +288,15 @@ def state_to_tree(state: dict, kind: str, specs: Optional[dict] = None,
     ``specs`` (the state's spec tree in this module's layout, e.g.
     ``build_cell``'s) and ``layout`` (this card's), every card's moments
     gathered into whole leaves (a collective: every card calls it)."""
-    if specs is not None and kind != "adamw":
-        raise NotImplementedError(ADAFACTOR_ON_A_MESH)
-    if specs is not None:
+    if specs is not None and kind == "adamw":
         state = {**state, **{k: {n: SH.gather_whole(t, layout, specs[k][n])
                                  for n, t in state[k].items()}
                              for k in ("m", "v")}}
+    elif specs is not None:
+        state = {**state, "fac": {
+            n: {k: SH.gather_whole(t, layout, specs["fac"][n][k])
+                for k, t in st.items()}
+            for n, st in state["fac"].items()}}
     if kind == "adamw":
         return {"m": nest(state["m"]), "v": nest(state["v"]),
                 "count": state["count"]}
@@ -219,6 +321,10 @@ def state_from_tree(tree: dict, kind: str, specs: Optional[dict] = None,
                             for n, t in state[k].items()}
         return state
     if kind == "adafactor":
-        return {"fac": {name_of(ks): st for ks, st in tree["fac"].items()},
-                "count": tree["count"]}
+        fac = {name_of(ks): st for ks, st in tree["fac"].items()}
+        if specs is not None:
+            fac = {n: {k: SH.local_shard(t, layout, specs["fac"][n][k],
+                                         layout.coords).contiguous()
+                       for k, t in st.items()} for n, st in fac.items()}
+        return {"fac": fac, "count": tree["count"]}
     raise ValueError(kind)

@@ -27,7 +27,8 @@ padded to 128, gemma2's final softcap) and its gradients against the
 one-process ``loss_fn``; 4x1 at B 16 (one row a card a microbatch) against
 the one-process port; a checkpoint written on mesh 2x2 restored on mesh
 1x4 and on one process, which continue with equal losses, and read by
-JAX's ``Checkpointer``.
+JAX's ``Checkpointer``: qwen2's with AdamW moments, and reduced kimi-k2's
+(expert leaves, Adafactor factors sliced over the mesh).
 """
 import dataclasses
 import json
@@ -63,6 +64,7 @@ FUNCTIONS = ("copy_to", "reduce_from", "gather_from", "gather_scatter",
 ENTRIES = ("model", "data", ("data", "model"))
 LOSS_MESHES = (("2x2", 2), ("1x4", 1))
 CKPT_STEP = 1
+CKPT_ARCHS = ("qwen2-1.5b", "kimi-k2-1t-a32b")   # AdamW, Adafactor
 
 
 def _family(variant):
@@ -207,7 +209,8 @@ def _rank(rank, store_path, out_dir, weights):
     params, _ = _whole(model, st, p_specs, o_specs)
     for n, p in params.items():
         out[f"b16/p/{n}"] = p.numpy().copy()
-    _checkpoint(rank, out, out_dir, meshes, weights["qwen2-1.5b"])
+    for arch in CKPT_ARCHS:
+        _checkpoint(rank, out, out_dir, meshes, weights[arch], arch)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
              **{k: np.asarray(v) for k, v in out.items()})
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -232,24 +235,25 @@ def _load(model, st, restored):
     return OPT.state_from_tree(restored["opt"], model.cfg.optimizer)
 
 
-def _checkpoint(rank, out, out_dir, meshes, weights):
-    """Qwen2 on mesh 2x2: one step, a save from the mesh, a second step;
+def _checkpoint(rank, out, out_dir, meshes, weights, arch):
+    """``arch`` on mesh 2x2: one step, a save from the mesh, a second step;
     the save restored on mesh 1x4, which takes the second step too."""
-    cfg = get_config("qwen2-1.5b").reduced()
+    cfg = get_config(arch).reduced()
     b1, b2 = _batches(cfg, seed=13)
-    ckpt = Checkpointer(os.path.join(out_dir, "ckpt"), async_save=False)
+    ckpt = Checkpointer(os.path.join(out_dir, f"ckpt-{arch}"),
+                        async_save=False)
     model, st, fn, p_specs, o_specs = _build(cfg, "baseline", weights,
                                              meshes[2])
     st, _ = fn(model, st, _t(b1))
     ckpt.save(CKPT_STEP, _state_tree(model, st),
               shardings=_spec_tree(p_specs, o_specs, cfg.optimizer),
               mesh=meshes[2])
-    params, _ = _whole(model, st, p_specs, o_specs)
+    params = T.to_jax_params(model)
     if rank == 0:
-        for n, p in params.items():
-            out[f"ckpt/p/{n}"] = p.numpy().copy()   # before the next step
+        for n, p in named(params).items():
+            out[f"ckpt/{arch}/p/{n}"] = p.copy()   # before the next step
     _, m = fn(model, st, _t(b2))
-    out["ckpt/loss/2x2"] = np.array(float(m["loss"]))
+    out[f"ckpt/{arch}/loss/2x2"] = np.array(float(m["loss"]))
     model, st, fn, p_specs, o_specs = _build(cfg, "baseline", weights,
                                              meshes[1])
     restored = ckpt.restore(
@@ -258,8 +262,8 @@ def _checkpoint(rank, out, out_dir, meshes, weights):
         mesh=meshes[1])
     st = _load(model, st, restored)
     _, m = fn(model, st, _t(b2))
-    out["ckpt/loss/1x4"] = np.array(float(m["loss"]))
-    out["ckpt/count"] = np.array(int(restored["opt"]["count"]))
+    out[f"ckpt/{arch}/loss/1x4"] = np.array(float(m["loss"]))
+    out[f"ckpt/{arch}/count"] = np.array(int(restored["opt"]["count"]))
 
 
 @pytest.fixture(scope="module")
@@ -276,6 +280,8 @@ def runs(tmp_path_factory):
     weights = {arch: _weights(get_config(arch).reduced(), seed)
                for seed, arch in enumerate(ARCHS)}
     weights["loss"] = _weights(_loss_cfg(), 7)
+    weights["kimi-k2-1t-a32b"] = _weights(
+        get_config("kimi-k2-1t-a32b").reduced(), 8)
     out_dir = tmp_path_factory.mktemp("ranks")
     # the ranks run while the parent computes the references
     ranks_run = torch.multiprocessing.spawn(
@@ -324,7 +330,7 @@ def runs(tmp_path_factory):
         with open(out_dir / f"rank{r}.json") as f:
             counts = json.load(f)
         ranks.append((dict(np.load(out_dir / f"rank{r}.npz")), counts))
-    return ref, ranks, weights, out_dir / "ckpt"
+    return ref, ranks, weights, out_dir
 
 
 def _close(got, want, tol) -> bool:
@@ -461,34 +467,44 @@ def test_data_parallel_rows_match_one_process(runs):
 def test_checkpoint_across_meshes(runs):
     """A checkpoint saved on mesh 2x2 after one step holds whole leaves
     (JAX's ``Checkpointer`` reads them: the parameters equal the mesh's,
-    gathered); restored on mesh 1x4 and on one process, the second step's
-    loss equals the one mesh 2x2 took on."""
+    gathered, and the optimizer state has the reference's structure);
+    restored on mesh 1x4 and on one process, the second step's loss equals
+    the one mesh 2x2 took on. qwen2 with AdamW moments; reduced kimi-k2
+    with its experts over "model" and Adafactor's factors sliced."""
     from repro.checkpoint.checkpoint import Checkpointer as JCheckpointer
-    _, ranks, weights, ckpt_dir = runs
+    _, ranks, weights, out_dir = runs
     out = ranks[0][0]
-    cfg = get_config("qwen2-1.5b").reduced()
-    want = float(out["ckpt/loss/2x2"])
-    for o, _ in ranks:
-        assert np.array_equal(o["ckpt/loss/2x2"], out["ckpt/loss/2x2"])
-        assert abs(float(o["ckpt/loss/1x4"]) - want) <= TOL["float32"] * \
-            max(1.0, abs(want))
-        assert int(o["ckpt/count"]) == COUNT + CKPT_STEP
-    model, st, fn, *_ = _build(cfg, "baseline", weights["qwen2-1.5b"], None)
-    st = _load(model, st, Checkpointer(ckpt_dir).restore(
-        CKPT_STEP, _state_tree(model, st)))
-    _, b2 = _batches(cfg, seed=13)
-    _, m = fn(model, st, _t(b2))
-    assert abs(float(m["loss"]) - want) <= TOL["float32"] * max(1.0,
-                                                                abs(want))
-    like = {"params": nest({n: np.zeros(p.shape, np.float32) for n, p in
-                            model.named_parameters()}),
-            "opt": OPT.state_to_tree(
-                {"m": {n: np.zeros(p.shape, np.float32) for n, p in
-                       model.named_parameters()},
-                 "v": {n: np.zeros(p.shape, np.float32) for n, p in
-                       model.named_parameters()},
-                 "count": np.zeros((), np.int32)}, "adamw")}
-    got = JCheckpointer(ckpt_dir).restore(CKPT_STEP, like)
-    assert int(got["opt"]["count"]) == COUNT + CKPT_STEP
-    for name, p in named(got["params"]).items():
-        np.testing.assert_array_equal(np.asarray(p), out[f"ckpt/p/{name}"])
+    for arch in CKPT_ARCHS:
+        ckpt_dir = out_dir / f"ckpt-{arch}"
+        cfg = get_config(arch).reduced()
+        want = float(out[f"ckpt/{arch}/loss/2x2"])
+        for o, _ in ranks:
+            assert np.array_equal(o[f"ckpt/{arch}/loss/2x2"],
+                                  out[f"ckpt/{arch}/loss/2x2"])
+            assert abs(float(o[f"ckpt/{arch}/loss/1x4"]) - want) <= \
+                TOL["float32"] * max(1.0, abs(want))
+            assert int(o[f"ckpt/{arch}/count"]) == COUNT + CKPT_STEP
+        model, st, fn, *_ = _build(cfg, "baseline", weights[arch], None)
+        st = _load(model, st, Checkpointer(ckpt_dir).restore(
+            CKPT_STEP, _state_tree(model, st)))
+        _, b2 = _batches(cfg, seed=13)
+        _, m = fn(model, st, _t(b2))
+        assert abs(float(m["loss"]) - want) <= TOL["float32"] * max(
+            1.0, abs(want))
+        zeros = {n: np.zeros(p.shape, np.float32) for n, p in
+                 model.named_parameters()}
+        state = OPT.init({n: torch.from_numpy(z) for n, z in zeros.items()},
+                         cfg.optimizer)
+        like = {"params": nest(zeros),
+                "opt": OPT.state_to_tree(
+                    {k: ({n: {s: t.numpy() for s, t in v.items()}
+                          for n, v in st_k.items()}
+                         if cfg.optimizer == "adafactor" else
+                         {n: t.numpy() for n, t in st_k.items()})
+                     if k != "count" else np.zeros((), np.int32)
+                     for k, st_k in state.items()}, cfg.optimizer)}
+        got = JCheckpointer(ckpt_dir).restore(CKPT_STEP, like)
+        assert int(got["opt"]["count"]) == COUNT + CKPT_STEP
+        for name, p in named(got["params"]).items():
+            np.testing.assert_array_equal(np.asarray(p),
+                                          out[f"ckpt/{arch}/p/{name}"])

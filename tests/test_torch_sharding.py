@@ -2,8 +2,8 @@
 sharding, repro_torch.launch.steps) against the JAX package's on the CPU.
 
 For all ten configs, the four shape cases and the meshes 1x1, 1x4, 2x2 and
-16x16 (and for the dense configs' train cells under ``fsdp`` and
-``micro8+bf16grad``), the spec of every parameter, decode-cache, batch and
+16x16 (and for the dense and MoE configs' train cells under ``fsdp``,
+``micro8+bf16grad`` and ``expdata``), the spec of every parameter, decode-cache, batch and
 optimizer-state leaf that the port gives (``steps.shardings_of`` over ``param_axes`` /
 ``cache_axes`` / ``batch_axes`` / ``optimizer.state_axes`` under
 ``rules_for`` / ``opt_rules``) equals the reference's ``_resolve`` over its
@@ -160,17 +160,21 @@ def test_specs_match_reference(trees, arch, mesh_name):
 
 
 DENSE = ("qwen2-1.5b", "internlm2-1.8b", "minitron-4b", "gemma2-27b")
+MOE = ("granite-moe-1b-a400m", "kimi-k2-1t-a32b")
 
 
-@pytest.mark.parametrize("variant", ["fsdp", "micro8+bf16grad"])
+@pytest.mark.parametrize("variant", ["fsdp", "micro8+bf16grad", "expdata"])
 @pytest.mark.parametrize("mesh_name", list(MESHES))
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_train_cell_specs_match_reference(trees, arch, mesh_name, variant):
-    """``build_cell(mesh=)``'s train cell under ``fsdp`` and
-    ``micro8+bf16grad``: its rules, and its parameter and optimizer-state
-    spec trees, equal the reference's ``rules_for`` / ``opt_rules`` over its
-    own axes trees (its ``build_cell``'s shardings); its parameters are
-    the shards the parameter specs give rank 0."""
+    """``build_cell(mesh=)``'s train cell under ``fsdp``,
+    ``micro8+bf16grad`` and ``expdata`` (the experts over ("data",
+    "model"): only the MoE configs have leaves it moves): its rules, and
+    its parameter and optimizer-state spec trees (AdamW's moments,
+    kimi-k2's Adafactor factors), equal the reference's ``rules_for`` /
+    ``opt_rules`` over its own axes trees (its ``build_cell``'s
+    shardings); its parameters and its optimizer state are the shards the
+    specs give rank 0."""
     cfg, cfg_j, model, p_axes_j, _ = trees[arch]
     mesh = _Mesh(*MESHES[mesh_name])
     case = SHAPES["train_4k"]
@@ -194,21 +198,41 @@ def test_train_cell_specs_match_reference(trees, arch, mesh_name, variant):
     for k, spec in _specs(ins["params"]).items():
         assert local[k] == tuple(n // lay.size(e) for e, n in
                                  zip(spec, p_shapes[k])), k
+    o_local = _shapes(OPT.state_to_tree(kw["opt_state"], cfg.optimizer))
+    for k, spec in _specs(OPT.state_to_tree(ins["opt_state"],
+                                            cfg.optimizer)).items():
+        assert o_local[k] == tuple(n // lay.size(e) for e, n in
+                                   zip(spec, o_shapes[k])), k
 
 
 @pytest.mark.parametrize("variant,item", [("expdata", "A9c item 1"),
                                           ("seqpar", "A9c item 4")])
 def test_waiting_sharding_variants_raise_on_a_mesh(variant, item):
     """The sharding variants a mesh does not run yet raise naming their
-    ROADMAP A9c item, in ``build_cell`` and ``apply_variant_config``."""
+    ROADMAP A9c item, in ``build_cell`` and ``apply_variant_config``:
+    ``seqpar`` (item 4). ``expdata`` (item 1, done) builds on a mesh for a
+    dense and a MoE config, granite's experts over ("data", "model"), and
+    no message of the port names item 1 any more."""
     mesh = _Mesh(2, 2)
+    lay = SH.Layout(mesh.shape, {"data": 1, "model": 0}, SH.ShardingRules())
     cfg = get_config("qwen2-1.5b")
+    if variant == "expdata":
+        assert ST.apply_variant_config(cfg, variant, mesh) == cfg
+        ST.build_cell(cfg, SHAPES["train_4k"], "meta", variant, mesh=lay)
+        _, kw, _, rules, ins, _ = ST.build_cell(
+            get_config("granite-moe-1b-a400m"), SHAPES["train_4k"], "meta",
+            variant, mesh=lay)
+        assert rules.rules["experts"] == ("data", "model")
+        assert ins["params"]["g0"][0]["mlp"]["w_gate"] == (
+            None, ("data", "model"), None, None)
+        assert kw["params"].g0[0].mlp["w_gate"].shape == (24, 8, 1024, 512)
+        assert (kw["params"].tp.e0, kw["params"].tp.el) == (16, 8)
+        assert item not in str(ST.WAITING)
+        return
     with pytest.raises(NotImplementedError, match=item):
         ST.apply_variant_config(cfg, variant, mesh)
     with pytest.raises(NotImplementedError, match=item):
-        ST.build_cell(cfg, SHAPES["train_4k"], "meta", variant,
-                      mesh=SH.Layout(mesh.shape, {"data": 0, "model": 0},
-                                     SH.ShardingRules()))
+        ST.build_cell(cfg, SHAPES["train_4k"], "meta", variant, mesh=lay)
 
 
 def test_resolver_cases_as_the_reference():
@@ -294,8 +318,10 @@ def test_sharded_cell_on_the_meta_device():
     cache by sequence, batch 128 uncut: 8192 rows a card) and gemma2 (by
     kv heads); its spec trees; the train step's ZeRO-1 moments, and the
     step itself on the meta device (its collectives only counted, equal
-    to ``train_step_collectives``); the sharding variants that still wait
-    raise naming their ROADMAP A9c item."""
+    to ``train_step_collectives``); granite and kimi-k2 build (their
+    experts over "model", kimi-k2's Adafactor factors sliced), Jamba and
+    the sharding variants that still wait raise naming their ROADMAP A9c
+    item."""
     lay = SH.Layout({"data": 1, "model": 4}, {"data": 0, "model": 2},
                     SH.ShardingRules())
     fn, kw, donate, rules, ins, outs = ST.build_cell(
@@ -332,10 +358,24 @@ def test_sharded_cell_on_the_meta_device():
         fn(*kw.values())
         assert SH.collectives()["calls"] == ST.train_step_collectives(
             kw["params"], 8, 8 if "micro8" in variant else 4), variant
-    with pytest.raises(NotImplementedError, match="A9c item 1"):
-        ST.build_cell(get_config("granite-moe-1b-a400m"),
+    # granite and kimi-k2 build (A9c item 1); Jamba's Mamba layers wait
+    _, kw, *_ = ST.build_cell(get_config("granite-moe-1b-a400m"),
+                              SHAPES["decode_32k"], "meta", mesh=lay)
+    assert kw["params"].g0[0].mlp["w_gate"].shape == (24, 8, 1024, 512)
+    assert kw["cache"]["g0"][0]["mixer"]["k"].shape == (24, 128, 32768, 2,
+                                                        64)
+    _, kw, *_ = ST.build_cell(get_config("kimi-k2-1t-a32b"),
+                              SHAPES["train_4k"], "meta", mesh=lay22)
+    assert kw["params"].g1[0].mlp["w_down"].shape == (60, 192, 1024, 7168)
+    assert kw["opt_state"]["fac"]["g1.0.mlp.w_down"]["vr"].shape == (
+        60, 192, 1024)
+    with pytest.raises(NotImplementedError, match="A9c item 2"):
+        ST.build_cell(get_config("jamba-1.5-large-398b"),
                       SHAPES["decode_32k"], "meta", mesh=lay)
-    for variant, item in (("expdata", "A9c item 1"), ("seqpar", "A9c item 4"),
+    _, kw, *_ = ST.build_cell(get_config("qwen2-1.5b"), SHAPES["train_4k"],
+                              "meta", "expdata", mesh=lay)
+    assert kw["params"].g0[0].mixer["wq"].shape == (28, 1536, 3, 128)
+    for variant, item in (("seqpar", "A9c item 4"),
                           ("fsdp+seqpar", "A9c item 4")):
         with pytest.raises(NotImplementedError, match=item):
             ST.build_cell(get_config("qwen2-1.5b"), SHAPES["train_4k"],
