@@ -184,7 +184,41 @@ sharding rules:
                (granite's train_4k microbatch on 2x2: T = 8192 at the
                block limit; its decode_32k step: T = 128; kimi-k2's served
                step: T = 8, E = 384), every integer against the plain
-               version.
+               version; the Mamba and WKV6 scans at a card's shapes
+               (Jamba's Din 4096 of 16384, rwkv6's 8 of 32 heads; a B=8
+               decode step with the state a slot of a stacked cache,
+               written in place, a B=1 T=1024 prefill and a B=1 T=4096
+               training sequence) against their plain versions in fp32
+               and bf16 (SCAN_TOL, bf16 outputs one more ulp), timed beside
+               the plain version's and their bytes bounds.
+  path rec    — Mamba and RWKV-6 on the mesh (their d_inner channels and
+               heads over "model"; the phases run right after kernels tp):
+               prefill and 4 teacher-forced decode steps (append and
+               committed) on meshes 1x4 and 2x2 against card 0 without a
+               mesh: rwkv6-1.6b at full size in fp32, Jamba at full width
+               on its first 4 layers (Mamba + dense, Mamba + MoE, Mamba +
+               dense, attention + MoE; bf16 weights computed in fp32);
+               PATH_TOL_FP32, argmax equal, expert choices equal but at
+               near ties, launches exact (every scan), the collectives of
+               every step (here and in path tp / path ep) equal to
+               Transformer.step_collectives.
+  serving rec — the 8 requests on mesh 1x4: rwkv6 in bf16 (tokens equal
+               on every rank; TTFT, TPOT, busy, NCCL and idle a decode step
+               by rank) and fp32 compute (tokens equal to the one-card
+               engine's); Jamba at full width on the most layers four cards
+               hold, reckoned from the specs (shards drawn on the cards),
+               tokens equal on every rank.
+  train rec   — rwkv6 at full width on its first 2 layers, fp32, AdamW, on
+               2x2, 4x1, 1x4 and fsdp on 2x2, and Jamba's layer 0, fp32,
+               Adafactor (8 rows of 1024), on 2x2, 4x1 and 1x4, two steps
+               from count 99 against one card's step (the gates of train
+               tp); Jamba's first 2 layers in bf16 with Adafactor on 2x2
+               (finite losses equal on every rank, first cross-entropy in
+               phase 8's band, collectives exact, peak memory a card).
+  dryrun rec  — rwkv6's decode_32k and long_500k (batch 1) on 1x4 and
+               train_4k on 2x2 (batch cut by the measured peak); Jamba's
+               three not fitting (~200 GB of weights a card), reckoned from
+               the specs before anything is built, logged with why.
   train tp    — the sharded train step (launch/steps.py build_cell(mesh=))
                of qwen2-1.5b at full width on its first 2 layers, fp32, on
                meshes (2, 2), (4, 1) and (1, 4), two steps from count 99
@@ -208,7 +242,8 @@ sharding rules:
                across a shard edge); fp32 within PATH_TOL_FP32 and argmax
                equal, bf16 reported; launches exact on every rank.
   serving tp  — phase 3's 8 requests through ServingEngine on the mesh,
-               qwen2 and gemma2 at full size: bf16 (tokens equal on every
+               qwen2 at full size and gemma2 at full width on its first 12
+               layers (TP_SERVE_LAYERS): bf16 (tokens equal on every
                rank; TTFT, TPOT, busy, NCCL and idle time a decode step by
                rank) and fp32 compute over the bf16 weights (tokens equal
                to the one-card engine's on card 0).
@@ -242,9 +277,9 @@ sharding rules:
                on 2x2 (the batch cut to the routing kernel's block: one
                row a card a microbatch); kimi-k2's decode_32k and train_4k
                not fitting, reckoned from the specs.
-  profile tp  — each decode record's (granite's too) H100x4 MaxTput row
-               beside the analytic H100x4 and H100 rows, the engine
-               model's step beside the measured one.
+  profile tp  — each decode record's (granite's and rwkv6's too) H100x4
+               MaxTput row beside the analytic H100x4 and H100 rows, the
+               engine model's step beside the measured one.
 It ends with a {"kernels": [...]} line, the cards' names and power limits,
 and the same last line with "count": 4.
 """
@@ -464,15 +499,19 @@ def step_breakdown(prof, DeviceType, wall_ms: float, step_ms: float,
 
 def cut(cfg, n):
     """The first ``n`` layers of a config, group by group: whole periods
-    of a group, or the first layers of one period (kimi-k2's first 2: its
-    dense layer 0 and the first of its 60 MoE layers)."""
+    of a group, then the first layers of one more period (kimi-k2's first
+    2: its dense layer 0 and the first of its 60 MoE layers; Jamba's first
+    25: three periods of 8 and a Mamba + dense layer)."""
     groups, left = [], n
     for period, rep in cfg.groups:
         k = min(left, rep * len(period))
         if k == 0:
             break
-        groups.append((period, k // len(period)) if k % len(period) == 0
-                      else (period[:k], 1))
+        whole, part = divmod(k, len(period))
+        if whole:
+            groups.append((period, whole))
+        if part:
+            groups.append((period[:part], 1))
         left -= k
     return dataclasses.replace(cfg, groups=tuple(groups))
 
@@ -2955,6 +2994,9 @@ TP_PREFILL_ROWS = 64    # the last prefill positions compared
 # the fp32-compute engines' max_seq: gemma2's one-card engine (56.8 GB of
 # bf16 weights and a fp32 cache) fits card 0 at 1088, not at 2048
 TP_SERVE_SEQ_FP32 = 1088
+# serving tp's depth cuts (full width): gemma2-27b on the first 12 of its 46
+# layers keeps the four-card mode near its time budget beside the rec phases
+TP_SERVE_LAYERS = {"gemma2-27b": 12}
 TP_RECORDS = (("qwen2-1.5b", "decode_32k"), ("gemma2-27b", "decode_32k"),
               ("gemma2-27b", "long_500k"), ("qwen2-1.5b", "prefill_32k"))
 TP_TRACE_STEPS = 5
@@ -2998,6 +3040,36 @@ EP_NOT_FITTING = (EP_KIMI,)
 # expert leaf drawn on each card, as the model's init does, would not fit
 # beside the layers before it)
 EP_KIMI_RESERVE_BYTES = 12e9
+# the recurrent (rec) phases: rwkv6-1.6b at full size and Jamba at full
+# width, their Mamba channels and RWKV heads over "model"
+REC_RWKV, REC_JAMBA = "rwkv6-1.6b", "jamba-1.5-large-398b"
+REC_PATH_MESHES = ((1, 4), (2, 2))
+REC_PATH = (4, 2048, (300, 700, 1100, 1535))
+# path rec: Jamba's first 4 layers (Mamba + dense, Mamba + MoE, Mamba +
+# dense, attention + MoE), bf16 weights computed in fp32; card 0 alone
+# holds their 46 GB and one MoE layer's fp32 expert leaf (12.9 GB) at a time
+REC_JAMBA_PATH_LAYERS = 4
+REC_TRAIN_CASES = (((2, 2), "baseline"), ((4, 1), "baseline"),
+                   ((1, 4), "baseline"), ((2, 2), "fsdp"))
+# Jamba's layer 0 in fp32 (2.1 B parameters) against card 0 alone, at 8
+# rows of TP_TRAIN_SEQ
+REC_JAMBA_TRAIN_CASES = REC_TRAIN_CASES[:3]
+REC_JAMBA_TRAIN_BATCH = 8
+# Jamba's first 2 layers, bf16, Adafactor, on 2x2: layers, batch, seq, steps
+REC_JAMBA_BF16_TRAIN = (2, 2, 1024, 2)
+REC_RECORDS = ((REC_RWKV, "decode_32k", (1, 4)),
+               (REC_RWKV, "long_500k", (1, 4)),
+               (REC_RWKV, "train_4k", (2, 2)),
+               (REC_JAMBA, "decode_32k", (1, 4)),
+               (REC_JAMBA, "long_500k", (1, 4)),
+               (REC_JAMBA, "train_4k", (2, 2)))
+REC_NOT_FITTING = (REC_JAMBA,)
+# the scans at a card's shapes (kernels tp): Jamba's 4096 of 16384 Mamba
+# channels (d_state 16, dt_rank 512), rwkv6's 8 of 32 heads of 64; a B=8
+# decode step, a B=1 prefill, a B=1 training sequence run whole
+REC_SCAN_SHAPES = (("decode", 8, 1), ("prefill", 1, 1024),
+                   ("train", 1, 4096))
+REC_DIN, REC_N, REC_R, REC_H, REC_K = 4096, 16, 512, 8, 64
 
 
 def _free_port() -> int:
@@ -3074,10 +3146,12 @@ class _TPRun:
         from repro_torch.kernels import decode_attention as da
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import moe_gating as mg
+        from repro_torch.kernels import rwkv6_scan as rk
+        from repro_torch.kernels import ssm_scan as ss
         self.torch, self.dist, self.rank, self.mesh = torch, dist, rank, mesh
         self.n = mesh.size()
         self.dev = torch.device("cuda", rank)
-        self.da, self.fa, self.mg = da, fa, mg
+        self.da, self.fa, self.mg, self.rk, self.ss = da, fa, mg, rk, ss
         self.meshes = {(1, mesh.size()): mesh}
         self.gen = torch.Generator(device=self.dev).manual_seed(rank)
         self.launches_by_path = {}
@@ -3099,13 +3173,15 @@ class _TPRun:
 
     def zero(self) -> None:
         self.fa.launches = self.da.launches = self.da.merge_launches = 0
-        self.mg.launches = 0
+        self.mg.launches = self.rk.launches = self.ss.launches = 0
 
     def read(self) -> dict:
         return {"flash_attention": self.fa.launches,
                 "decode_attention": self.da.launches,
                 "decode_merge": self.da.merge_launches,
-                "moe_route": self.mg.launches}
+                "moe_route": self.mg.launches,
+                "rwkv6_scan": self.rk.launches,
+                "ssm_scan": self.ss.launches}
 
     def mesh_of(self, shape):
         """The (data, model) mesh of this shape, made once."""
@@ -3117,13 +3193,17 @@ class _TPRun:
     def expect(self, what, cfg, prefills, decodes, seq_sharded) -> dict:
         """This rank's launches against the layer counts, equal on every
         rank; kept under ``what`` for the kernels line. Every MoE layer
-        call routes its global tokens once on every card."""
-        attn = sum(spec.kind == "attn" for spec in cfg.layer_specs())
+        call routes its global tokens once on every card; every recurrent
+        layer call scans its card's channels or heads once."""
+        kinds = [spec.kind for spec in cfg.layer_specs()]
+        attn = kinds.count("attn")
         moe = sum(spec.mlp == "moe" for spec in cfg.layer_specs())
         want = {"flash_attention": attn * prefills,
                 "decode_attention": attn * decodes,
                 "decode_merge": attn * decodes if seq_sharded else 0,
-                "moe_route": moe * (prefills + decodes)}
+                "moe_route": moe * (prefills + decodes),
+                "rwkv6_scan": kinds.count("rwkv") * (prefills + decodes),
+                "ssm_scan": kinds.count("mamba") * (prefills + decodes)}
         got = self.read()
         every = self.all(got)
         if any(g != want for g in every):
@@ -3216,6 +3296,7 @@ class _TPRun:
         rows = self.kernels_tp() if self.rank == 0 else None
         self.dist.barrier()
         self.say(f"phase kernels tp: {time.perf_counter() - t:.1f} s")
+        rec_records = self.rec_phases()
         t = time.perf_counter()
         train_err = self.train_tp()
         self.say(f"phase train tp: {time.perf_counter() - t:.1f} s")
@@ -3230,7 +3311,7 @@ class _TPRun:
         t = time.perf_counter()
         records = self.dryrun_tp()
         self.say(f"phase dryrun tp: {time.perf_counter() - t:.1f} s")
-        records += self.ep_phases()
+        records += self.ep_phases() + rec_records
         if self.rank != 0:
             return {}
         self.profile_tp(records)
@@ -3354,7 +3435,7 @@ class _TPRun:
                                  f"{(n_calls, n_merges)}")
         self.say("kernels tp: " + json.dumps(errs))
         self.free()
-        return self.kernel_rows(errs)
+        return self.kernel_rows(errs) + self.scan_rows()
 
     def kernel_rows(self, errs) -> list:
         """The kernels line's rows at the four-card shapes: the decode
@@ -3541,6 +3622,104 @@ class _TPRun:
         self.free()
         return row
 
+    def scan_rows(self) -> list:
+        """The kernels line's scan rows at a card's shapes (REC_SCAN_SHAPES:
+        Jamba's Mamba at Din 4096 of 16384, rwkv6's WKV6 at 8 of 32 heads):
+        fp32 and bf16 against the plain versions (ops impl="plain") within
+        SCAN_TOL, a bf16 output within one more bf16 ulp of its magnitude;
+        the decode step's state a slot of a stacked cache, written in
+        place; Bm / Cm views of x_proj's output. Device ms a call (bf16,
+        as served) beside the plain version's, the bound of each input
+        read and output written once at 3.35 TB/s against the scan's fp32
+        operations at 67 TFLOP/s."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        f32, bf16 = torch.float32, torch.bfloat16
+        Din, N, R, H, K = REC_DIN, REC_N, REC_R, REC_H, REC_K
+
+        def rwkv_args(B, Tn, dtype):
+            r, k, v = (self.rnd((B, Tn, H, K), f32) * 0.5 for _ in range(3))
+            w = torch.exp(-torch.exp(self.rnd((B, Tn, H, K), f32) * 0.5
+                                     - 1))
+            cache = self.rnd((2, B, H, K, K), f32) * 0.1
+            return (r.to(dtype), k.to(dtype), v.to(dtype), w,
+                    self.rnd((H, K), f32) * 0.3, cache[1])
+
+        def ssm_args(B, Tn, dtype):
+            dt = torch.nn.functional.softplus(
+                self.rnd((B, Tn, Din), f32)) * 0.1
+            dbc = self.rnd((B, Tn, R + 2 * N), dtype)     # x_proj's output
+            cache = self.rnd((2, B, Din, N), f32) * 0.1
+            return (self.rnd((B, Tn, Din), dtype), dt,
+                    -torch.exp(self.rnd((Din, N), f32) * 0.3),
+                    dbc[..., R:R + N], dbc[..., R + N:],
+                    self.rnd((Din,), f32), cache[1])
+
+        def rwkv_bound(B, Tn):
+            n = B * Tn * H * K
+            return (n * (4 * 2 + 4) + H * K * 4 + 2 * B * H * K * K * 4,
+                    5 * B * Tn * H * K * K)
+
+        def ssm_bound(B, Tn):
+            n = B * Tn * Din
+            return (n * (2 * 2 + 4) + 2 * B * Tn * N * 2 + Din * N * 4
+                    + Din * 4 + 2 * B * Din * N * 4, n * (7 * N + 3))
+
+        rows = []
+        for name, scan, make, bound, what in (
+                ("rwkv6_scan", ops.rwkv6_scan, rwkv_args, rwkv_bound,
+                 f"H={H} of 32 K={K} bf16 r/k/v, fp32 w"),
+                ("ssm_scan", ops.ssm_scan, ssm_args, ssm_bound,
+                 f"Din={Din} of 16384 N={N} bf16 x/Bm/Cm, fp32 dt/A/D")):
+            errs, shapes = {}, {}
+            for label, B, Tn in REC_SCAN_SHAPES:
+                for dtype in (f32, bf16):
+                    args = make(B, Tn, dtype)
+                    out_r, st_r = scan(*args[:-1], args[-1].clone(),
+                                       impl="plain")
+                    out, st = scan(*args, impl="cuda", state_out=args[-1])
+                    diff = (out.float() - out_r.float()).abs()
+                    lim = SCAN_TOL + (BF16_ULP * out_r.float().abs()
+                                      if dtype == bf16 else 0.0)
+                    e = max(float(diff.max()), self.err(st, st_r))
+                    if not (bool((diff < lim).all()) and st is args[-1]
+                            and self.err(st, st_r) < SCAN_TOL):
+                        raise AssertionError(
+                            f"kernels tp {name} {label} {dtype}: {e}")
+                    errs[f"{label} {str(dtype)[6:]}"] = e
+                    del args, out_r, st_r, out, st, diff
+                sets = [make(B, Tn, bf16) for _ in range(2)]
+                nbytes, n_ops = bound(B, Tn)
+                b = {"bytes": nbytes / PEAK_BYTES * 1e3,
+                     "operations": n_ops / PEAK_FP32_FLOPS * 1e3}
+                shapes[label] = {
+                    "shape": f"B={B} T={Tn} {what}",
+                    "ms": self.device_ms(
+                        lambda *a: scan(*a, impl="cuda"), sets, iters=10),
+                    "plain_ms": self.device_ms(
+                        lambda *a: scan(*a, impl="plain"), sets, iters=3),
+                    "bytes_bound_ms": b["bytes"],
+                    "bound_ms": max(b.values()),
+                    "bound_by": max(b, key=b.get), "bytes": nbytes,
+                    "operations": n_ops}
+                del sets
+                self.free()
+            kernel = "rwkv6" if name == "rwkv6_scan" else "ssm"
+            lib = "the WKV6 recurrence" if kernel == "rwkv6" else \
+                "the selective scan"
+            rows.append({
+                "name": name, "counter": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": f"src/repro/kernels/{name}.py:"
+                            f"{46 if kernel == 'rwkv6' else 47}",
+                **shapes["prefill"], "max_abs_err": max(errs.values()),
+                "tol": SCAN_TOL, "errors": errs, "shapes": shapes,
+                "library_ms": None,
+                "library": f"none: no one PyTorch call computes {lib}"})
+        self.say("kernels tp scans: " + json.dumps(
+            {r["name"]: r["shapes"] for r in rows}))
+        return rows
+
     def path_tp(self) -> None:
         """Prefill and teacher-forced decode (append and committed) on the
         mesh against the same weights on card 0 without a mesh: fp32
@@ -3558,17 +3737,29 @@ class _TPRun:
     def _path_run(self, cfg, model, tokens, steps, lens, max_seq):
         """The last prefill rows of every prompt and each decode step's
         logits, append and committed (gathered on a mesh), on card 0's
-        device for the comparison."""
+        device for the comparison. On a mesh every prefill and decode step
+        makes the collectives of ``Transformer.step_collectives``."""
         torch = self.torch
+        from repro_torch.distributed import sharding as SH
         from repro_torch.models import transformer as T
         B = tokens.shape[0]
         out = {}
         caches = {m: T.init_cache(cfg, B, max_seq, device=self.dev,
                                   mesh=model.layout)
                   for m in ("append", "committed")}
+
+        def collectives(what, want):
+            got = SH.collectives()["calls"]
+            if model.layout is not None and got != want():
+                raise AssertionError(f"{cfg.name} {what}: collectives {got}"
+                                     f" != {want()}")
+
         for b, L in enumerate(lens):
+            SH.reset_collectives()
             logits, pf = model.prefill(torch.from_numpy(
                 tokens[b:b + 1, :L]).to(self.dev))
+            collectives(f"prefill {b}", lambda: model.step_collectives(
+                batch=1, seq=L))
             rows = model.gather_logits(logits[:, -TP_PREFILL_ROWS:], 1)
             out[f"prefill {b}"] = rows[0].float()
             for cache in caches.values():
@@ -3577,9 +3768,12 @@ class _TPRun:
         for mode, cache in caches.items():
             lengths = np.array(lens)
             for i in range(len(steps)):
+                SH.reset_collectives()
                 logits, _ = model.decode_step(
                     cache, torch.from_numpy(steps[i]).to(self.dev),
                     torch.from_numpy(lengths), append=mode == "append")
+                collectives(f"{mode} {i}",
+                            lambda: model.step_collectives(cache))
                 out[f"{mode} {i}"] = model.gather_logits(logits, B).float()
                 lengths = lengths + 1
         del caches
@@ -3596,9 +3790,12 @@ class _TPRun:
         from repro_torch.serving import EngineConfig, ServingEngine
         from repro_torch.serving.engine import serving_rules
         for arch in archs:
+            base = get_config(arch)
+            if arch in TP_SERVE_LAYERS:
+                base = cut(base, TP_SERVE_LAYERS[arch])
             for dtype, max_seq in (("bfloat16", S_D),
                                    ("float32", TP_SERVE_SEQ_FP32)):
-                cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+                cfg = dataclasses.replace(base, dtype=dtype)
                 ecfg = EngineConfig(max_batch=8, max_seq=max_seq)
                 rules = serving_rules(cfg, ecfg, self.mesh)
                 model = self.build(cfg, self.mesh, rules)
@@ -3873,15 +4070,16 @@ class _TPRun:
             del model, st
         return metrics, params, launches, calls, formula
 
-    def _train_gate(self, cfg, mesh, shape, variant, label="tp") -> None:
-        """One train tp (or ep) case (module docstring)."""
+    def _train_gate(self, cfg, mesh, shape, variant, label="tp",
+                    batch=TP_TRAIN_BATCH, seq=TP_TRAIN_SEQ) -> None:
+        """One train tp (or ep, or rec) case (module docstring)."""
         t0 = time.perf_counter()
         metrics, params, launches, calls, formula = self._train_run(
-            cfg, mesh, variant)
+            cfg, mesh, variant, batch, seq)
         what = (f"{cfg.name} {shape[0]}x{shape[1]} {variant} "
                 f"{cfg.optimizer} train {label}")
         self.expect_train(what, cfg, 8 if "micro8" in variant else 4,
-                          TP_TRAIN_STEPS)
+                          TP_TRAIN_STEPS, seq)
         every = self.all([metrics, calls])
         if any(e[0] != every[0][0] for e in every):
             raise AssertionError(f"{what}: metrics differ between ranks")
@@ -3891,7 +4089,8 @@ class _TPRun:
         if self.rank == 0:
             mesh_params, params = params, None
             self.free()
-            ref_metrics, ref_params, *_ = self._train_run(cfg, None, variant)
+            ref_metrics, ref_params, *_ = self._train_run(cfg, None, variant,
+                                                          batch, seq)
             tol_g = TOL["bfloat16"] if "bf16grad" in variant else GNORM_RTOL
             tol_p = TOL["bfloat16"] if "bf16grad" in variant else LEAF_TOL
             loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
@@ -3904,7 +4103,7 @@ class _TPRun:
             line = {"model": cfg.name, "layers": cfg.n_layers,
                     "dtype": "float32", "mesh": list(shape),
                     "variant": variant, "optimizer": cfg.optimizer,
-                    "batch": [TP_TRAIN_BATCH, TP_TRAIN_SEQ],
+                    "batch": [batch, seq],
                     "losses": [m["loss"] for m in metrics],
                     "one_card_losses": [m["loss"] for m in ref_metrics],
                     "grad_norms": [m["grad_norm"] for m in metrics],
@@ -3954,7 +4153,7 @@ class _TPRun:
                 if not ok:
                     raise AssertionError(f"train record {arch}: {rec}")
                 self.expect_train(f"{arch} dry-run train_4k tp", cfg,
-                                  rec["n_micro"], steps)
+                                  rec["n_micro"], steps, rec["seq_len"])
             self.say(f"dryrun tp: {json.dumps(rec)}")
             self.say(f"dryrun tp time: {arch} train_4k "
                      f"{time.perf_counter() - t0:.1f} s")
@@ -4091,6 +4290,7 @@ class _TPRun:
                                         mesh=model.layout).spec(cfg)
         sharded = model.layout.size(seq) > 1
         model_kv = model.layout.size(kv)
+        states = model.layout.size(model.tp.inner or model.tp.rwkv)
         self.expect(what, cfg, B, 2 * TP_PATH_STEPS, sharded)
         del model
         self.free()
@@ -4116,6 +4316,7 @@ class _TPRun:
                     "prompt_lens": list(lens),
                     "cache": ("by sequence" if sharded else "by kv heads"
                               if model_kv > 1 else "replicated"),
+                    "recurrent_states_over_cards": states,
                     "max_abs_diff": worst,
                     "diffs": diffs, "argmax_equal": argmax,
                     "route_calls": [len(mesh_ids), len(one_ids)],
@@ -4137,15 +4338,16 @@ class _TPRun:
         self.free()
         self.dist.barrier()
 
-    def _kimi_depth(self, mesh, rules) -> tuple:
-        """(kimi-k2's layers on ``mesh``, its weights' bytes a card): the
-        most whose weights leave EP_KIMI_RESERVE_BYTES of the smallest
-        card's free memory, reckoned from the specs on the meta device."""
+    def _depth(self, arch, mesh, rules) -> tuple:
+        """(``arch``'s layers on ``mesh``, its weights' bytes a card, the
+        smallest card's free bytes): the most layers whose weights leave
+        EP_KIMI_RESERVE_BYTES of the smallest card's free memory, reckoned
+        from the specs on the meta device."""
         from repro_torch.configs import get_config
         from repro_torch.launch.dryrun import _weight_bytes
         self.free()
         free = min(self.all(self.torch.cuda.mem_get_info(self.dev)[0]))
-        full = get_config(EP_KIMI)
+        full = get_config(arch)
         n, nbytes = 1, _weight_bytes(cut(full, 1), mesh, rules)
         while n < full.n_layers:
             more = _weight_bytes(cut(full, n + 1), mesh, rules)
@@ -4194,33 +4396,40 @@ class _TPRun:
         as in serving tp (bf16, and fp32 against the one-card engine), then
         kimi-k2 at full width on the deepest cut the four cards hold
         (tokens equal on every rank)."""
+        self.serving_tp((EP_ARCH,), "serving ep")
+        self._serve_deepest(EP_KIMI, "serving ep", trace=True)
+
+    def _serve_deepest(self, arch, label, trace) -> None:
+        """``arch`` at full width on the most layers the four cards hold
+        (``_depth``), its shards drawn on the cards, through ServingEngine
+        on mesh 1x4 in bf16: tokens equal on every rank."""
         from repro_torch.configs import get_config
         from repro_torch.serving import EngineConfig, ServingEngine
         from repro_torch.serving.engine import serving_rules
-        self.serving_tp((EP_ARCH,), "serving ep")
-        full = get_config(EP_KIMI)
+        full = get_config(arch)
         ecfg = EngineConfig(max_batch=8, max_seq=S_D)
         rules = serving_rules(full, ecfg, self.mesh)
-        n, nbytes, free = self._kimi_depth(self.mesh, rules)
+        n, nbytes, free = self._depth(arch, self.mesh, rules)
         cfg = cut(full, n)
-        self.say(f"serving ep kimi cut: kimi-k2-1t-a32b at full width cut "
-                 f"to its first {n} of {full.n_layers} layers (the dense "
-                 f"layer 0 and {n - 1} MoE layers), {cfg.param_count()} "
-                 f"parameters, {nbytes / 1e9:.2f} GB of bf16 weights a card "
-                 f"on 4 cards ({free / 1e9:.2f} GB free on the smallest "
-                 f"card, {EP_KIMI_RESERVE_BYTES / 1e9:.0f} GB kept for the "
-                 "cache, activations and NCCL)")
+        kinds = [f"{spec.kind} + {spec.mlp}" for spec in cfg.layer_specs()]
+        kinds = ", ".join(f"{kinds.count(k)} {k}" for k in sorted(set(kinds)))
+        self.say(f"{label} cut: {arch} at full width cut to its first {n} "
+                 f"of {full.n_layers} layers ({kinds}), "
+                 f"{cfg.param_count()} parameters, {nbytes / 1e9:.2f} GB of "
+                 f"bf16 weights a card on 4 cards ({free / 1e9:.2f} GB free "
+                 f"on the smallest card, {EP_KIMI_RESERVE_BYTES / 1e9:.0f} GB"
+                 " kept for the cache, activations and NCCL)")
         model = self._drawn_shards(cfg, self.mesh, rules)
         eng = ServingEngine(cfg, model, ecfg, mesh=self.mesh)
         sharded = eng.cache.layout.size(eng.cache.spec(cfg)[2]) > 1
-        res = self._serve(cfg, eng, sharded, True, label="serving ep")
+        res = self._serve(cfg, eng, sharded, trace, label=label)
         every = self.all(res["tokens"])
         if any(t != every[0] for t in every):
-            raise AssertionError("serving ep kimi-k2: tokens differ "
-                                 "between ranks")
+            raise AssertionError(f"{label} {arch}: tokens differ between "
+                                 "ranks")
         res.pop("tokens")
         res["layers"] = n
-        self.say("serving ep: " + json.dumps(res))
+        self.say(f"{label}: " + json.dumps(res))
         del eng, model
         self.free()
         self.dist.barrier()
@@ -4241,25 +4450,26 @@ class _TPRun:
                     base, optimizer="adafactor"), "baseline"
             self._train_gate(cfg, self.mesh_of(shape), shape, variant,
                              label="ep")
-        self._kimi_train()
+        self._train_bf16(EP_KIMI, EP_KIMI_TRAIN, "ep")
 
-    def _kimi_train(self) -> None:
-        """kimi-k2 at full width on its first 2 layers, bf16, Adafactor,
-        on mesh 2x2: two steps, losses finite and equal on every card, the
-        first cross-entropy in phase 8's band, collectives equal to the
-        formula, launches exact."""
+    def _train_bf16(self, arch, spec, label) -> None:
+        """``arch`` at full width on its first ``spec[0]`` layers, bf16,
+        Adafactor, on mesh 2x2 (kimi-k2's, Jamba's): two steps of ``spec``'s
+        batch and seq, losses finite and equal on every card, the first
+        cross-entropy in phase 8's band, collectives equal to the formula,
+        launches exact; each card's peak memory."""
         torch = self.torch
         from repro_torch.configs import get_config
         from repro_torch.configs.shapes import ShapeCase
         from repro_torch.distributed import sharding as SH
         from repro_torch.launch import steps as ST
         from repro_torch.training.data import DataConfig, SyntheticDataset
-        layers, batch, seq, steps = EP_KIMI_TRAIN
-        cfg = cut(get_config(EP_KIMI), layers)
+        layers, batch, seq, steps = spec
+        cfg = cut(get_config(arch), layers)
         mesh = self.mesh_of((2, 2))
         t0 = time.perf_counter()
         fn, _, _, rules, *_ = ST.build_cell(
-            cfg, ShapeCase("train ep", "train", seq, batch), "meta",
+            cfg, ShapeCase(f"train {label}", "train", seq, batch), "meta",
             mesh=mesh)
         model = self.build(cfg, mesh, rules)
         st = ST.init_opt_state(model)
@@ -4281,8 +4491,8 @@ class _TPRun:
                           (time.perf_counter() - t1) * 1e3))
         nm = 4 if batch % 4 == 0 and batch >= 4 else 1
         formula = ST.train_step_collectives(model, batch, nm, seq)
-        what = f"{cfg.name} {layers} layers 2x2 bf16 adafactor train ep"
-        self.expect_train(what, cfg, nm, steps)
+        what = f"{cfg.name} {layers} layers 2x2 bf16 adafactor train {label}"
+        self.expect_train(what, cfg, nm, steps, seq)
         every = self.all(losses)
         center = math.log(cfg.vocab_size) + 0.5 * 0.02 ** 2 * cfg.d_model
         line = {"model": cfg.name, "layers": layers, "dtype": cfg.dtype,
@@ -4294,13 +4504,13 @@ class _TPRun:
                 "peak_mem_gb_by_rank": self.all(
                     torch.cuda.max_memory_allocated(self.dev) / 1e9),
                 "seconds": time.perf_counter() - t0, "card": self._card()}
-        self.say("train ep: " + json.dumps(line))
+        self.say(f"train {label}: " + json.dumps(line))
         if not (all(map(math.isfinite, losses)) and all(e == losses
                                                         for e in every)
                 and abs(ces[0] - center)
                 <= FIRST_LOSS_RTOL * math.log(cfg.vocab_size)
                 and all(c[0] == formula for c in calls)):
-            raise AssertionError(f"train ep {what}: {line}")
+            raise AssertionError(f"train {label} {what}: {line}")
         del model, st
         self.free()
         self.dist.barrier()
@@ -4309,10 +4519,18 @@ class _TPRun:
         """granite's decode_32k record on mesh 1x4 and train_4k on 2x2
         (the batch cut to the routing kernel's block), kimi-k2's two as
         not fitting, reckoned from the specs before anything is built."""
+        return self._mesh_records(EP_RECORDS, EP_NOT_FITTING, "ep")
+
+    def _mesh_records(self, cells, not_fitting, label) -> list:
+        """The records of ``cells`` ((arch, shape, mesh shape)): ok, 4
+        devices, collectives equal to the formula, launches exact, a decode
+        batch uncut, finite train losses; the archs of ``not_fitting``
+        not fitting, reckoned before anything is built, logged with why.
+        Returns the decode records for profile tp."""
         from repro_torch.configs import get_config
         from repro_torch.launch import dryrun
         records = []
-        for arch, shape, mshape in EP_RECORDS:
+        for arch, shape, mshape in cells:
             cfg = get_config(arch)
             self.memory(f"before {arch} {shape}")
             t0 = time.perf_counter()
@@ -4321,21 +4539,24 @@ class _TPRun:
                                   "dryrun_torch", mesh=self.mesh_of(mshape))
             self.free()
             launches = self.read()
-            if arch in EP_NOT_FITTING:
+            if arch in not_fitting:
                 if rec["ok"] or "not_fitting" not in rec or any(
                         launches.values()):
-                    raise AssertionError(f"dryrun ep {arch} {shape}: {rec}")
+                    raise AssertionError(f"dryrun {label} {arch} {shape}: "
+                                         f"{rec}")
             else:
                 ok = (rec["ok"] is True and rec["devices"] == self.n
                       and rec["flops"] > 0 and rec["collectives"]["calls"]
                       == rec["collectives_formula"])
                 if not ok:
-                    raise AssertionError(f"dryrun ep {arch} {shape}: {rec}")
+                    raise AssertionError(f"dryrun {label} {arch} {shape}: "
+                                         f"{rec}")
                 if rec["kind"] == "decode":
                     if "global_batch" in rec["reduced"]:
-                        raise AssertionError(f"dryrun ep {arch} {shape}: "
-                                             f"batch cut {rec['reduced']}")
-                    self.expect(f"{arch} dry-run {shape} ep", cfg, 0,
+                        raise AssertionError(f"dryrun {label} {arch} "
+                                             f"{shape}: batch cut "
+                                             f"{rec['reduced']}")
+                    self.expect(f"{arch} dry-run {shape} {label}", cfg, 0,
                                 rec["decode_steps"],
                                 rec["cache_spec"][2] is not None)
                     records.append((cfg, rec))
@@ -4343,24 +4564,96 @@ class _TPRun:
                     steps = rec["train_steps"] + rec.get("probe_steps", 0)
                     if not (all(map(math.isfinite, rec["losses"]))
                             and "global_batch" in rec["reduced"]):
-                        raise AssertionError(f"dryrun ep {arch}: {rec}")
-                    self.expect_train(f"{arch} dry-run {shape} ep", cfg,
-                                      rec["n_micro"], steps)
-            self.say(f"dryrun ep: {json.dumps(rec)}")
-            self.say(f"dryrun ep time: {arch} {shape} "
+                        raise AssertionError(f"dryrun {label} {arch}: "
+                                             f"{rec}")
+                    self.expect_train(f"{arch} dry-run {shape} {label}", cfg,
+                                      rec["n_micro"], steps, rec["seq_len"])
+            self.say(f"dryrun {label}: {json.dumps(rec)}")
+            if "not_fitting" in rec:
+                self.say(f"dryrun {label} not fitting: {arch} {shape} on "
+                         f"{rec['mesh']}: {rec['not_fitting']}")
+            self.say(f"dryrun {label} time: {arch} {shape} "
                      f"{time.perf_counter() - t0:.1f} s")
             self.dist.barrier()
         return records
 
-    def expect_train(self, what, cfg, n_micro, steps) -> dict:
+    # -- Mamba and RWKV-6 on the mesh (the rec phases) -------------------
+    def rec_phases(self) -> list:
+        """path rec, serving rec, train rec and dryrun rec (module
+        docstring); returns the dryrun rec decode records for profile
+        tp."""
+        for name, phase in (("path rec", self.path_rec),
+                            ("serving rec", self.serving_rec),
+                            ("train rec", self.train_rec)):
+            t = time.perf_counter()
+            phase()
+            self.say(f"phase {name}: {time.perf_counter() - t:.1f} s")
+            self.memory(f"after {name}")
+        t = time.perf_counter()
+        records = self._mesh_records(REC_RECORDS, REC_NOT_FITTING, "rec")
+        self.say(f"phase dryrun rec: {time.perf_counter() - t:.1f} s")
+        return records
+
+    def path_rec(self) -> None:
+        """Prefill and 4 teacher-forced decode steps (append and
+        committed) on meshes 1x4 and 2x2 against card 0 without a mesh:
+        rwkv6 at full size in fp32, Jamba at full width on its first 4
+        layers (bf16 weights computed in fp32); PATH_TOL_FP32, argmax
+        equal, Jamba's expert choices equal but at near ties, launches
+        exact (every recurrent layer's scan), collectives as
+        ``step_collectives``."""
+        from repro_torch.configs import get_config
+        rwkv = dataclasses.replace(get_config(REC_RWKV), dtype="float32",
+                                   param_dtype="float32")
+        jamba = dataclasses.replace(cut(get_config(REC_JAMBA),
+                                        REC_JAMBA_PATH_LAYERS),
+                                    dtype="float32")
+        for cfg in (rwkv, jamba):
+            for shape in REC_PATH_MESHES:
+                self._path_gate(cfg, shape, *REC_PATH, "path rec")
+
+    def serving_rec(self) -> None:
+        """Phase 3's 8 requests through ServingEngine on mesh 1x4: rwkv6 as
+        in serving tp (bf16 with TTFT, TPOT, busy, NCCL and idle a decode
+        step by rank; fp32 compute against the one-card engine), then Jamba
+        at full width on the most layers four cards hold (shards drawn on
+        the cards), tokens equal on every rank."""
+        self.serving_tp((REC_RWKV,), "serving rec")
+        self._serve_deepest(REC_JAMBA, "serving rec", trace=False)
+
+    def train_rec(self) -> None:
+        """rwkv6 at full width on its first 2 layers, fp32, AdamW, and
+        Jamba's layer 0, fp32, Adafactor, two steps from count 99 against
+        one card's step (the gates of train tp) on REC_TRAIN_CASES; then
+        Jamba's first 2 layers in bf16 with Adafactor on 2x2."""
+        from repro_torch.configs import get_config
+        rwkv = dataclasses.replace(cut(get_config(REC_RWKV), TP_TRAIN_LAYERS),
+                                   dtype="float32", param_dtype="float32")
+        for shape, variant in REC_TRAIN_CASES:
+            self._train_gate(rwkv, self.mesh_of(shape), shape, variant,
+                             label="rec")
+        jamba = dataclasses.replace(cut(get_config(REC_JAMBA), 1),
+                                    dtype="float32", param_dtype="float32")
+        for shape, variant in REC_JAMBA_TRAIN_CASES:
+            self._train_gate(jamba, self.mesh_of(shape), shape, variant,
+                             label="rec", batch=REC_JAMBA_TRAIN_BATCH)
+        self._train_bf16(REC_JAMBA, REC_JAMBA_BF16_TRAIN, "rec")
+
+    def expect_train(self, what, cfg, n_micro, steps,
+                     seq=TP_TRAIN_SEQ) -> dict:
         """This rank's launches against ``steps`` train steps of
-        ``n_micro`` microbatches under remat, equal on every rank."""
-        attn = sum(spec.kind == "attn" for spec in cfg.layer_specs())
+        ``n_micro`` microbatches of ``seq`` tokens under remat, equal on
+        every rank (a scan launches once a segment)."""
+        from repro_torch.kernels import ref
+        kinds = [spec.kind for spec in cfg.layer_specs()]
         moe = sum(spec.mlp == "moe" for spec in cfg.layer_specs())
-        runs = 2 if cfg.remat else 1
-        want = {"flash_attention": attn * runs * n_micro * steps,
+        per = (2 if cfg.remat else 1) * n_micro * steps
+        segs = len(ref.scan_segments(seq))
+        want = {"flash_attention": kinds.count("attn") * per,
                 "decode_attention": 0, "decode_merge": 0,
-                "moe_route": moe * runs * n_micro * steps}
+                "moe_route": moe * per,
+                "rwkv6_scan": kinds.count("rwkv") * segs * per,
+                "ssm_scan": kinds.count("mamba") * segs * per}
         got = self.read()
         every = self.all(got)
         if any(g != want for g in every):

@@ -20,6 +20,9 @@ their place:
   * ``local_shard(tensor, mesh, spec)``: this rank's slice of a full tensor;
     ``Layout`` does the same for a model (its rules, this rank's
     coordinates), and works without a process group (the meta device);
+    a dim that concatenates equal pieces (``paired``: Mamba's ``in_proj``
+    holds x_in's columns, then z's) is cut piece by piece there and
+    joined back so by ``gather_whole``;
   * ``all_reduce``, ``all_gather`` and ``gather_partials`` over named mesh
     axes: explicit collectives where the reference's ``constrain`` changes
     a layout (in place, no backward: the decode path's). Local shards are
@@ -101,6 +104,49 @@ def mesh_axes_size(sizes: Mapping[str, int], axes: Sequence[str]) -> int:
     return total
 
 
+class _PairedName(str):
+    """A logical axis name whose dim holds ``pieces`` equal pieces side by
+    side (``paired``)."""
+    pieces: int = 1
+
+
+class _PairedAxis(str):
+    """A spec entry of one mesh axis over a paired dim."""
+    pieces: int = 1
+
+
+class _PairedAxes(tuple):
+    """A spec entry of several mesh axes over a paired dim."""
+    pieces: int = 1
+
+
+def paired(name: str, pieces: int = 2) -> str:
+    """The logical axis ``name`` over a dim that concatenates ``pieces``
+    equal pieces (Mamba's ``in_proj`` (D, 2 Din): x_in's columns, then
+    z's). It resolves to the same mesh axes as ``name`` (and compares equal
+    to it), but a card's shard is its slice of every piece, side by side:
+    ``local_shard``, ``Layout.local`` and ``gather_whole`` cut and join the
+    dim viewed as (pieces, n / pieces), so a card holds x_in's and z's
+    columns of the same channels."""
+    out = _PairedName(name)
+    out.pieces = pieces
+    return out
+
+
+def pieces_of(entry) -> int:
+    """The pieces of a spec entry or a logical axis name (1: a plain one)."""
+    return getattr(entry, "pieces", 1)
+
+
+def _with_pieces(entry, pieces: int):
+    if pieces == 1:
+        return entry
+    out = (_PairedAxis(entry) if isinstance(entry, str)
+           else _PairedAxes(entry))
+    out.pieces = pieces
+    return out
+
+
 def _resolve(
     axis_sizes: Mapping[str, int],
     logical_axes: Sequence[str | None],
@@ -116,15 +162,16 @@ def _resolve(
         axes = tuple(
             a for a in rules.rules.get(name, ()) if a in axis_sizes and a not in used
         )
+        k = pieces_of(name)        # a paired dim is cut piece by piece
         if axes and shape is not None:
             # drop leading axes until the dim divides evenly (replicate if never)
-            while axes and (shape[i] == 0 or shape[i] % mesh_axes_size(axis_sizes, axes) != 0):
+            while axes and (shape[i] == 0 or shape[i] % k or (shape[i] // k) % mesh_axes_size(axis_sizes, axes) != 0):
                 axes = axes[1:]
         if not axes:
             spec.append(None)
             continue
         used.update(axes)
-        spec.append(axes[0] if len(axes) == 1 else axes)
+        spec.append(_with_pieces(axes[0] if len(axes) == 1 else axes, k))
     return tuple(spec)
 
 
@@ -188,7 +235,8 @@ def entry_axes(entry) -> tuple[str, ...]:
     """The mesh axes of one spec entry: () for None."""
     if entry is None:
         return ()
-    return (entry,) if isinstance(entry, str) else tuple(entry)
+    return (str(entry),) if isinstance(entry, str) else tuple(
+        str(a) for a in entry)
 
 
 def coordinates(mesh) -> dict[str, int]:
@@ -226,18 +274,33 @@ def placements(mesh, spec: Spec) -> tuple:
     return tuple(out)
 
 
+def cut(tensor: torch.Tensor, spec: Spec, sizes: Mapping[str, int],
+        coords: Mapping[str, int]):
+    """The slice of a full ``tensor`` (or numpy array) laid out by ``spec``
+    that the card at ``coords`` holds: a view, but over a paired dim
+    (``paired``) a copy of the card's slice of every piece."""
+    out = tensor[tuple(slice(s, s + n) for s, n in (
+        (0, tensor.shape[d]) if pieces_of(e) > 1 else
+        shard_range(e, tensor.shape[d], sizes, coords)
+        for d, e in enumerate(spec)))]
+    for d, e in enumerate(spec):
+        k = pieces_of(e)
+        if k > 1:
+            shape = tuple(out.shape)
+            s, n = shard_range(e, shape[d] // k, sizes, coords)
+            out = out.reshape(shape[:d] + (k, shape[d] // k) + shape[d + 1:])
+            out = out[(slice(None),) * (d + 1) + (slice(s, s + n),)]
+            out = out.reshape(shape[:d] + (k * n,) + shape[d + 1:])
+    return out
+
+
 def local_shard(tensor: torch.Tensor, mesh, spec: Spec,
                 coords: Optional[Mapping[str, int]] = None) -> torch.Tensor:
-    """This rank's slice (a view) of a full ``tensor`` laid out by ``spec``
-    on ``mesh``; ``coords`` default to this process's place in a
-    ``DeviceMesh``."""
-    sizes = axis_sizes(mesh)
+    """This rank's slice (a view, but over a paired dim a copy) of a full
+    ``tensor`` laid out by ``spec`` on ``mesh``; ``coords`` default to this
+    process's place in a ``DeviceMesh``."""
     coords = coordinates(mesh) if coords is None else coords
-    idx = []
-    for dim, entry in enumerate(spec):
-        start, n = shard_range(entry, tensor.shape[dim], sizes, coords)
-        idx.append(slice(start, start + n))
-    return tensor[tuple(idx)]
+    return cut(tensor, spec, axis_sizes(mesh), coords)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,7 +330,9 @@ class Layout:
         return _resolve(self.sizes, axes, shape, self.rules)
 
     def ranges(self, axes, shape) -> list[tuple[int, int]]:
-        """(start, length) of this rank's piece of every dim."""
+        """(start, length) of this rank's piece of every dim (a paired
+        dim's as if it were cut in one: its length is the card's; slice
+        with ``local``)."""
         return [shard_range(e, n, self.sizes, self.coords)
                 for e, n in zip(self.spec(axes, shape), shape)]
 
@@ -275,9 +340,10 @@ class Layout:
         return tuple(n for _, n in self.ranges(axes, shape))
 
     def local(self, tensor: torch.Tensor, axes) -> torch.Tensor:
-        """This rank's slice (a view) of the full ``tensor`` of ``axes``."""
-        return tensor[tuple(slice(s, s + n) for s, n in
-                            self.ranges(axes, tensor.shape))]
+        """This rank's slice of the full ``tensor`` (or numpy array) of
+        ``axes``: a view, but over a paired dim a copy (``cut``)."""
+        return cut(tensor, self.spec(axes, tensor.shape), self.sizes,
+                   self.coords)
 
     def size(self, entry) -> int:
         return mesh_axes_size(self.sizes, entry_axes(entry))
@@ -508,5 +574,8 @@ def gather_whole(x: torch.Tensor, layout: Layout, spec: Spec) -> torch.Tensor:
     the optimizer's whole leaves)."""
     for dim, entry in enumerate(spec):
         if _live(layout, entry)[1] > 1:
-            x = all_gather(x.contiguous(), layout, entry, dim)
+            k = pieces_of(entry)      # a paired dim: gathered piece by piece
+            x = x.unflatten(dim, (k, x.shape[dim] // k))
+            x = all_gather(x.contiguous(), layout, entry, dim + 1)
+            x = x.flatten(dim, dim + 1)
     return x

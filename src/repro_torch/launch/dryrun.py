@@ -187,13 +187,15 @@ def step_traffic(cfg, model: T.Transformer, batch: int,
                 read = min(seq_len, cfg.sliding_window)
             kv += (min(read, rows) + 1) * kv_tok
     return {"weights": _nbytes(list(model.parameters())),
-            "kv": batch * kv, "states": batch * 2 * _state_bytes(cfg),
+            "kv": batch * kv,
+            "states": batch * 2 * _state_bytes(cfg, cache and cache.layout),
             "logits": _logit_bytes(cfg, batch) // vocab}
 
 
-def _state_bytes(cfg) -> int:
-    """One sequence's recurrent states (Mamba and RWKV layers)."""
-    one = T.init_cache(cfg, 1, 1, device="meta")
+def _state_bytes(cfg, layout: Optional[SH.Layout] = None) -> int:
+    """One sequence's recurrent states (Mamba and RWKV layers); under
+    ``layout`` one card's (its channels or heads)."""
+    one = T.init_cache(cfg, 1, 1, device="meta", mesh=layout)
     return sum(_nbytes(one[f"g{gi}"][li])
                for gi, (period, _) in enumerate(cfg.groups)
                for li, spec in enumerate(period) if spec.kind != "attn")
@@ -216,7 +218,8 @@ def prefill_traffic(cfg, model: T.Transformer, batch: int,
              for spec in cfg.layer_specs() if spec.kind == "attn")
     tokens = batch * seq_len * max(cfg.n_codebooks, 1) * 4
     return {"weights": _nbytes(list(model.parameters())),
-            "kv": batch * kv, "states": batch * _state_bytes(cfg),
+            "kv": batch * kv,
+            "states": batch * _state_bytes(cfg, model.layout),
             "logits": _logit_bytes(cfg, batch * seq_len) // vocab,
             "tokens": tokens}
 

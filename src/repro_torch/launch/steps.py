@@ -16,7 +16,7 @@ expert parallelism in the MoE layers, ZeRO-1 moments or a sharded
 Adafactor, ``micro8``, ``bf16grad``, ``fsdp`` and ``expdata``). The
 variants that only change sharding rules run only on a mesh; of them
 ``seqpar`` still raises ``NotImplementedError`` (ROADMAP A9c item 4), as
-do recurrent, cross-attention and codebook layers on a mesh.
+do cross-attention and codebook layers on a mesh (item 3).
 ``lower_cell`` has no counterpart: eager PyTorch lowers nothing; the
 cell's step runs as it is called.
 
@@ -26,8 +26,8 @@ batch is split into ``n_micro`` consecutive chunks and each chunk's rows
 are sharded over the data axes (so a card's microbatch i is not a slice of
 its own contiguous rows); each card's gradients, of its rows' mean loss,
 are accumulated in ``grad_dtype`` and averaged over the data axes (in
-``grad_dtype``); gradients that are a card's part (``layers.
-partial_leaves``) are summed over "model" in the same all-reduce; the
+``grad_dtype``); gradients that are a card's part (``transformer.
+is_partial``) are summed over "model" in the same all-reduce; the
 global norm sums each leaf's squares once (``MeshPlan.copies``); then the
 clip and ``optimizer.update`` with its ZeRO-1 slices.
 """
@@ -42,7 +42,6 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import ShapeCase
 from repro_torch.distributed import sharding as SH
-from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.training import optimizer as OPT
 
@@ -183,7 +182,7 @@ class MeshPlan:
     """The train step's plan of a model on its mesh, per parameter name:
     ``reduce``, the mesh axes its gradient is all-reduced over (the data
     axes where the leaf is not sharded over them, "model" where a card's
-    gradient is a part: ``layers.partial_leaves``); ``copies``, the cards
+    gradient is a part: ``transformer.is_partial``); ``copies``, the cards
     holding each shard of the reduced gradient (the global norm divides
     by it); ``zero``, the card's ZeRO-1 slice (``optimizer.ZeroLeaf``) or
     its sharded Adafactor leaf (``optimizer.FactorLeaf``) and
@@ -210,7 +209,6 @@ def mesh_plan(model: T.Transformer) -> MeshPlan:
     full = {n: tuple(p.shape) for n, p in
             T.Transformer(cfg, device="meta").named_parameters()}
     data = tuple(a for a in ("pod", "data") if lay.sizes.get(a, 1) > 1)
-    partial = set(L.partial_leaves(cfg, model.tp))
     reduce, copies, zero, shapes = {}, {}, {}, {}
     for name, p in model.named_parameters():
         axes, shape = T._axes_of(cfg, name), full[name]
@@ -219,7 +217,7 @@ def mesh_plan(model: T.Transformer) -> MeshPlan:
         copies[name] = math.prod(n for a, n in lay.sizes.items()
                                  if a not in used)
         red = set(data) - used
-        if ".mixer." in name and name.rsplit(".", 1)[1] in partial:
+        if T.is_partial(cfg, model.tp, name):
             red.add("model")
         reduce[name] = tuple(a for a in lay.sizes if a in red)
         if cfg.optimizer == "adafactor":

@@ -88,12 +88,21 @@ class TPPlan:
     expert_ff: Any = None
     e0: int = 0
     el: int = 0
+    inner: Any = None
+    dinl: int = 0
+    rwkv: Any = None
+    rh0: int = 0
+    rhl: int = 0
 
 
 def tp_plan(cfg: ModelConfig, layout: SH.Layout) -> TPPlan:
     """The plan of ``cfg``'s attention, MLP and MoE layers under
     ``layout``: a MoE layer's experts [e0, e0 + el) and the spec entries of
-    its experts and expert d_ff dims (``moe.MOE_AXES``)."""
+    its experts and expert d_ff dims (``moe.MOE_AXES``); a Mamba layer's
+    ``dinl`` channels a card over ``inner`` ("d_inner"); an RWKV
+    layer's heads [rh0, rh0 + rhl) over ``rwkv`` ("rwkv_heads", which
+    must cut its D-wide "d_inner" columns the same way, as must "ff" its
+    channel mix: ``ssm.py``)."""
     H, KV, Dh, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     heads = layout.spec(ATTN_AXES["wq"], (D, H, Dh))[1]
     kv = layout.spec(ATTN_AXES["wk"], (D, KV, Dh))[1]
@@ -106,9 +115,26 @@ def tp_plan(cfg: ModelConfig, layout: SH.Layout) -> TPPlan:
         ex, _, exf = layout.spec(("experts", "model_d", "expert_ff"),
                                  (E, D, cfg.moe_d_ff))
         el = E // layout.size(ex)
+    kinds = {spec.kind for spec in cfg.layer_specs()}
+    inner, dinl, rh, rhl = None, cfg.d_inner, None, cfg.rwkv_heads
+    if "mamba" in kinds:
+        inner = layout.spec(("d_inner",), (cfg.d_inner,))[0]
+        dinl = cfg.d_inner // layout.size(inner)
+    if "rwkv" in kinds:
+        rh = layout.spec(("rwkv_heads",), (cfg.rwkv_heads,))[0]
+        rhl = cfg.rwkv_heads // layout.size(rh)
+        cols = layout.spec(("d_inner",), (D,))[0]
+        if SH.entry_axes(cols) != SH.entry_axes(rh) or (
+                layout.size(rh) > 1
+                and SH.entry_axes(ff) != SH.entry_axes(rh)):
+            raise NotImplementedError(
+                f"{cfg.name}: rwkv_heads {rh}, its D columns {cols} and "
+                f"its channel mix's ff {ff} must be cut over the same axes")
     return TPPlan(layout, heads, layout.index(heads) * hl, hl, kv,
                   layout.index(kv) * kvl, kvl, ff, experts=ex,
-                  expert_ff=exf, e0=layout.index(ex) * el, el=el)
+                  expert_ff=exf, e0=layout.index(ex) * el, el=el,
+                  inner=inner, dinl=dinl,
+                  rwkv=rh, rh0=layout.index(rh) * rhl, rhl=rhl)
 
 
 def _q_kv_heads(cfg: ModelConfig, tp: TPPlan) -> tuple[int, int]:

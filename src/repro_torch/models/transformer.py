@@ -48,16 +48,20 @@ shards: each leaf is drawn whole on the card from the seed and cut to the
 slice ``param_axes`` and the rules give it, so a sharded model equals the
 unsharded one; the embedding is vocab-parallel (a masked local lookup, then
 an all-reduce), the logits stay sharded over vocab (and batch), and the
-attention and dense-MLP layers are tensor-parallel (``layers.TPPlan``).
+attention, dense-MLP, Mamba and RWKV layers are tensor-parallel
+(``layers.TPPlan``; the recurrent ones on the card's d_inner channels or
+heads, ``ssm.py``).
 ``init_cache(..., mesh=, rules=)`` gives the card's shard of a decode
 cache (``ShardedCache``, which carries its layout): by kv heads where they
 divide the model axis, else by sequence, as ``launch/steps.py::rules_for``
-decides. Inputs (tokens, lengths) are global on every card; each card takes
-its batch rows. ``gather_logits`` assembles the full logits. Serving and
-training run attention with dense or MoE MLPs this way (a MoE layer's
-experts over "model", their d_ff over "data": ``moe.py``'s expert
-parallelism); recurrent, cross-attention and codebook layers on a mesh are
-ROADMAP A9c items 2-3.
+decides; its recurrent states by ``ssm.STATE_AXES`` (Mamba's by channels,
+RWKV's ``wkv`` by heads, the token shifts whole). Inputs (tokens, lengths)
+are global on every card; each card takes its batch rows.
+``gather_logits`` assembles the full logits. Serving and training run
+attention, Mamba and RWKV layers with dense or MoE MLPs this way (a MoE
+layer's experts over "model", their d_ff over "data": ``moe.py``'s expert
+parallelism); cross-attention and codebook layers on a mesh are ROADMAP
+A9c item 3.
 
 Training on a mesh (``train_forward`` over this card's batch rows, the
 train step of ``launch/steps.py``): the collectives are differentiable
@@ -121,27 +125,37 @@ def check_trainable(cfg: ModelConfig) -> None:
 
 
 # what still waits on a mesh, by its item of ROADMAP A9c
-A9C_RECURRENT = "ROADMAP A9c item 2 (d_inner / rwkv_heads sharding)"
 A9C_MODALITY = "ROADMAP A9c item 3 (cross-attention and codebooks)"
 A9C_SEQPAR = "ROADMAP A9c item 4 (seqpar)"
 
 
 def check_shardable(cfg: ModelConfig) -> None:
-    """Raise unless the port runs ``cfg`` on a mesh: self-attention layers
-    with dense or MoE MLPs (or none) and one token stream without vision
-    inputs. Recurrent, cross-attention and codebook layers on a mesh are
-    ROADMAP A9c items 2-3."""
+    """Raise unless the port runs ``cfg`` on a mesh: self-attention, Mamba
+    and RWKV layers with dense or MoE MLPs (or none) and one token stream
+    without vision inputs. Cross-attention and codebook layers on a mesh
+    are ROADMAP A9c item 3."""
     check_supported(cfg)
     for spec in cfg.layer_specs():
-        item = (A9C_RECURRENT if spec.kind != "attn" else A9C_MODALITY
-                if spec.attn_type == "cross" else None)
-        if item:
+        if spec.kind == "attn" and spec.attn_type == "cross":
             raise NotImplementedError(
-                f"{cfg.name}: {spec.kind} {spec.attn_type or ''} "
-                f"{spec.mlp} layers on a mesh are {item}")
+                f"{cfg.name}: {spec.kind} {spec.attn_type} {spec.mlp} "
+                f"layers on a mesh are {A9C_MODALITY}")
     if cfg.n_codebooks or cfg.n_vision_tokens:
         raise NotImplementedError(f"{cfg.name}: codebook and vision models "
                                   f"on a mesh are {A9C_MODALITY}")
+
+
+def is_partial(cfg: ModelConfig, tp, name: str) -> bool:
+    """True when a card's gradient of parameter ``name`` is its part, to be
+    summed over "model" (``layers.partial_leaves``,
+    ``ssm.partial_leaves``)."""
+    parts = name.split(".")
+    if len(parts) != 4 or parts[2] != "mixer":
+        return False
+    kind = cfg.groups[int(parts[0][1:])][0][int(parts[1])].kind
+    if kind == "attn":
+        return parts[3] in L.partial_leaves(cfg, tp)
+    return kind == "rwkv" and parts[3] in SSM.partial_leaves(tp)
 
 
 def _axes_of(cfg: ModelConfig, name: str) -> tuple:
@@ -460,8 +474,11 @@ class Transformer(nn.Module):
         the counts of ``sharding.collectives()`` are held to): the
         embedding's all-reduce; per attention layer the all-reduce after
         ``wo``, and over a sequence-sharded cache the all-gathers of the
-        query heads and of the decode partials; per dense MLP the
-        all-reduce after ``w_down``; per MoE layer its ``moe.EPPlan``'s.
+        query heads and of the decode partials; per Mamba layer the
+        all-reduces after ``x_proj`` and ``out_proj``; per RWKV layer the
+        all-reduce after ``wo``, and its channel mix's reduce-scatter of v
+        and all-gather of r * v; per dense MLP the all-reduce after
+        ``w_down``; per MoE layer its ``moe.EPPlan``'s.
         A dim sharded over axes of size 1 is no collective;
         ``gather_logits`` is not part of a step."""
         if self.tp is None:
@@ -481,10 +498,18 @@ class Transformer(nn.Module):
             moe = MOE.ep_plan(self.cfg, tp, lay.spec(("batch",), (batch,))[0],
                               batch * seq).collectives()
         for spec in self.cfg.layer_specs():
-            n["all-reduce"] += live(tp.heads) + (spec.mlp == "dense"
-                                                 and live(tp.ff))
-            if cache is not None and live(tp.seq):
-                n["all-gather"] += 1 + live(tp.heads)
+            if spec.kind == "attn":
+                n["all-reduce"] += live(tp.heads)
+                if cache is not None and live(tp.seq):
+                    n["all-gather"] += 1 + live(tp.heads)
+            elif spec.kind == "mamba":
+                n["all-reduce"] += 2 * live(tp.inner)
+            else:
+                r = int(live(tp.rwkv))
+                n["all-reduce"] += r
+                n["all-gather"] += r
+                n["reduce-scatter"] = n.get("reduce-scatter", 0) + r
+            n["all-reduce"] += spec.mlp == "dense" and live(tp.ff)
             if spec.mlp == "moe":
                 for k, v in moe.items():
                     n[k] = n.get(k, 0) + v
@@ -528,20 +553,24 @@ class Transformer(nn.Module):
                                                   append=append, impl=impl,
                                                   tp=tp)
         else:
+            width = None if tp is None else (
+                tp.dinl if spec.kind == "mamba" else tp.rhl)
             st = cache if cache is not None else SSM.init_state(
-                cfg, spec, x.shape[0], x.dtype, x.device)
+                cfg, spec, x.shape[0], x.dtype, x.device, width=width)
             # decode: the scan writes the new state into the cache slot
             in_place = cache is not None
             if spec.kind == "mamba":
                 mix_out, new = SSM.mamba_forward(
-                    cfg, p["mixer"], h_in, st, impl=impl, in_place=in_place)
+                    cfg, p["mixer"], h_in, st, impl=impl, in_place=in_place,
+                    tp=tp)
             else:      # rwkv: time mix, then channel mix, no mlp
                 mix_out, new = SSM.rwkv_time_mix(
-                    cfg, p["mixer"], h_in, st, impl=impl, in_place=in_place)
+                    cfg, p["mixer"], h_in, st, impl=impl, in_place=in_place,
+                    tp=tp)
                 x = x + mix_out
                 h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
                 cm_out, cm_new = SSM.rwkv_channel_mix(cfg, p["mixer"], h2,
-                                                      st)
+                                                      st, tp=tp)
                 return x + cm_out, {**new, **cm_new}, None
         if cfg.use_post_norms:
             mix_out = L.rms_norm(mix_out, p["post_norm1"], cfg.norm_eps)
@@ -811,8 +840,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     layer's over its n_vision_tokens positions, filled by ``cache_insert``
     from a prefill), recurrent states as ``ssm.init_state``. With ``mesh``
     (as ``Transformer``'s) and ``rules`` (``launch/steps.py::rules_for``'s
-    decode policy), this card's shard of every leaf by ``cache_axes``, as a
-    ``ShardedCache``."""
+    decode policy), this card's shard of every leaf by ``cache_axes`` (a
+    recurrent state's: its batch rows, and Mamba's channels or RWKV's
+    heads where they are sharded), as a ``ShardedCache``."""
     check_supported(cfg)
     dev = resolve_device(device)
     cdt = getattr(torch, cfg.dtype)
@@ -821,15 +851,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
         check_shardable(cfg)
 
     def layer(spec, rep):
-        if spec.kind == "attn" and layout is not None:
+        if spec.kind != "attn":
+            return SSM.init_state(cfg, spec, batch, cdt, dev, lead=(rep,),
+                                  layout=layout)
+        if layout is not None:
             shape = (rep, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
             local = layout.local_shape(("layers",) + L.CACHE_AXES, shape)
             return {"k": torch.zeros(local, dtype=cdt, device=dev),
                     "v": torch.zeros(local, dtype=cdt, device=dev)}
-        if spec.kind == "attn":
-            return L.init_attention_cache(cfg, spec, rep, batch, max_seq,
-                                          cdt, dev)
-        return SSM.init_state(cfg, spec, batch, cdt, dev, lead=(rep,))
+        return L.init_attention_cache(cfg, spec, rep, batch, max_seq, cdt,
+                                      dev)
 
     tree = {f"g{gi}": tuple({"mixer": layer(spec, rep)} for spec in period)
             for gi, (period, rep) in enumerate(cfg.groups)}
@@ -848,7 +879,8 @@ def cache_insert(cfg: ModelConfig, cache: dict, prefill_cache: dict,
 
     A ``ShardedCache`` takes its part: the slot where this card holds it,
     the positions of its rows, and its kv heads (the prefill cache holds
-    ``wk``'s: this card's, or all of them)."""
+    ``wk``'s: this card's, or all of them); a recurrent state's channels
+    or heads alike (the prefill's: this card's, or all of them)."""
     if isinstance(cache, ShardedCache):
         return _insert_shard(cfg, cache, prefill_cache, slot, length)
     for gi, (period, _) in enumerate(cfg.groups):
@@ -865,8 +897,8 @@ def cache_insert(cfg: ModelConfig, cache: dict, prefill_cache: dict,
 
 def _insert_shard(cfg: ModelConfig, cache: "ShardedCache",
                   prefill_cache: dict, slot: int, length: int) -> dict:
-    """``cache_insert`` into this card's shard (self-attention layers
-    only: ``check_shardable``)."""
+    """``cache_insert`` into this card's shard (self-attention and
+    recurrent layers: ``check_shardable``)."""
     lay = cache.layout
     _, (b0, bl), (s0, sl), (k0, kl), _ = lay.ranges(
         ("layers",) + L.CACHE_AXES, (1, cache.batch, cache.max_seq,
@@ -875,11 +907,17 @@ def _insert_shard(cfg: ModelConfig, cache: "ShardedCache",
         return cache                  # another card holds the slot
     hi = min(length, s0 + sl)
     for gi, (period, _) in enumerate(cfg.groups):
-        for li in range(len(period)):
+        for li, spec in enumerate(period):
             dst = cache[f"g{gi}"][li]["mixer"]
             src = prefill_cache[f"g{gi}"][li]["mixer"]
             for name, d in dst.items():
                 x = src[name][:, 0]
+                if spec.kind != "attn":   # the card's channels or heads
+                    if x.shape != d[:, 0].shape:
+                        x = lay.local(x[:, None], ("layers",)
+                                      + SSM.STATE_AXES[spec.kind][name])[:, 0]
+                    d[:, slot - b0] = x.to(d.dtype)
+                    continue
                 if x.shape[-2] != kl:         # all kv heads: take ours
                     x = x[..., k0:k0 + kl, :]
                 if hi > s0:
@@ -923,8 +961,7 @@ def from_jax_params(cfg: ModelConfig, params, *, device="cuda", mesh=None,
         if arr.dtype.name == "bfloat16":      # numpy has no bf16 for torch
             arr = arr.astype(np.float32)
         if model.layout is not None:
-            arr = arr[tuple(slice(s, s + n) for s, n in model.layout.ranges(
-                _axes_of(cfg, name), arr.shape))]
+            arr = model.layout.local(arr, _axes_of(cfg, name))
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
         p.data.copy_(torch.from_numpy(np.ascontiguousarray(arr)).to(p.dtype))
@@ -1019,7 +1056,14 @@ def train_collectives(model: Transformer, batch: Optional[int] = None,
     d_ff sharded, the output's all-reduce (again in the recompute under
     remat, except a period's last MLP without a post norm: the
     checkpoint's recompute stops after the last saved tensor) and the
-    input gradient's; per MoE layer its ``moe.EPPlan``'s forward, backward
+    input gradient's; per Mamba layer with its channels sharded, the
+    all-reduces after ``x_proj`` and ``out_proj`` (both recomputed: an MLP
+    follows) and the gradients' of its input and of (dt_low, B, C); per
+    RWKV layer with its heads sharded, ``wo``'s all-reduce, the gradients'
+    of the time and channel mixes' inputs, the channel mix's
+    reduce-scatter (recomputed; its backward an all-gather) and its
+    all-gather of r * v (not recomputed in a period's last layer); per MoE
+    layer its ``moe.EPPlan``'s forward, backward
     and recompute (the same stop after its combine), for a microbatch of
     ``batch`` global rows of ``seq`` tokens (a MoE config needs both);
     under ``fsdp`` an all-gather of every sharded leaf at each use (the
@@ -1050,7 +1094,14 @@ def train_collectives(model: Transformer, batch: Optional[int] = None,
         for li, spec in enumerate(period):
             last = li == len(period) - 1
             tail = not (cfg.remat and last and not cfg.use_post_norms)
-            n["all-reduce"] += rep * (runs + 1) * live(tp.heads)
+            if spec.kind == "attn":
+                n["all-reduce"] += rep * (runs + 1) * live(tp.heads)
+            elif spec.kind == "mamba" and live(tp.inner):
+                n["all-reduce"] += rep * (2 * runs + 2)
+            elif spec.kind == "rwkv" and live(tp.rwkv):
+                n["all-reduce"] += rep * (runs + 2)
+                n["reduce-scatter"] += rep * runs
+                n["all-gather"] += rep * (runs - (cfg.remat and last) + 1)
             if spec.mlp == "dense" and live(tp.ff):
                 recomputed = runs - (not tail)
                 n["all-reduce"] += rep * (recomputed + 1)

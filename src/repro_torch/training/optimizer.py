@@ -36,7 +36,9 @@ last dim), the column mean (over the second-last), the row normaliser
 ``vr.mean(-1)`` and the update's RMS over the whole stacked leaf. The
 factored moments are small: a card gathers what its parameter shard needs
 where its slice is smaller (``FactorLeaf.take``) and keeps its own slice of
-the result. ``state_to_tree`` / ``state_from_tree`` with ``specs`` and
+the result. A leaf is worked through in pieces of whole rows
+(``FACTOR_CHUNK`` elements), so the update makes no fp32 temporary of a
+whole leaf. ``state_to_tree`` / ``state_from_tree`` with ``specs`` and
 ``layout`` give and take whole leaves of either optimizer.
 """
 from __future__ import annotations
@@ -175,35 +177,85 @@ def _adafactor_update(p, g, st, lr, decay):
     p.copy_(p.float() - lr * upd)
 
 
+# elements of a leaf that the sharded Adafactor holds in fp32 temporaries at
+# a time (128 MB of each)
+FACTOR_CHUNK = 1 << 25
+
+
+def _chunks(P: int, R: int, C: int):
+    """(slice over P, slice over R) pieces of a (P, R, C) view of at most
+    ``FACTOR_CHUNK`` elements each (at least one row of C)."""
+    if R * C <= FACTOR_CHUNK:
+        step = max(1, FACTOR_CHUNK // (R * C))
+        for i in range(0, P, step):
+            yield slice(i, min(P, i + step)), slice(None)
+        return
+    step = max(1, FACTOR_CHUNK // C)
+    for i in range(P):
+        for j in range(0, R, step):
+            yield slice(i, i + 1), slice(j, min(R, j + step))
+
+
 def _adafactor_sharded(p, g, st, lr, decay, f: FactorLeaf):
     """``_adafactor_update`` of this card's shard ``p`` (the module
     docstring's mesh form): each statistic summed over the shard and
-    all-reduced over the axes of its dim."""
+    all-reduced over the axes of its dim. A leaf of two or more dims is
+    worked through in pieces of whole rows (``FACTOR_CHUNK`` elements), so
+    no fp32 temporary of the whole leaf is made: the row and column sums
+    of g² piece by piece, the update's sum of squares piece by piece (the
+    update from g, the row factor and the column factor, never the whole
+    denominator), then the clipped update recomputed and applied piece by
+    piece. The gradient is read, never written."""
     lay, n, spec = f.layout, f.shape, f.pspec
-    gf = g.float()
-    g2 = gf * gf + 1e-30
-    if p.dim() >= 2:
-        r = SH.all_reduce(g2.sum(dim=-1), lay, spec[-1]) / n[-1]
-        c = SH.all_reduce(g2.sum(dim=-2), lay, spec[-2]) / n[-2]
-        vr = decay * f.take("vr", st["vr"]) + (1 - decay) * r
-        vc = decay * f.take("vc", st["vc"]) + (1 - decay) * c
-        f.put("vr", st["vr"], vr)
-        f.put("vc", st["vc"], vc)
-        row = SH.all_reduce(vr.sum(dim=-1, keepdim=True), lay,
-                            spec[-2]) / n[-2]
-        denom = (vr / torch.clamp(row, min=1e-30))[..., None] \
-            * vc[..., None, :]
-        upd = gf * torch.rsqrt(torch.clamp(denom, min=1e-30))
-    else:
-        v = decay * f.take("v", st["v"]) + (1 - decay) * g2
-        f.put("v", st["v"], v)
-        upd = gf * torch.rsqrt(torch.clamp(v, min=1e-30))
     used = {a for e in spec for a in SH.entry_axes(e)}
     axes = tuple(a for a in lay.sizes if a in used)       # mesh order
-    ssq = SH.all_reduce(torch.sum(upd * upd).reshape(1), lay, axes)
-    rms = torch.sqrt(ssq[0] / math.prod(n) + 1e-30)
-    upd = upd / torch.clamp(rms, min=1.0)
-    p.copy_(p.float() - lr * upd)
+    if p.dim() < 2:
+        gf = g.float()
+        v = decay * f.take("v", st["v"]) + (1 - decay) * (gf * gf + 1e-30)
+        f.put("v", st["v"], v)
+        upd = gf * torch.rsqrt(torch.clamp(v, min=1e-30))
+        ssq = SH.all_reduce(torch.sum(upd * upd).reshape(1), lay, axes)
+        rms = torch.sqrt(ssq[0] / math.prod(n) + 1e-30)
+        upd = upd / torch.clamp(rms, min=1.0)
+        p.copy_(p.float() - lr * upd)
+        return
+    R, C = p.shape[-2], p.shape[-1]
+    P = p.numel() // (R * C)
+    g3, p3 = g.reshape(P, R, C), p.view(P, R, C)
+    pieces = list(_chunks(P, R, C))
+    rows = torch.empty((P, R), dtype=torch.float32, device=p.device)
+    cols = torch.zeros((P, C), dtype=torch.float32, device=p.device)
+    for a, b in pieces:
+        gf = g3[a, b].float()
+        g2 = gf * gf + 1e-30
+        rows[a, b] = g2.sum(dim=-1)
+        cols[a] += g2.sum(dim=-2)
+        del gf, g2
+    r = SH.all_reduce(rows.view(p.shape[:-1]), lay, spec[-1]) / n[-1]
+    c = SH.all_reduce(cols.view(p.shape[:-2] + (C,)), lay, spec[-2]) / n[-2]
+    vr = decay * f.take("vr", st["vr"]) + (1 - decay) * r
+    vc = decay * f.take("vc", st["vc"]) + (1 - decay) * c
+    f.put("vr", st["vr"], vr)
+    f.put("vc", st["vc"], vc)
+    row = SH.all_reduce(vr.sum(dim=-1, keepdim=True), lay, spec[-2]) / n[-2]
+    vr3 = (vr / torch.clamp(row, min=1e-30)).reshape(P, R)
+    vc3 = vc.reshape(P, C)
+
+    def update_of(a, b):
+        denom = vr3[a, b][..., None] * vc3[a][:, None, :]
+        return g3[a, b].float() * torch.rsqrt(denom.clamp_(min=1e-30))
+
+    ssq = torch.zeros(1, dtype=torch.float32, device=p.device)
+    for a, b in pieces:
+        u = update_of(a, b)
+        ssq += torch.sum(u * u)
+        del u
+    ssq = SH.all_reduce(ssq, lay, axes)
+    clip = torch.clamp(torch.sqrt(ssq[0] / math.prod(n) + 1e-30), min=1.0)
+    for a, b in pieces:
+        u = update_of(a, b).div_(clip)
+        p3[a, b] = p3[a, b].float() - lr * u
+        del u
 
 
 @torch.no_grad()

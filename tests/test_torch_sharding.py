@@ -320,8 +320,9 @@ def test_sharded_cell_on_the_meta_device():
     step itself on the meta device (its collectives only counted, equal
     to ``train_step_collectives``); granite and kimi-k2 build (their
     experts over "model", kimi-k2's Adafactor factors sliced), Jamba and
-    the sharding variants that still wait raise naming their ROADMAP A9c
-    item."""
+    rwkv6 build (their channels, heads and states over "model"); vision
+    and the sharding variants that still wait raise naming their ROADMAP
+    A9c item."""
     lay = SH.Layout({"data": 1, "model": 4}, {"data": 0, "model": 2},
                     SH.ShardingRules())
     fn, kw, donate, rules, ins, outs = ST.build_cell(
@@ -358,7 +359,7 @@ def test_sharded_cell_on_the_meta_device():
         fn(*kw.values())
         assert SH.collectives()["calls"] == ST.train_step_collectives(
             kw["params"], 8, 8 if "micro8" in variant else 4), variant
-    # granite and kimi-k2 build (A9c item 1); Jamba's Mamba layers wait
+    # granite and kimi-k2 build (A9c item 1)
     _, kw, *_ = ST.build_cell(get_config("granite-moe-1b-a400m"),
                               SHAPES["decode_32k"], "meta", mesh=lay)
     assert kw["params"].g0[0].mlp["w_gate"].shape == (24, 8, 1024, 512)
@@ -369,8 +370,30 @@ def test_sharded_cell_on_the_meta_device():
     assert kw["params"].g1[0].mlp["w_down"].shape == (60, 192, 1024, 7168)
     assert kw["opt_state"]["fac"]["g1.0.mlp.w_down"]["vr"].shape == (
         60, 192, 1024)
-    with pytest.raises(NotImplementedError, match="A9c item 2"):
-        ST.build_cell(get_config("jamba-1.5-large-398b"),
+    # Jamba and rwkv6 build (A9c item 2): Mamba's channels and in_proj's
+    # paired columns, the states and RWKV's heads over "model"
+    _, kw, *_ = ST.build_cell(get_config("jamba-1.5-large-398b"),
+                              SHAPES["decode_32k"], "meta", mesh=lay)
+    assert kw["params"].g0[0].mixer["in_proj"].shape == (9, 8192, 8192)
+    assert kw["params"].g0[0].mixer["x_proj"].shape == (9, 4096, 544)
+    assert kw["cache"]["g0"][0]["mixer"]["h"].shape == (9, 128, 4096, 16)
+    assert kw["cache"]["g0"][0]["mixer"]["conv"].shape == (9, 128, 3, 4096)
+    _, kw, *_ = ST.build_cell(get_config("jamba-1.5-large-398b"),
+                              SHAPES["train_4k"], "meta", mesh=lay22)
+    assert kw["opt_state"]["fac"]["g0.0.mixer.in_proj"]["vc"].shape == (
+        9, 16384)
+    _, kw, *_ = ST.build_cell(get_config("rwkv6-1.6b"), SHAPES["decode_32k"],
+                              "meta", mesh=lay)
+    assert kw["params"].g0[0].mixer["wr"].shape == (24, 2048, 512)
+    assert kw["params"].g0[0].mixer["u"].shape == (24, 8, 64)
+    assert kw["params"].g0[0].mixer["wk_c"].shape == (24, 2048, 1792)
+    assert kw["cache"]["g0"][0]["mixer"]["wkv"].shape == (24, 128, 8, 64, 64)
+    assert kw["cache"]["g0"][0]["mixer"]["shift_tm"].shape == (24, 128, 2048)
+    _, kw, *_ = ST.build_cell(get_config("rwkv6-1.6b"), SHAPES["train_4k"],
+                              "meta", mesh=lay22)
+    assert kw["opt_state"]["m"]["g0.0.mixer.wr"].shape == (24, 1024, 1024)
+    with pytest.raises(NotImplementedError, match="A9c item 3"):
+        ST.build_cell(get_config("llama-3.2-vision-11b"),
                       SHAPES["decode_32k"], "meta", mesh=lay)
     _, kw, *_ = ST.build_cell(get_config("qwen2-1.5b"), SHAPES["train_4k"],
                               "meta", "expdata", mesh=lay)
