@@ -190,7 +190,14 @@ sharding rules:
                written in place, a B=1 T=1024 prefill and a B=1 T=4096
                training sequence) against their plain versions in fp32
                and bf16 (SCAN_TOL, bf16 outputs one more ulp), timed beside
-               the plain version's and their bytes bounds.
+               the plain version's and their bytes bounds; both attention
+               kernels at a card's shapes of llama-3.2-vision-11b and
+               musicgen-large beside SDPA and their bounds (`kernels tp
+               mod:`): the cross prefill (8 / 2 heads of 128, Sq 1024 over
+               Skv 1600, non-causal), the cross decode (B=8 over 1600
+               rows, G = 4) and its row-cut case (400 rows a card, every
+               head, the 4 partials merged), musicgen's 8 / 8 heads of 64
+               at prefill (causal, 1024) and decode (B=8 over 2048).
   path rec    — Mamba and RWKV-6 on the mesh (their d_inner channels and
                heads over "model"; the phases run right after kernels tp):
                prefill and 4 teacher-forced decode steps (append and
@@ -219,6 +226,26 @@ sharding rules:
                train_4k on 2x2 (batch cut by the measured peak); Jamba's
                three not fitting (~200 GB of weights a card), reckoned from
                the specs before anything is built, logged with why.
+  path mod    — cross-attention and codebook layers on the mesh (after
+               the rec phases): prefill and 4 teacher-forced decode steps
+               (append and committed) against card 0 without a mesh,
+               fp32: llama-3.2-vision-11b at full width on its first 10
+               layers (two periods: two cross layers) on 1x4 and 2x2 (the
+               kv heads cut), and at batch 1 on 1x4 (every cache, the
+               cross ones too, cut by rows over the 4 cards: the partial
+               mode and the merge), musicgen-large at full size on 1x4
+               and 2x2; PATH_TOL_FP32, argmax equal at every position and
+               codebook, launches exact, collectives as step_collectives.
+  train mod   — the gates of train tp: vision at full width on its first
+               5 layers (one cross layer) on 2x2, 4x1, 1x4 and fsdp on
+               2x2, musicgen at full width on its first 2 layers on 2x2,
+               4x1 and 1x4, fp32, two steps from count 99 against one
+               card's step; then vision at full depth (40 layers) in bf16
+               with AdamW on 2x2 (finite losses equal on every rank, first
+               cross-entropy in phase 8's band, collectives exact, peak
+               memory a card).
+  dryrun mod  — vision's and musicgen's decode_32k on 1x4 and train_4k on
+               2x2, their batches cut to what a card holds.
   train tp    — the sharded train step (launch/steps.py build_cell(mesh=))
                of qwen2-1.5b at full width on its first 2 layers, fp32, on
                meshes (2, 2), (4, 1) and (1, 4), two steps from count 99
@@ -277,7 +304,8 @@ sharding rules:
                on 2x2 (the batch cut to the routing kernel's block: one
                row a card a microbatch); kimi-k2's decode_32k and train_4k
                not fitting, reckoned from the specs.
-  profile tp  — each decode record's (granite's and rwkv6's too) H100x4
+  profile tp  — each decode record's (granite's, rwkv6's, vision's and
+               musicgen's too) H100x4
                MaxTput row beside the analytic H100x4 and H100 rows, the
                engine model's step beside the measured one.
 It ends with a {"kernels": [...]} line, the cards' names and power limits,
@@ -3070,6 +3098,25 @@ REC_NOT_FITTING = (REC_JAMBA,)
 REC_SCAN_SHAPES = (("decode", 8, 1), ("prefill", 1, 1024),
                    ("train", 1, 4096))
 REC_DIN, REC_N, REC_R, REC_H, REC_K = 4096, 16, 512, 8, 64
+# the modality (mod) phases: llama-3.2-vision-11b's cross layers and
+# musicgen-large's codebooks on the mesh. path mod: vision at full width on
+# its first 10 layers (two periods, two cross layers: 13 GB in fp32),
+# musicgen at full size (9.8 GB in fp32); then vision at batch 1 on 1x4,
+# every cache cut by rows (batch, max_seq, prompt lengths)
+MOD_VISION, MOD_MUSIC = "llama-3.2-vision-11b", "musicgen-large"
+MOD_VISION_PATH_LAYERS = 10
+MOD_PATH_B1 = (1, 4096, (3000,))
+# train mod: vision on its first 5 layers (one period, one cross layer) on
+# REC_TRAIN_CASES, musicgen on its first 2 without fsdp, fp32, against one
+# card's step
+MOD_VISION_TRAIN_LAYERS = 5
+MOD_MUSIC_TRAIN_CASES = REC_TRAIN_CASES[:3]
+# vision at full depth in bf16 on 2x2: layers, batch, seq, steps
+MOD_VISION_BF16_TRAIN = (40, 8, 4096, 2)
+MOD_RECORDS = ((MOD_VISION, "decode_32k", (1, 4)),
+               (MOD_MUSIC, "decode_32k", (1, 4)),
+               (MOD_VISION, "train_4k", (2, 2)),
+               (MOD_MUSIC, "train_4k", (2, 2)))
 
 
 def _free_port() -> int:
@@ -3297,6 +3344,7 @@ class _TPRun:
         self.dist.barrier()
         self.say(f"phase kernels tp: {time.perf_counter() - t:.1f} s")
         rec_records = self.rec_phases()
+        mod_records = self.mod_phases()
         t = time.perf_counter()
         train_err = self.train_tp()
         self.say(f"phase train tp: {time.perf_counter() - t:.1f} s")
@@ -3311,7 +3359,7 @@ class _TPRun:
         t = time.perf_counter()
         records = self.dryrun_tp()
         self.say(f"phase dryrun tp: {time.perf_counter() - t:.1f} s")
-        records += self.ep_phases() + rec_records
+        records += self.ep_phases() + rec_records + mod_records
         if self.rank != 0:
             return {}
         self.profile_tp(records)
@@ -3435,7 +3483,156 @@ class _TPRun:
                                  f"{(n_calls, n_merges)}")
         self.say("kernels tp: " + json.dumps(errs))
         self.free()
-        return self.kernel_rows(errs) + self.scan_rows()
+        rows = self.kernel_rows(errs)
+        mod = self.mod_kernel_shapes()
+        for row in rows:
+            if row["name"] in mod:
+                row["mod_shapes"] = mod[row["name"]]
+                row["max_abs_err"] = max(row["max_abs_err"], max(
+                    v["max_abs_err"] for v in mod[row["name"]].values()))
+        return rows + self.scan_rows()
+
+    def mod_kernel_shapes(self) -> dict:
+        """Both attention kernels at a card's shapes of vision and musicgen
+        on 1x4 (bf16), each against its plain version within bf16's 2e-2
+        and timed beside it, SDPA on the same inputs (kv heads repeated to
+        the query heads) and the bound of the larger of its bytes (each
+        input read and the output written once) and its operations:
+        {row name: {shape: numbers}}."""
+        torch, da = self.torch, self.da
+        from repro_torch.kernels import ops, ref
+        bf16, tol = torch.bfloat16, TOL["bfloat16"]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        out = {"flash_attention": {}, "decode_attention": {},
+               "decode_attention.merge": {}}
+
+        def bound(flops, nbytes):
+            b = {"operations": flops / PEAK_BF16_FLOPS * 1e3,
+                 "bytes": nbytes / PEAK_BYTES * 1e3}
+            return {"bound_ms": max(b.values()),
+                    "bound_by": max(b, key=b.get), "flops": flops,
+                    "bytes": nbytes}
+
+        def library(q, k, v, causal):
+            """SDPA's (B, H, S, Dh) operands of (B, S, H, Dh) ones, or of
+            decode's (B, H, Dh) q over a (B, S, KVH, Dh) cache."""
+            G = q.shape[-2] // k.shape[-2]
+            q = q[:, :, None] if q.dim() == 3 else q.transpose(1, 2)
+            return (q, k.repeat_interleave(G, 2).transpose(1, 2).contiguous(),
+                    v.repeat_interleave(G, 2).transpose(1, 2).contiguous(),
+                    causal)
+
+        def check(name, what, got, want):
+            e = self.err(got, want)
+            if not e <= tol:
+                raise AssertionError(f"kernels tp mod {what}: {e}")
+            return e
+
+        prefills = (("vision cross", 1024, 1600, 8, 2, 128, False),
+                    ("musicgen", 1024, 1024, 8, 8, 64, True))
+        for what, Sq, Skv, H, KVH, Dh, causal in prefills:
+            sets = [(self.rnd((1, Sq, H, Dh), bf16),
+                     self.rnd((1, Skv, KVH, Dh), bf16),
+                     self.rnd((1, Skv, KVH, Dh), bf16)) for _ in range(4)]
+
+            def flash(q, k, v, impl="cuda"):
+                return ops.flash_attention(q, k, v, causal=causal,
+                                           impl=impl)
+
+            e = check("flash_attention", what, flash(*sets[0]),
+                      flash(*sets[0], impl="plain"))
+            pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+            lib = [library(*a, causal) for a in sets]
+            out["flash_attention"][
+                f"{what} prefill: B=1 Sq={Sq} Skv={Skv} H={H} KVH={KVH} "
+                f"Dh={Dh} bf16 {'causal' if causal else 'non-causal'}"] = {
+                "max_abs_err": e, "ms": self.device_ms(flash, sets),
+                "plain_ms": self.time_ms(lambda *a: flash(*a, impl="plain"),
+                                         sets, iters=5),
+                "library_ms": self.time_ms(lambda a, b, c, d: sdpa(
+                    a, b, c, is_causal=d), lib),
+                **bound(4 * H * Dh * pairs,
+                        2 * (2 * Sq * H * Dh + 2 * Skv * KVH * Dh))}
+            del sets, lib
+        decodes = (("vision cross", 8, 1600, 8, 2, 128),
+                   ("musicgen", 8, 2048, 8, 8, 64))
+        for what, Bd, S, H, KVH, Dh in decodes:
+            sets = [(self.rnd((Bd, H, Dh), bf16),
+                     self.rnd((Bd, S, KVH, Dh), bf16),
+                     self.rnd((Bd, S, KVH, Dh), bf16),
+                     torch.full((Bd,), S, device=self.dev))
+                    for _ in range(2)]
+
+            def decode(q, k, v, ln, impl="cuda"):
+                return ops.decode_attention(q, k, v, ln, impl=impl)
+
+            e = check("decode_attention", what, decode(*sets[0]),
+                      decode(*sets[0], impl="plain"))
+            lib = [library(q, k, v, False) for q, k, v, _ in sets]
+            out["decode_attention"][
+                f"{what} decode: B={Bd} S={S} (every row) H={H} KVH={KVH} "
+                f"Dh={Dh} bf16"] = {
+                "max_abs_err": e, "ms": self.device_ms(decode, sets),
+                "plain_ms": self.time_ms(lambda *a: decode(*a, impl="plain"),
+                                         sets, iters=5),
+                "library_ms": self.time_ms(lambda a, b, c, d: sdpa(
+                    a, b, c, is_causal=d), lib),
+                **bound(4 * Bd * S * H * Dh,
+                        2 * Bd * S * KVH * Dh * 2 + 2 * Bd * H * Dh * 2
+                        + Bd * 8)}
+            del sets, lib
+        # the row-cut cross cache: every one of the 32 query heads over a
+        # card's 400 of the 1600 rows, all 8 kv heads, the 4 partials merged
+        Bd, Nv, H, KVH, Dh, R = 8, 1600, 32, 8, 128, self.n
+        Sl = Nv // R
+        q = self.rnd((Bd, H, Dh), bf16)
+        kc, vc = self.rnd((Bd, Nv, KVH, Dh), bf16), \
+            self.rnd((Bd, Nv, KVH, Dh), bf16)
+        ln = torch.full((Bd,), Nv, device=self.dev)
+        sets = [(q, kc[:, r * Sl:(r + 1) * Sl].contiguous(),
+                 vc[:, r * Sl:(r + 1) * Sl].contiguous(), r * Sl)
+                for r in range(R)]
+
+        def partial(q, k, v, start, impl="cuda"):
+            return ops.decode_attention(q, k, v, ln, start=start,
+                                        partial=True, impl=impl)
+
+        parts = torch.stack([partial(*a) for a in sets])
+        merged = da.merge(parts, bf16)
+        e = max(check("decode_attention", "row-cut merge vs one call",
+                      merged, da.decode_attention(q, kc, vc, ln)),
+                check("decode_attention", "row-cut merge vs plain", merged,
+                      ops.decode_attention(q, kc, vc, ln, impl="plain")))
+        lib = [library(q, k, v, False) for q, k, v, _ in sets[:1]]
+        out["decode_attention"][
+            f"vision cross decode, rows cut: B={Bd} {Sl} of {Nv} rows a "
+            f"card (start {Sl}) H={H} KVH={KVH} Dh={Dh} bf16 partial"] = {
+            "max_abs_err": e, "ms": self.device_ms(partial, sets[1:2]),
+            "plain_ms": self.time_ms(lambda *a: partial(*a, impl="plain"),
+                                     sets[1:2], iters=5),
+            "library_ms": self.time_ms(lambda a, b, c, d: sdpa(
+                a, b, c, is_causal=d), lib),
+            "library": "SDPA over the card's rows, normalised (no "
+                       "partials)",
+            **bound(4 * Bd * Sl * H * Dh,
+                    2 * Bd * Sl * KVH * Dh * 2 + Bd * H * Dh * 2 + Bd * 8
+                    + Bd * H * (Dh + 2) * 4)}
+        pset = [(parts,)]
+        out["decode_attention.merge"][
+            f"vision cross decode, rows cut: R={R} partials (R, B={Bd}, "
+            f"H={H}, Dh+2) fp32 -> bf16"] = {
+            "max_abs_err": check("decode_attention.merge", "merge vs its "
+                                 "plain version", merged,
+                                 ref.decode_merge(parts, bf16)),
+            "ms": self.device_ms(lambda p: da.merge(p, bf16), pset),
+            "plain_ms": self.time_ms(lambda p: ref.decode_merge(p, bf16),
+                                     pset),
+            "library_ms": None,
+            **bound(0, R * Bd * H * (Dh + 2) * 4 + Bd * H * Dh * 2)}
+        del q, kc, vc, sets, parts, merged, lib, pset
+        self.free()
+        self.say("kernels tp mod: " + json.dumps(out))
+        return out
 
     def kernel_rows(self, errs) -> list:
         """The kernels line's rows at the four-card shapes: the decode
@@ -3734,11 +3931,14 @@ class _TPRun:
                 self._path_gate(cfg, (1, self.n), B, max_seq, lens,
                                 "path tp", gate=dtype == "float32")
 
-    def _path_run(self, cfg, model, tokens, steps, lens, max_seq):
-        """The last prefill rows of every prompt and each decode step's
-        logits, append and committed (gathered on a mesh), on card 0's
-        device for the comparison. On a mesh every prefill and decode step
-        makes the collectives of ``Transformer.step_collectives``."""
+    def _path_run(self, cfg, model, tokens, steps, lens, max_seq,
+                  vision=None):
+        """The last prefill rows of every prompt (with its vision
+        embeddings, ``vision`` (B, Nv, D) on the device, for a vision
+        config) and each decode step's logits, append and committed
+        (gathered on a mesh), on card 0's device for the comparison. On a
+        mesh every prefill and decode step makes the collectives of
+        ``Transformer.step_collectives``."""
         torch = self.torch
         from repro_torch.distributed import sharding as SH
         from repro_torch.models import transformer as T
@@ -3756,8 +3956,9 @@ class _TPRun:
 
         for b, L in enumerate(lens):
             SH.reset_collectives()
-            logits, pf = model.prefill(torch.from_numpy(
-                tokens[b:b + 1, :L]).to(self.dev))
+            logits, pf = model.prefill(
+                torch.from_numpy(tokens[b:b + 1, :L]).to(self.dev),
+                vision_embeds=None if vision is None else vision[b:b + 1])
             collectives(f"prefill {b}", lambda: model.step_collectives(
                 batch=1, seq=L))
             rows = model.gather_logits(logits[:, -TP_PREFILL_ROWS:], 1)
@@ -4030,7 +4231,6 @@ class _TPRun:
         from repro_torch.distributed import sharding as SH
         from repro_torch.launch import steps as ST
         from repro_torch.models import transformer as T
-        from repro_torch.training.data import DataConfig, SyntheticDataset
         case = ShapeCase("train tp", "train", seq, batch)
         one = "+".join(sorted(ST.variant_tokens(variant)
                               - set(ST.SHARDING_VARIANTS))) or "baseline"
@@ -4042,13 +4242,10 @@ class _TPRun:
                            out[3] if sharded else None)
         st = ST.init_opt_state(model)
         st["count"] = torch.tensor(99, dtype=torch.int32, device=self.dev)
-        data = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size,
-                                           seq_len=seq, global_batch=batch))
         metrics, calls = [], []
         self.zero()
         for i in range(TP_TRAIN_STEPS):
-            b = {k: torch.from_numpy(v).to(self.dev)
-                 for k, v in data.batch(i).items()}
+            b = self.train_batch(cfg, batch, seq, i)
             SH.reset_collectives()
             st, m = fn(model, st, b)
             metrics.append({k: float(v) for k, v in m.items()})
@@ -4276,19 +4473,30 @@ class _TPRun:
         rules = ST.rules_for(cfg, ShapeCase("path", "decode", max_seq, B),
                              mesh)
         rng = np.random.default_rng(0)
-        tokens = rng.integers(0, cfg.vocab_size, size=(B, max(lens)))
-        steps = rng.integers(0, cfg.vocab_size, size=(TP_PATH_STEPS, B))
+        C = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+        tokens = rng.integers(0, cfg.vocab_size, size=(B, max(lens)) + C)
+        steps = rng.integers(0, cfg.vocab_size, size=(TP_PATH_STEPS, B) + C)
+        vision = None
+        if cfg.n_vision_tokens:
+            vision = torch.from_numpy(rng.standard_normal(
+                (B, cfg.n_vision_tokens, cfg.d_model)).astype(
+                    np.float32)).to(self.dev)
         t0 = time.perf_counter()
         model = self.build(cfg, mesh, rules)
         self.zero()
         with self.routes() as mesh_ids:
             mesh_out = self._path_run(cfg, model, tokens, steps, lens,
-                                      max_seq)
+                                      max_seq, vision)
         what = (f"{cfg.name} {cfg.n_layers} layers {shape[0]}x{shape[1]} "
                 f"B={B} max_seq={max_seq} {cfg.dtype} {label}")
-        _, _, seq, kv, _ = T.init_cache(cfg, B, max_seq, device="meta",
-                                        mesh=model.layout).spec(cfg)
+        meta = T.init_cache(cfg, B, max_seq, device="meta",
+                            mesh=model.layout)
+        _, _, seq, kv, _ = meta.spec(cfg)
         sharded = model.layout.size(seq) > 1
+        if cfg.n_vision_tokens and sharded != (
+                model.layout.size(meta.spec(cfg, cross=True)[2]) > 1):
+            raise AssertionError(f"{cfg.name}: the launch count takes the "
+                                 "cross caches cut as the self caches")
         model_kv = model.layout.size(kv)
         states = model.layout.size(model.tp.inner or model.tp.rwkv)
         self.expect(what, cfg, B, 2 * TP_PATH_STEPS, sharded)
@@ -4299,7 +4507,7 @@ class _TPRun:
             flips = []
             with self.routes() as one_ids, self.follow(mesh_ids, flips):
                 ref_out = self._path_run(cfg, one, tokens, steps, lens,
-                                         max_seq)
+                                         max_seq, vision)
             del one
             self.free()
             diffs = {k: self.err(mesh_out[k], ref_out[k]) for k in ref_out}
@@ -4316,6 +4524,11 @@ class _TPRun:
                     "prompt_lens": list(lens),
                     "cache": ("by sequence" if sharded else "by kv heads"
                               if model_kv > 1 else "replicated"),
+                    "cross_cache_rows_a_card": (
+                        meta.layout.local_shape(
+                            ("layers",) + T.L.CACHE_AXES,
+                            meta.leaf_shape(cfg, cross=True))[2]
+                        if cfg.n_vision_tokens else None),
                     "recurrent_states_over_cards": states,
                     "max_abs_diff": worst,
                     "diffs": diffs, "argmax_equal": argmax,
@@ -4452,9 +4665,30 @@ class _TPRun:
                              label="ep")
         self._train_bf16(EP_KIMI, EP_KIMI_TRAIN, "ep")
 
+    def train_batch(self, cfg, batch, seq, step) -> dict:
+        """Step ``step``'s global batch on the card, the same on every
+        rank: tokens and labels (with codebooks (batch, seq, C)) and, for a
+        vision config, its vision embeddings (as ``train_loop.train``
+        draws them)."""
+        torch = self.torch
+        from repro_torch.training.data import DataConfig, SyntheticDataset
+        from repro_torch.training.train_loop import (TrainConfig,
+                                                     vision_embeddings)
+        data = SyntheticDataset(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+            n_codebooks=cfg.n_codebooks))
+        out = {k: torch.from_numpy(v).to(self.dev)
+               for k, v in data.batch(step).items()}
+        if cfg.n_vision_tokens:
+            out["vision_embeds"] = vision_embeddings(
+                cfg, TrainConfig(global_batch=batch, seq_len=seq), step,
+                self.dev)
+        return out
+
     def _train_bf16(self, arch, spec, label) -> None:
         """``arch`` at full width on its first ``spec[0]`` layers, bf16,
-        Adafactor, on mesh 2x2 (kimi-k2's, Jamba's): two steps of ``spec``'s
+        its optimizer, on mesh 2x2 (kimi-k2's, Jamba's, vision's): two
+        steps of ``spec``'s
         batch and seq, losses finite and equal on every card, the first
         cross-entropy in phase 8's band, collectives equal to the formula,
         launches exact; each card's peak memory."""
@@ -4463,7 +4697,6 @@ class _TPRun:
         from repro_torch.configs.shapes import ShapeCase
         from repro_torch.distributed import sharding as SH
         from repro_torch.launch import steps as ST
-        from repro_torch.training.data import DataConfig, SyntheticDataset
         layers, batch, seq, steps = spec
         cfg = cut(get_config(arch), layers)
         mesh = self.mesh_of((2, 2))
@@ -4473,14 +4706,11 @@ class _TPRun:
             mesh=mesh)
         model = self.build(cfg, mesh, rules)
         st = ST.init_opt_state(model)
-        data = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size,
-                                           seq_len=seq, global_batch=batch))
         self.zero()
         losses, ces, calls = [], [], []
         torch.cuda.reset_peak_memory_stats(self.dev)
         for i in range(steps):
-            b = {k: torch.from_numpy(v).to(self.dev)
-                 for k, v in data.batch(i).items()}
+            b = self.train_batch(cfg, batch, seq, i)
             SH.reset_collectives()
             torch.cuda.synchronize()
             t1 = time.perf_counter()
@@ -4491,7 +4721,8 @@ class _TPRun:
                           (time.perf_counter() - t1) * 1e3))
         nm = 4 if batch % 4 == 0 and batch >= 4 else 1
         formula = ST.train_step_collectives(model, batch, nm, seq)
-        what = f"{cfg.name} {layers} layers 2x2 bf16 adafactor train {label}"
+        what = (f"{cfg.name} {layers} layers 2x2 bf16 {cfg.optimizer} train "
+                f"{label}")
         self.expect_train(what, cfg, nm, steps, seq)
         every = self.all(losses)
         center = math.log(cfg.vocab_size) + 0.5 * 0.02 ** 2 * cfg.d_model
@@ -4521,10 +4752,12 @@ class _TPRun:
         not fitting, reckoned from the specs before anything is built."""
         return self._mesh_records(EP_RECORDS, EP_NOT_FITTING, "ep")
 
-    def _mesh_records(self, cells, not_fitting, label) -> list:
+    def _mesh_records(self, cells, not_fitting, label,
+                      decode_cut=False) -> list:
         """The records of ``cells`` ((arch, shape, mesh shape)): ok, 4
         devices, collectives equal to the formula, launches exact, a decode
-        batch uncut, finite train losses; the archs of ``not_fitting``
+        batch uncut (with ``decode_cut``, cut to what a card holds, and
+        logged), finite train losses; the archs of ``not_fitting``
         not fitting, reckoned before anything is built, logged with why.
         Returns the decode records for profile tp."""
         from repro_torch.configs import get_config
@@ -4552,7 +4785,7 @@ class _TPRun:
                     raise AssertionError(f"dryrun {label} {arch} {shape}: "
                                          f"{rec}")
                 if rec["kind"] == "decode":
-                    if "global_batch" in rec["reduced"]:
+                    if ("global_batch" in rec["reduced"]) != decode_cut:
                         raise AssertionError(f"dryrun {label} {arch} "
                                              f"{shape}: batch cut "
                                              f"{rec['reduced']}")
@@ -4569,6 +4802,11 @@ class _TPRun:
                     self.expect_train(f"{arch} dry-run {shape} {label}", cfg,
                                       rec["n_micro"], steps, rec["seq_len"])
             self.say(f"dryrun {label}: {json.dumps(rec)}")
+            if "global_batch" in rec["reduced"]:
+                self.say(f"dryrun {label} batch: {arch} {shape} on "
+                         f"{rec['mesh']} holds {rec['global_batch']} of "
+                         f"{rec['reduced']['global_batch'][0]} sequences: "
+                         f"{rec['reduced_why']['global_batch']}")
             if "not_fitting" in rec:
                 self.say(f"dryrun {label} not fitting: {arch} {shape} on "
                          f"{rec['mesh']}: {rec['not_fitting']}")
@@ -4638,6 +4876,53 @@ class _TPRun:
             self._train_gate(jamba, self.mesh_of(shape), shape, variant,
                              label="rec", batch=REC_JAMBA_TRAIN_BATCH)
         self._train_bf16(REC_JAMBA, REC_JAMBA_BF16_TRAIN, "rec")
+
+    # -- cross-attention and codebooks on the mesh (the mod phases) --------
+    def mod_phases(self) -> list:
+        """path mod, train mod and dryrun mod (module docstring); returns
+        the dryrun mod decode records for profile tp."""
+        for name, phase in (("path mod", self.path_mod),
+                            ("train mod", self.train_mod)):
+            t = time.perf_counter()
+            phase()
+            self.say(f"phase {name}: {time.perf_counter() - t:.1f} s")
+            self.memory(f"after {name}")
+        t = time.perf_counter()
+        records = self._mesh_records(MOD_RECORDS, (), "mod", decode_cut=True)
+        self.say(f"phase dryrun mod: {time.perf_counter() - t:.1f} s")
+        return records
+
+    def path_mod(self) -> None:
+        """Prefill and 4 teacher-forced decode steps (append and committed)
+        against card 0 without a mesh, fp32: vision on its first 10 layers
+        and musicgen at full size on meshes 1x4 and 2x2, vision at batch 1
+        on 1x4 (every cache cut by rows); PATH_TOL_FP32, argmax equal,
+        launches exact, collectives as ``step_collectives``."""
+        from repro_torch.configs import get_config
+        vision = dataclasses.replace(
+            cut(get_config(MOD_VISION), MOD_VISION_PATH_LAYERS),
+            dtype="float32", param_dtype="float32")
+        music = dataclasses.replace(get_config(MOD_MUSIC), dtype="float32",
+                                    param_dtype="float32")
+        for cfg in (vision, music):
+            for shape in REC_PATH_MESHES:
+                self._path_gate(cfg, shape, *REC_PATH, "path mod")
+        self._path_gate(vision, (1, self.n), *MOD_PATH_B1, "path mod")
+
+    def train_mod(self) -> None:
+        """The gates of train tp for vision's first 5 layers and musicgen's
+        first 2 (fp32, AdamW) against one card's step; then vision at full
+        depth in bf16 on 2x2 with its peak memory a card."""
+        from repro_torch.configs import get_config
+        for arch, layers, cases in (
+                (MOD_VISION, MOD_VISION_TRAIN_LAYERS, REC_TRAIN_CASES),
+                (MOD_MUSIC, TP_TRAIN_LAYERS, MOD_MUSIC_TRAIN_CASES)):
+            cfg = dataclasses.replace(cut(get_config(arch), layers),
+                                      dtype="float32", param_dtype="float32")
+            for shape, variant in cases:
+                self._train_gate(cfg, self.mesh_of(shape), shape, variant,
+                                 label="mod")
+        self._train_bf16(MOD_VISION, MOD_VISION_BF16_TRAIN, "mod")
 
     def expect_train(self, what, cfg, n_micro, steps,
                      seq=TP_TRAIN_SEQ) -> dict:

@@ -168,19 +168,23 @@ def step_traffic(cfg, model: T.Transformer, batch: int,
     """The bytes of one append-mode decode step of ``batch`` sequences at
     context ``seq_len`` (``BYTES_SOURCE``), by part. On a mesh (``cache``
     this card's ``ShardedCache``) the busiest card's: its weights, its
-    batch rows and kv heads, at most its rows of the context, its logits."""
+    batch rows and kv heads, at most its rows of the context (a cross
+    layer's: its rows of the vision tokens), its logits."""
     kvh, rows, vocab = cfg.n_kv_heads, seq_len, 1
+    cross_rows = max(cfg.n_vision_tokens, 1)
     if cache is not None:
         lay = cache.layout
+        axes = ("layers",) + T.L.CACHE_AXES
         _, (_, batch), (_, rows), (_, kvh), _ = lay.ranges(
-            ("layers",) + T.L.CACHE_AXES,
-            (1, cache.batch, cache.max_seq, cfg.n_kv_heads, cfg.head_dim))
+            axes, cache.leaf_shape(cfg))
+        _, _, (_, cross_rows), _, _ = lay.ranges(
+            axes, cache.leaf_shape(cfg, cross=True))
         vocab = lay.size(model._unembed_vocab[0])
     kv_tok = 2 * kvh * cfg.head_dim * _elem(cfg)                # K and V
     kv = 0
     for spec in cfg.layer_specs():
         if spec.kind == "attn" and spec.attn_type == "cross":
-            kv += max(cfg.n_vision_tokens, 1) * kv_tok      # read only
+            kv += cross_rows * kv_tok                       # read only
         elif spec.kind == "attn":
             read = seq_len
             if spec.attn_type == "local" and cfg.sliding_window:
@@ -678,7 +682,7 @@ def _decode(rec, cfg, case, S, model, dev, gen, variant, out_dir,
     want = (batch,) + C + (T._padded_vocab(cfg),)
     if cache is not None:
         (_, bl), = cache.layout.ranges(("batch",), (batch,))
-        want = (bl, model._unembed_vocab[2])
+        want = (bl,) + C + (model._unembed_vocab[2],)
     SH.reset_collectives()
     _finite(rec["arch"], rec["shape"], step(), want,
             cfg.vocab_size - (0 if cache is None else
@@ -751,7 +755,7 @@ def _prefill(rec, cfg, case, S, model, dev, gen, variant, out_dir,
     want, vocab = (batch, S) + C + (T._padded_vocab(cfg),), cfg.vocab_size
     if model.tp is not None:
         (_, bl), _ = model.layout.ranges(("batch", "seq"), (batch, S))
-        want = (bl, S, model._unembed_vocab[2])
+        want = (bl, S) + C + (model._unembed_vocab[2],)
         vocab -= model._unembed_vocab[1]
     SH.reset_collectives()
     out = step()

@@ -15,8 +15,7 @@ trees, and every step runs there: prefill, decode and the train step
 expert parallelism in the MoE layers, ZeRO-1 moments or a sharded
 Adafactor, ``micro8``, ``bf16grad``, ``fsdp`` and ``expdata``). The
 variants that only change sharding rules run only on a mesh; of them
-``seqpar`` still raises ``NotImplementedError`` (ROADMAP A9c item 4), as
-do cross-attention and codebook layers on a mesh (item 3).
+``seqpar`` still raises ``NotImplementedError`` (ROADMAP A9c item 4).
 ``lower_cell`` has no counterpart: eager PyTorch lowers nothing; the
 cell's step runs as it is called.
 
@@ -506,10 +505,8 @@ def build_cell(cfg: ModelConfig, case: ShapeCase, device="cuda",
     state's under ``opt_rules``), in_specs keyed as ``kwargs`` and
     out_specs (params, opt_state, None) for train, None for prefill,
     (None, cache) for decode; the optimizer state is this card's ZeRO-1
-    slices (``init_opt_state``). Configs whose layers the port does not
-    run on a mesh raise when their model is built (``T.check_shardable``).
-    ``rules`` replaces ``rules_for``'s (a cell whose batch was cut keeps
-    its case's)."""
+    slices (``init_opt_state``). ``rules`` replaces ``rules_for``'s (a
+    cell whose batch was cut keeps its case's)."""
     if torch.device(device).type != "meta":
         T.resolve_device(device)
     cfg = apply_variant_config(cfg, variant, mesh)

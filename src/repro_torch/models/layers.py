@@ -31,6 +31,10 @@ over all heads on this card's rows in its partial mode (``start``, global
 lengths and window), the partials are gathered and merged by the kernel's
 combine pass, and the card keeps its heads for ``wo``; only the card that
 owns position ``lengths[b]`` writes or merges the new token.
+A cross layer is cut the same way: its K/V are projected from the whole
+vision tokens at ``wk``'s kv heads, its output all-reduced after ``wo``,
+and a static cache cut by rows (``TPPlan.cross_seq``) is read through the
+partial mode and the merge, every row valid.
 """
 from __future__ import annotations
 
@@ -69,8 +73,10 @@ class TPPlan:
     """Where this card's part of the attention and dense-MLP layers lives:
     the spec entry of each sharded dim (None: replicated) and the card's
     range of it. ``seq`` / ``s0`` (the decode cache's row shard and the
-    global position of its row 0) and ``cache_kv`` / ``cache_kv0`` (its kv
-    heads) are set per decode step from the cache's layout."""
+    global position of its row 0), ``cache_kv`` / ``cache_kv0`` (its kv
+    heads) and ``cross_seq`` / ``cross_s0`` (a cross layer's cache rows,
+    cut by their own count) are set per decode step from the cache's
+    layout."""
 
     layout: SH.Layout
     heads: Any
@@ -93,6 +99,8 @@ class TPPlan:
     rwkv: Any = None
     rh0: int = 0
     rhl: int = 0
+    cross_seq: Any = None
+    cross_s0: int = 0
 
 
 def tp_plan(cfg: ModelConfig, layout: SH.Layout) -> TPPlan:
@@ -271,18 +279,17 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: Params,
     if tp is not None:
         x = column_parallel(x, tp, tp.heads)
     q = _q(p, x)
-    if spec.attn_type == "cross":
+    cross = spec.attn_type == "cross"
+    if cross:
         k, v = _kv(p, vision_kv)
-        out = ops.flash_attention(q, k, v, causal=False, window=None,
-                                  softcap=cfg.attn_softcap, impl=impl)
-        return _out_proj(out, p["wo"]), {"k": k, "v": v}
-    k, v = _kv(p, x)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    else:
+        k, v = _kv(p, x)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     window = cfg.sliding_window if spec.attn_type == "local" else None
     kq, vq = _kv_for_q(cfg, tp, k, v, 0 if tp is None else tp.kv0)
     out = ops.flash_attention(q, kq.contiguous(), vq.contiguous(),
-                              causal=True, window=window,
+                              causal=not cross, window=window,
                               softcap=cfg.attn_softcap, impl=impl)
     return (row_parallel(_out_proj(out, p["wo"]), tp, tp and tp.heads),
             {"k": k, "v": v})
@@ -305,7 +312,9 @@ def attention_decode(cfg: ModelConfig, spec: LayerSpec, p: Params,
 
     A cross layer attends over its whole static cache (every row's length
     the cache's vision tokens), with no RoPE and no new K/V; it returns
-    the cache in committed mode and no deltas ({}) in append mode.
+    the cache in committed mode and no deltas ({}) in append mode. On a
+    mesh it reads its kv heads, or its rows (``TPPlan.cross_seq``) through
+    the partial mode and the merge.
 
     With ``tp`` (module docstring) the cache is this card's shard and
     ``lengths`` stay global; a sequence-sharded cache is written only on
@@ -314,12 +323,9 @@ def attention_decode(cfg: ModelConfig, spec: LayerSpec, p: Params,
     B = x.shape[0]
     q = _q(p, x)
     if spec.attn_type == "cross":
-        nv = cache["k"].shape[1]
-        out = ops.decode_attention(
-            q[:, 0], cache["k"], cache["v"],
-            torch.full((B,), nv, dtype=torch.int64, device=x.device),
-            softcap=cfg.attn_softcap, impl=impl)
-        return _out_proj(out, p["wo"])[:, None], ({} if append else cache)
+        out = _cross_decode(cfg, q[:, 0], cache, impl, tp)
+        out = row_parallel(_out_proj(out, p["wo"]), tp, tp and tp.heads)
+        return out[:, None], ({} if append else cache)
     pos = lengths[:, None]                                     # (B,1)
     k_new, v_new = _kv(p, x)
     q = rope(q, pos, cfg.rope_theta)
@@ -374,26 +380,53 @@ def _decode_seq_sharded(cfg, q, cache, lengths, kn, vn, window, append,
     """Decode attention over a cache sharded by sequence (the module
     docstring): this card's query heads (B, hl, Dh) in, its heads' rows
     (B, hl, Dh) out."""
-    if tp.kv is not None or tp.cache_kv is not None:
-        raise NotImplementedError("a cache sharded by sequence holds every "
-                                  "kv head: wk must be replicated")
-    layout = tp.layout
-    qa = SH.all_gather(q, layout, tp.heads, dim=1) if tp.heads else q
     if not append:
         bidx = torch.arange(q.shape[0], device=q.device)
         write_owned(cache["k"], bidx, lengths, kn, tp.s0)
         write_owned(cache["v"], bidx, lengths, vn, tp.s0)
     news = {"k_new": kn, "v_new": vn} if append else {}
+    return _merged_over_rows(cfg, q, cache, lengths if append
+                             else lengths + 1, tp.seq, tp.s0, impl, tp,
+                             window=window, **news)
+
+
+def _merged_over_rows(cfg, q, cache, lengths, seq, start, impl, tp: TPPlan,
+                      **kw) -> torch.Tensor:
+    """This card's query heads (B, hl, Dh) over a cache whose rows are cut
+    over ``seq`` (its row 0 is global position ``start``): every query
+    head gathered, the kernel's partial mode over this card's rows at the
+    global ``lengths``, the partials gathered and merged; this card's
+    heads out."""
+    if tp.kv is not None or tp.cache_kv is not None:
+        raise NotImplementedError("a cache sharded by sequence holds every "
+                                  "kv head: wk must be replicated")
+    layout = tp.layout
+    qa = SH.all_gather(q, layout, tp.heads, dim=1) if tp.heads else q
     part = ops.decode_attention(
-        qa.contiguous(), cache["k"], cache["v"],
-        lengths if append else lengths + 1, window=window,
-        softcap=cfg.attn_softcap, start=tp.s0, partial=True, impl=impl,
-        **news)
-    parts = SH.gather_partials(part, layout, tp.seq)
+        qa.contiguous(), cache["k"], cache["v"], lengths,
+        softcap=cfg.attn_softcap, start=start, partial=True, impl=impl, **kw)
+    parts = SH.gather_partials(part, layout, seq)
     out = ops.decode_merge(parts, q.dtype, impl=impl)
     if tp.heads is None:
         return out
     return out[:, tp.h0:tp.h0 + tp.hl].contiguous()
+
+
+def _cross_decode(cfg, q, cache, impl, tp: Optional[TPPlan]) -> torch.Tensor:
+    """A cross layer's query heads (B, hl, Dh) over its static cache of
+    ``cfg.n_vision_tokens`` rows, every one valid: its kv heads (those
+    this card's heads read), or its rows merged over the cards where the
+    cache is cut by rows."""
+    nv = torch.full((q.shape[0],), cfg.n_vision_tokens, dtype=torch.int64,
+                    device=q.device)
+    if tp is not None and tp.cross_seq is not None:
+        return _merged_over_rows(cfg, q, cache, nv, tp.cross_seq,
+                                 tp.cross_s0, impl, tp)
+    kc, vc = cache["k"], cache["v"]
+    if tp is not None:
+        kc, vc = _kv_for_q(cfg, tp, kc, vc, tp.cache_kv0)
+    return ops.decode_attention(q, kc, vc, nv, softcap=cfg.attn_softcap,
+                                impl=impl)
 
 
 def init_attention_cache(cfg: ModelConfig, spec: LayerSpec, rep: int,

@@ -60,8 +60,13 @@ are global on every card; each card takes its batch rows.
 ``gather_logits`` assembles the full logits. Serving and training run
 attention, Mamba and RWKV layers with dense or MoE MLPs this way (a MoE
 layer's experts over "model", their d_ff over "data": ``moe.py``'s expert
-parallelism); cross-attention and codebook layers on a mesh are ROADMAP
-A9c item 3.
+parallelism). A cross layer projects this card's rows of the vision
+tokens at ``wk``'s kv heads (their gradient all-reduced over "model": each
+card differentiates through its kv heads only) and its static cache is cut
+as a self-attention cache, by kv heads or by its own rows; the codebook
+embedding and head ``(C, V, D)`` / ``(C, D, V)`` are vocab-parallel per
+codebook, the C masked lookups summed before one all-reduce, and the
+codebook logits ``(B, S, C, V)`` stay sharded over vocab.
 
 Training on a mesh (``train_forward`` over this card's batch rows, the
 train step of ``launch/steps.py``): the collectives are differentiable
@@ -125,24 +130,7 @@ def check_trainable(cfg: ModelConfig) -> None:
 
 
 # what still waits on a mesh, by its item of ROADMAP A9c
-A9C_MODALITY = "ROADMAP A9c item 3 (cross-attention and codebooks)"
 A9C_SEQPAR = "ROADMAP A9c item 4 (seqpar)"
-
-
-def check_shardable(cfg: ModelConfig) -> None:
-    """Raise unless the port runs ``cfg`` on a mesh: self-attention, Mamba
-    and RWKV layers with dense or MoE MLPs (or none) and one token stream
-    without vision inputs. Cross-attention and codebook layers on a mesh
-    are ROADMAP A9c item 3."""
-    check_supported(cfg)
-    for spec in cfg.layer_specs():
-        if spec.kind == "attn" and spec.attn_type == "cross":
-            raise NotImplementedError(
-                f"{cfg.name}: {spec.kind} {spec.attn_type} {spec.mlp} "
-                f"layers on a mesh are {A9C_MODALITY}")
-    if cfg.n_codebooks or cfg.n_vision_tokens:
-        raise NotImplementedError(f"{cfg.name}: codebook and vision models "
-                                  f"on a mesh are {A9C_MODALITY}")
 
 
 def is_partial(cfg: ModelConfig, tp, name: str) -> bool:
@@ -302,8 +290,6 @@ class Transformer(nn.Module):
         super().__init__()
         check_supported(cfg)
         self.layout = _layout(mesh, rules)
-        if self.layout is not None:
-            check_shardable(cfg)
         # leaves whose model_d dim is sharded (fsdp): name -> (dim, entry)
         self._fsdp: dict = {}
         dev = resolve_device(device)
@@ -374,10 +360,11 @@ class Transformer(nn.Module):
         if self.layout is not None:
             self.tp = L.tp_plan(cfg, self.layout)
             # the vocab shards of the embedding and of the unembedding
-            self._embed_vocab = self._vocab_range(
-                "embed", (V, D), 0)
+            # (a codebook leaf's vocab dim follows its C dim)
+            self._embed_vocab = self._vocab_range("embed", C + (V, D),
+                                                  len(C))
             self._unembed_vocab = self._embed_vocab if cfg.tie_embeddings \
-                else self._vocab_range("lm_head", (D, V), 1)
+                else self._vocab_range("lm_head", C + (D, V), len(C) + 1)
 
     def _vocab_range(self, name: str, shape, dim: int):
         """(spec entry, first row, rows) of leaf ``name``'s vocab dim on
@@ -414,18 +401,25 @@ class Transformer(nn.Module):
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S), or (B, S, C) with codebooks: the C embeddings
         summed in codebook order. On a mesh with the vocab sharded, a
-        masked lookup of this card's rows, all-reduced."""
+        masked lookup of this card's rows (of each codebook, summed),
+        all-reduced once."""
         emb = self._full("embed", self.embed).to(getattr(torch,
                                                          self.cfg.dtype))
-        if self.cfg.n_codebooks:
-            return sum(emb[c][tokens[..., c]]
-                       for c in range(self.cfg.n_codebooks))
+        C = self.cfg.n_codebooks
         if self.tp is None or self._embed_vocab[0] is None:
+            if C:
+                return sum(emb[c][tokens[..., c]] for c in range(C))
             return emb[tokens]
         entry, v0, n = self._embed_vocab
-        local = tokens - v0
-        mine = (local >= 0) & (local < n)
-        h = torch.where(mine[..., None], emb[local.clamp(0, n - 1)], 0.0)
+
+        def lookup(table, ids):
+            local = ids - v0
+            mine = (local >= 0) & (local < n)
+            return torch.where(mine[..., None], table[local.clamp(0, n - 1)],
+                               0.0)
+
+        h = (sum(lookup(emb[c], tokens[..., c]) for c in range(C)) if C
+             else lookup(emb, tokens))
         return SH.reduce_from(h.to(emb.dtype), self.layout, entry)
 
     def _unembed(self, h: torch.Tensor) -> torch.Tensor:
@@ -438,8 +432,8 @@ class Transformer(nn.Module):
         if cfg.tie_embeddings:
             logits = h @ self._full("embed", self.embed).to(h.dtype).T
         elif cfg.n_codebooks:
-            logits = torch.einsum("bsd,cdv->bscv", h,
-                                  self.lm_head.to(h.dtype))
+            logits = torch.einsum("bsd,cdv->bscv", h, self._full(
+                "lm_head", self.lm_head).to(h.dtype))
         else:
             logits = h @ self._full("lm_head", self.lm_head).to(h.dtype)
         if cfg.final_softcap is not None:
@@ -472,13 +466,15 @@ class Transformer(nn.Module):
         needs its global ``batch`` and ``seq``) or decode step on
         ``cache`` makes on a mesh, by kind, from the layout (the formula
         the counts of ``sharding.collectives()`` are held to): the
-        embedding's all-reduce; per attention layer the all-reduce after
-        ``wo``, and over a sequence-sharded cache the all-gathers of the
-        query heads and of the decode partials; per Mamba layer the
-        all-reduces after ``x_proj`` and ``out_proj``; per RWKV layer the
-        all-reduce after ``wo``, and its channel mix's reduce-scatter of v
-        and all-gather of r * v; per dense MLP the all-reduce after
-        ``w_down``; per MoE layer its ``moe.EPPlan``'s.
+        embedding's all-reduce (codebooks: their lookups summed first);
+        per attention layer, cross layers included, the all-reduce after
+        ``wo``, and over a cache sharded by sequence (a cross layer's: by
+        its own rows) the all-gathers of the query heads and of the decode
+        partials; per Mamba layer the all-reduces after ``x_proj`` and
+        ``out_proj``; per RWKV layer the all-reduce after ``wo``, and its
+        channel mix's reduce-scatter of v and all-gather of r * v; per
+        dense MLP the all-reduce after ``w_down``; per MoE layer its
+        ``moe.EPPlan``'s.
         A dim sharded over axes of size 1 is no collective;
         ``gather_logits`` is not part of a step."""
         if self.tp is None:
@@ -500,7 +496,8 @@ class Transformer(nn.Module):
         for spec in self.cfg.layer_specs():
             if spec.kind == "attn":
                 n["all-reduce"] += live(tp.heads)
-                if cache is not None and live(tp.seq):
+                seq = tp.cross_seq if spec.attn_type == "cross" else tp.seq
+                if cache is not None and live(seq):
                     n["all-gather"] += 1 + live(tp.heads)
             elif spec.kind == "mamba":
                 n["all-reduce"] += 2 * live(tp.inner)
@@ -597,14 +594,19 @@ class Transformer(nn.Module):
     def _vision_kv(self, vision_embeds: Optional[torch.Tensor],
                    dtype: torch.dtype) -> Optional[torch.Tensor]:
         """``vision_embeds @ vision_proj`` in the compute dtype for a
-        vision config (which must be given them), else None."""
+        vision config (which must be given them), else None. On a mesh
+        ``vision_embeds`` are this card's batch rows; every card's cross
+        layers differentiate through their own kv heads only, so the
+        gradient is all-reduced over "model" (once a pass: it sums every
+        cross layer's) and ``vision_proj``'s is whole on every card."""
         if not self.cfg.n_vision_tokens:
             return None
         if vision_embeds is None:
             raise ValueError(f"{self.cfg.name}: a vision model needs "
                              "vision_embeds (B, n_vision_tokens, d_model)")
-        return vision_embeds.to(device=self.device, dtype=dtype) \
-            @ self.vision_proj.to(dtype)
+        kv = vision_embeds.to(device=self.device, dtype=dtype) \
+            @ self._full("vision_proj", self.vision_proj).to(dtype)
+        return L.column_parallel(kv, self.tp, self.tp and self.tp.heads)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, *,
@@ -614,8 +616,10 @@ class Transformer(nn.Module):
         codebooks; a vision config also takes ``vision_embeds`` (B, Nv, D).
         Returns (logits (B, S, V) or (B, S, C, V), cache) with cache
         capacity == S (a cross layer's: Nv). On a mesh: this card's batch
-        rows of the global tokens, its vocab shard of the logits and its
-        cache (``wk``'s kv heads, every position)."""
+        rows of the global tokens (and vision embeddings), its vocab shard
+        of the logits and its cache (``wk``'s kv heads, every position)."""
+        if vision_embeds is not None:
+            vision_embeds = self._rows(vision_embeds)
         tokens = self._rows(tokens)
         h = self._embed(tokens)
         B, S = tokens.shape[:2]
@@ -797,23 +801,32 @@ class ShardedCache(dict):
         super().__init__(tree)
         self.layout, self.batch, self.max_seq = layout, batch, max_seq
 
-    def spec(self, cfg: ModelConfig) -> tuple:
-        """The spec of a self-attention leaf (layers, batch, kv_seq,
-        kv_heads, head_dim)."""
+    def leaf_shape(self, cfg: ModelConfig, cross: bool = False) -> tuple:
+        """The global shape of one layer's K or V leaf (layers 1): a cross
+        layer's rows are its vision tokens."""
+        rows = max(cfg.n_vision_tokens, 1) if cross else self.max_seq
+        return (1, self.batch, rows, cfg.n_kv_heads, cfg.head_dim)
+
+    def spec(self, cfg: ModelConfig, cross: bool = False) -> tuple:
+        """The spec of a self-attention (or cross) leaf (layers, batch,
+        kv_seq, kv_heads, head_dim)."""
         return self.layout.spec(("layers",) + L.CACHE_AXES,
-                                (1, self.batch, self.max_seq,
-                                 cfg.n_kv_heads, cfg.head_dim))
+                                self.leaf_shape(cfg, cross))
 
     def plan(self, model: "Transformer"):
         """(the model's ``TPPlan`` with this cache's rows and kv heads, the
         cache's layout)."""
         lay = self.layout
+        axes = ("layers",) + L.CACHE_AXES
+        _, _, (s0, _), (k0, _), _ = lay.ranges(axes,
+                                               self.leaf_shape(model.cfg))
         _, _, seq, kv, _ = self.spec(model.cfg)
-        sl = self.max_seq // lay.size(seq)
-        kvl = model.cfg.n_kv_heads // lay.size(kv)
-        return (dataclasses.replace(model.tp, seq=seq, s0=lay.index(seq) * sl,
-                                    cache_kv=kv,
-                                    cache_kv0=lay.index(kv) * kvl), lay)
+        xseq = self.spec(model.cfg, cross=True)[2]
+        _, _, (x0, _), _, _ = lay.ranges(axes, self.leaf_shape(model.cfg,
+                                                               cross=True))
+        return (dataclasses.replace(model.tp, seq=seq, s0=s0, cache_kv=kv,
+                                    cache_kv0=k0, cross_seq=xseq,
+                                    cross_s0=x0), lay)
 
 
 _pytree.register_pytree_node(
@@ -847,15 +860,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     dev = resolve_device(device)
     cdt = getattr(torch, cfg.dtype)
     layout = _layout(mesh, rules)
-    if layout is not None:
-        check_shardable(cfg)
 
     def layer(spec, rep):
         if spec.kind != "attn":
             return SSM.init_state(cfg, spec, batch, cdt, dev, lead=(rep,),
                                   layout=layout)
         if layout is not None:
-            shape = (rep, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+            rows = max(cfg.n_vision_tokens, 1) if spec.attn_type == "cross" \
+                else max_seq
+            shape = (rep, batch, rows, cfg.n_kv_heads, cfg.head_dim)
             local = layout.local_shape(("layers",) + L.CACHE_AXES, shape)
             return {"k": torch.zeros(local, dtype=cdt, device=dev),
                     "v": torch.zeros(local, dtype=cdt, device=dev)}
@@ -878,9 +891,10 @@ def cache_insert(cfg: ModelConfig, cache: dict, prefill_cache: dict,
     tokens for a recurrent state to be the prompt's). Returns ``cache``.
 
     A ``ShardedCache`` takes its part: the slot where this card holds it,
-    the positions of its rows, and its kv heads (the prefill cache holds
-    ``wk``'s: this card's, or all of them); a recurrent state's channels
-    or heads alike (the prefill's: this card's, or all of them)."""
+    the positions of its rows (a cross layer's rows of its vision tokens),
+    and its kv heads (the prefill cache holds ``wk``'s: this card's, or
+    all of them); a recurrent state's channels or heads alike (the
+    prefill's: this card's, or all of them)."""
     if isinstance(cache, ShardedCache):
         return _insert_shard(cfg, cache, prefill_cache, slot, length)
     for gi, (period, _) in enumerate(cfg.groups):
@@ -897,15 +911,16 @@ def cache_insert(cfg: ModelConfig, cache: dict, prefill_cache: dict,
 
 def _insert_shard(cfg: ModelConfig, cache: "ShardedCache",
                   prefill_cache: dict, slot: int, length: int) -> dict:
-    """``cache_insert`` into this card's shard (self-attention and
-    recurrent layers: ``check_shardable``)."""
+    """``cache_insert`` into this card's shard: a self-attention layer's
+    positions below ``length`` in its rows, a cross layer's rows whole."""
     lay = cache.layout
-    _, (b0, bl), (s0, sl), (k0, kl), _ = lay.ranges(
-        ("layers",) + L.CACHE_AXES, (1, cache.batch, cache.max_seq,
-                                     cfg.n_kv_heads, cfg.head_dim))
+    axes = ("layers",) + L.CACHE_AXES
+    _, (b0, bl), (s0, sl), (k0, kl), _ = lay.ranges(axes,
+                                                    cache.leaf_shape(cfg))
+    _, _, (x0, xl), _, _ = lay.ranges(axes, cache.leaf_shape(cfg,
+                                                             cross=True))
     if not b0 <= slot < b0 + bl:
         return cache                  # another card holds the slot
-    hi = min(length, s0 + sl)
     for gi, (period, _) in enumerate(cfg.groups):
         for li, spec in enumerate(period):
             dst = cache[f"g{gi}"][li]["mixer"]
@@ -920,8 +935,12 @@ def _insert_shard(cfg: ModelConfig, cache: "ShardedCache",
                     continue
                 if x.shape[-2] != kl:         # all kv heads: take ours
                     x = x[..., k0:k0 + kl, :]
-                if hi > s0:
-                    d[:, slot - b0, :hi - s0] = x[:, s0:hi].to(d.dtype)
+                if spec.attn_type == "cross":
+                    lo, hi = x0, x0 + xl
+                else:
+                    lo, hi = s0, min(length, s0 + sl)
+                if hi > lo:
+                    d[:, slot - b0, :hi - lo] = x[:, lo:hi].to(d.dtype)
     return cache
 
 
@@ -1050,13 +1069,15 @@ def train_collectives(model: Transformer, batch: Optional[int] = None,
                       seq: Optional[int] = None) -> dict:
     """The collectives one microbatch's ``loss_fn`` and its backward make
     on a mesh, by kind, from the layout (what ``sharding.collectives()``
-    counts for it): the embedding's all-reduce; with the vocab sharded the
-    unembedding's input gradient and the loss's max and sums (3
-    all-reduces); per attention layer and dense MLP with their heads or
-    d_ff sharded, the output's all-reduce (again in the recompute under
-    remat, except a period's last MLP without a post norm: the
-    checkpoint's recompute stops after the last saved tensor) and the
-    input gradient's; per Mamba layer with its channels sharded, the
+    counts for it): the embedding's all-reduce (codebooks: their lookups
+    summed first); with the vocab sharded the unembedding's input gradient
+    and the loss's max and sums (3 all-reduces); with vision tokens and
+    the heads sharded, the gradient of the projected vision tokens (one
+    all-reduce); per attention layer (cross ones included) and dense MLP
+    with their heads or d_ff sharded, the output's all-reduce (again in
+    the recompute under remat, except a period's last MLP without a post
+    norm: the checkpoint's recompute stops after the last saved tensor)
+    and the input gradient's; per Mamba layer with its channels sharded, the
     all-reduces after ``x_proj`` and ``out_proj`` (both recomputed: an MLP
     follows) and the gradients' of its input and of (dt_low, B, C); per
     RWKV layer with its heads sharded, ``wo``'s all-reduce, the gradients'
@@ -1077,7 +1098,10 @@ def train_collectives(model: Transformer, batch: Optional[int] = None,
          "all-gather": 0, "reduce-scatter": 0}
     if live(model._unembed_vocab[0]):
         n["all-reduce"] += 3
-    top = {"embed": 1 + cfg.tie_embeddings, "final_norm": 1, "lm_head": 1}
+    if cfg.n_vision_tokens and live(tp.heads):
+        n["all-reduce"] += 1
+    top = {"embed": 1 + cfg.tie_embeddings, "final_norm": 1, "lm_head": 1,
+           "vision_proj": 1}
     runs = 2 if cfg.remat else 1
     for name in model._fsdp:
         if name in top:

@@ -320,9 +320,10 @@ def test_sharded_cell_on_the_meta_device():
     step itself on the meta device (its collectives only counted, equal
     to ``train_step_collectives``); granite and kimi-k2 build (their
     experts over "model", kimi-k2's Adafactor factors sliced), Jamba and
-    rwkv6 build (their channels, heads and states over "model"); vision
-    and the sharding variants that still wait raise naming their ROADMAP
-    A9c item."""
+    rwkv6 build (their channels, heads and states over "model"), vision
+    and musicgen too (the cross cache at its vision tokens' rows, the
+    codebook embedding over vocab); the sharding variants that still wait
+    raise naming their ROADMAP A9c item."""
     lay = SH.Layout({"data": 1, "model": 4}, {"data": 0, "model": 2},
                     SH.ShardingRules())
     fn, kw, donate, rules, ins, outs = ST.build_cell(
@@ -392,9 +393,22 @@ def test_sharded_cell_on_the_meta_device():
     _, kw, *_ = ST.build_cell(get_config("rwkv6-1.6b"), SHAPES["train_4k"],
                               "meta", mesh=lay22)
     assert kw["opt_state"]["m"]["g0.0.mixer.wr"].shape == (24, 1024, 1024)
-    with pytest.raises(NotImplementedError, match="A9c item 3"):
-        ST.build_cell(get_config("llama-3.2-vision-11b"),
-                      SHAPES["decode_32k"], "meta", mesh=lay)
+    # vision and musicgen build (A9c item 3): the cross cache at its
+    # n_vision_tokens rows beside the self cache's, the codebook embedding
+    # cut over vocab per codebook
+    _, kw, *_ = ST.build_cell(get_config("llama-3.2-vision-11b"),
+                              SHAPES["decode_32k"], "meta", mesh=lay)
+    assert kw["params"].g0[0].mixer["wq"].shape == (8, 4096, 8, 128)
+    assert kw["params"].vision_proj.shape == (4096, 4096)
+    assert kw["cache"]["g0"][0]["mixer"]["k"].shape == (8, 128, 1600, 2, 128)
+    assert kw["cache"]["g0"][1]["mixer"]["k"].shape == (8, 128, 32768, 2,
+                                                        128)
+    _, kw, *_ = ST.build_cell(get_config("musicgen-large"),
+                              SHAPES["decode_32k"], "meta", mesh=lay)
+    assert kw["params"].embed.shape == (4, 512, 2048)
+    assert kw["params"].lm_head.shape == (4, 2048, 512)
+    assert kw["cache"]["g0"][0]["mixer"]["k"].shape == (48, 128, 32768, 8,
+                                                        64)
     _, kw, *_ = ST.build_cell(get_config("qwen2-1.5b"), SHAPES["train_4k"],
                               "meta", "expdata", mesh=lay)
     assert kw["params"].g0[0].mixer["wq"].shape == (28, 1536, 3, 128)
