@@ -172,6 +172,25 @@ visible, builds the kernels once, then starts one process a card
 hung rank fails the run; any rank's failure fails it). On a (data 1,
 model 4) mesh (train tp: also (2, 2) and (4, 1)), under the reference's
 sharding rules:
+  path sp     — sequence parallelism (seqpar: the residual stream's
+               sequence over "model", each layer's input all-gathered and
+               its output reduce-scattered; the sp phases run first,
+               before kernels tp): prefill and 4 teacher-forced decode steps
+               (append and committed; decode is the baseline's, S = 1) of
+               qwen2-1.5b and granite-moe-1b-a400m at full size in fp32 on
+               1x4 and 2x2 against card 0 without a mesh (path tp's prompt
+               lengths: 1535 does not divide, and there the rule does
+               nothing: the prefill's all-reduces show which way each
+               went); PATH_TOL_FP32, argmax equal, expert choices equal
+               but at near ties, launches exact.
+  train sp    — the gates of train tp under seqpar, fsdp+seqpar on 2x2:
+               qwen2's and granite's first 2 layers, fp32, on 2x2 and 1x4
+               against one card's step (the norms' gradients summed over
+               "model"), a step's collectives with its reduce-scatters.
+  dryrun sp   — qwen2's prefill_32k on 1x4 and qwen2's and granite's
+               train_4k on 2x2 under seqpar; at the end of the run each
+               beside its baseline record of the same run (`dryrun sp vs
+               baseline:`).
   kernels tp  — (card 0) the decode kernel's partial mode (`start`, the
                (m, l, o) partials) against its plain version, and the
                merge of 4 partials by the combine pass against the
@@ -3117,6 +3136,19 @@ MOD_RECORDS = ((MOD_VISION, "decode_32k", (1, 4)),
                (MOD_MUSIC, "decode_32k", (1, 4)),
                (MOD_VISION, "train_4k", (2, 2)),
                (MOD_MUSIC, "train_4k", (2, 2)))
+# the sequence-parallel (sp) phases: seqpar on the attention configs, dense
+# and MoE (ROADMAP A9c item 4). path sp: qwen2 and granite at full size,
+# fp32, on these meshes at path tp's batch, max_seq and prompt lengths
+SP_ARCHS = ("qwen2-1.5b", EP_ARCH)
+SP_PATH_MESHES = ((1, 4), (2, 2))
+SP_PATH = (4, 2048, (700, 1100, 300, 1535))
+# train sp: the archs' first TP_TRAIN_LAYERS layers, fp32, as train tp
+SP_TRAIN_CASES = (((2, 2), "seqpar"), ((1, 4), "seqpar"),
+                  ((2, 2), "fsdp+seqpar"))
+# dryrun sp: (arch, shape, mesh, variant), each beside its baseline record
+SP_RECORDS = (("qwen2-1.5b", "prefill_32k", (1, 4), "seqpar"),
+              ("qwen2-1.5b", "train_4k", (2, 2), "seqpar"),
+              (EP_ARCH, "train_4k", (2, 2), "seqpar"))
 
 
 def _free_port() -> int:
@@ -3203,6 +3235,10 @@ class _TPRun:
         self.gen = torch.Generator(device=self.dev).manual_seed(rank)
         self.launches_by_path = {}
         self.t_start = time.perf_counter()
+        # card 0's last one-card reference (key, outputs), reused by the
+        # next case of the same config and inputs (``one_card_run``)
+        self.kept = (None, None)
+        self.prefill_calls = []
 
     # -- helpers ------------------------------------------------------------
     def say(self, line: str) -> None:
@@ -3314,10 +3350,27 @@ class _TPRun:
                  f"rank 0, init {time.perf_counter() - t0:.1f} s")
         return model
 
+    def one_card_run(self, key, run, keep=True):
+        """Card 0's one-card reference of ``key``: the kept one where the
+        last case had the same key (the same config, weights and inputs
+        give the same outputs), else ``run()``'s, kept where ``keep``
+        (the previous one dropped first: one is held at a time, and
+        ``memory`` drops it, so no phase measures beside it)."""
+        if self.kept[0] == key:
+            return self.kept[1]
+        self.kept = (None, None)
+        self.free()
+        out = run()
+        if keep:
+            self.kept = (key, out)
+        return out
+
     def memory(self, where: str) -> None:
         """Each card's free memory beside what this process's caching
-        allocator holds (GB), on a `mem:` line."""
+        allocator holds (GB), on a `mem:` line (card 0's kept one-card
+        reference dropped first)."""
         torch = self.torch
+        self.kept = (None, None)
         self.free()
         free, total = torch.cuda.mem_get_info(self.dev)
         every = self.all([round(x / 1e9, 3) for x in (
@@ -3339,6 +3392,7 @@ class _TPRun:
     def main(self) -> dict:
         self.warm_profiler()
         self.memory("start")
+        self.sp_phases()
         t = time.perf_counter()
         rows = self.kernels_tp() if self.rank == 0 else None
         self.dist.barrier()
@@ -3352,6 +3406,7 @@ class _TPRun:
         t = time.perf_counter()
         self.path_tp()
         self.say(f"phase path tp: {time.perf_counter() - t:.1f} s")
+        self.memory("after path tp")
         t = time.perf_counter()
         self.serving_tp()
         self.say(f"phase serving tp: {time.perf_counter() - t:.1f} s")
@@ -3362,6 +3417,7 @@ class _TPRun:
         records += self.ep_phases() + rec_records + mod_records
         if self.rank != 0:
             return {}
+        self.sp_beside_baseline()
         self.profile_tp(records)
         rows[0]["train_lse_err"] = train_err["max_abs_err"]
         rows[0]["train_shape"] = train_err
@@ -3953,14 +4009,17 @@ class _TPRun:
             if model.layout is not None and got != want():
                 raise AssertionError(f"{cfg.name} {what}: collectives {got}"
                                      f" != {want()}")
+            return got
 
+        self.prefill_calls = []
         for b, L in enumerate(lens):
             SH.reset_collectives()
             logits, pf = model.prefill(
                 torch.from_numpy(tokens[b:b + 1, :L]).to(self.dev),
                 vision_embeds=None if vision is None else vision[b:b + 1])
-            collectives(f"prefill {b}", lambda: model.step_collectives(
-                batch=1, seq=L))
+            self.prefill_calls.append(collectives(
+                f"prefill {b}", lambda: model.step_collectives(batch=1,
+                                                               seq=L)))
             rows = model.gather_logits(logits[:, -TP_PREFILL_ROWS:], 1)
             out[f"prefill {b}"] = rows[0].float()
             for cache in caches.values():
@@ -4269,10 +4328,14 @@ class _TPRun:
 
     def _train_gate(self, cfg, mesh, shape, variant, label="tp",
                     batch=TP_TRAIN_BATCH, seq=TP_TRAIN_SEQ) -> None:
-        """One train tp (or ep, or rec) case (module docstring)."""
+        """One train tp (or ep, rec, mod, sp) case (module docstring); a
+        seqpar case's steps must reduce-scatter. Card 0's one-card steps
+        serve the next case of the same config and one-card variant
+        (``one_card_run``)."""
         t0 = time.perf_counter()
         metrics, params, launches, calls, formula = self._train_run(
             cfg, mesh, variant, batch, seq)
+        from repro_torch.launch import steps as ST
         what = (f"{cfg.name} {shape[0]}x{shape[1]} {variant} "
                 f"{cfg.optimizer} train {label}")
         self.expect_train(what, cfg, 8 if "micro8" in variant else 4,
@@ -4283,11 +4346,16 @@ class _TPRun:
         if any(c != formula for e in every for c in e[1]):
             raise AssertionError(f"{what}: collectives "
                                  f"{[e[1] for e in every]} != {formula}")
+        if "seqpar" in variant and not calls[0].get("reduce-scatter"):
+            raise AssertionError(f"{what}: no reduce-scatter in {calls[0]}")
         if self.rank == 0:
             mesh_params, params = params, None
             self.free()
-            ref_metrics, ref_params, *_ = self._train_run(cfg, None, variant,
-                                                          batch, seq)
+            one = "+".join(sorted(ST.variant_tokens(variant)
+                                  - set(ST.SHARDING_VARIANTS)))
+            ref_metrics, ref_params = self.one_card_run(
+                ("train", cfg, one, batch, seq),
+                lambda: self._train_run(cfg, None, variant, batch, seq)[:2])
             tol_g = TOL["bfloat16"] if "bf16grad" in variant else GNORM_RTOL
             tol_p = TOL["bfloat16"] if "bf16grad" in variant else LEAF_TOL
             loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
@@ -4460,18 +4528,24 @@ class _TPRun:
             self._path_gate(cfg, shape, B, max_seq, lens, "path ep")
 
     def _path_gate(self, cfg, shape, B, max_seq, lens, label,
-                   gate=True) -> None:
-        """One path case on the (data, model) mesh ``shape`` against card
-        0 (``path_tp``, ``path_ep``): the logits within PATH_TOL_FP32 and
-        argmax equal where ``gate``, every expert choice equal but at
-        near ties, which card 0 takes from the mesh (``follow``)."""
+                   gate=True, variant="baseline") -> None:
+        """One path case on the (data, model) mesh ``shape`` under
+        ``variant``'s rules against card 0 (``path_tp``, ``path_ep``,
+        ``path_sp``): the logits within PATH_TOL_FP32 and argmax equal
+        where ``gate``, every expert choice equal but at near ties, which
+        card 0 takes from the mesh (``follow``). Under seqpar a prefill
+        all-reduces nothing exactly where its length cuts over "model"
+        (``Transformer.seq_plan``). Card 0's outputs of a config without
+        experts serve the next case of the same inputs (``one_card_run``;
+        with experts it follows the mesh's near ties, so it is the
+        mesh's own)."""
         torch = self.torch
         from repro_torch.configs.shapes import ShapeCase
         from repro_torch.launch import steps as ST
         from repro_torch.models import transformer as T
         mesh = self.mesh_of(shape)
         rules = ST.rules_for(cfg, ShapeCase("path", "decode", max_seq, B),
-                             mesh)
+                             mesh, variant)
         rng = np.random.default_rng(0)
         C = (cfg.n_codebooks,) if cfg.n_codebooks else ()
         tokens = rng.integers(0, cfg.vocab_size, size=(B, max(lens)) + C)
@@ -4487,8 +4561,15 @@ class _TPRun:
         with self.routes() as mesh_ids:
             mesh_out = self._path_run(cfg, model, tokens, steps, lens,
                                       max_seq, vision)
+        prefill_calls = self.prefill_calls
+        cuts = [model.seq_plan(1, L).sp is not None for L in lens]
         what = (f"{cfg.name} {cfg.n_layers} layers {shape[0]}x{shape[1]} "
                 f"B={B} max_seq={max_seq} {cfg.dtype} {label}")
+        if "seqpar" in variant and (
+                [("all-reduce" not in c) for c in prefill_calls] != cuts
+                or not any(cuts)):
+            raise AssertionError(f"{what}: the sequence cut at {cuts}, "
+                                 f"prefill collectives {prefill_calls}")
         meta = T.init_cache(cfg, B, max_seq, device="meta",
                             mesh=model.layout)
         _, _, seq, kv, _ = meta.spec(cfg)
@@ -4503,13 +4584,20 @@ class _TPRun:
         del model
         self.free()
         if self.rank == 0:
-            one = self.build(cfg)
             flips = []
-            with self.routes() as one_ids, self.follow(mesh_ids, flips):
-                ref_out = self._path_run(cfg, one, tokens, steps, lens,
+
+            def one_card():
+                one = self.build(cfg)
+                with self.routes() as one_ids, self.follow(mesh_ids, flips):
+                    out = self._path_run(cfg, one, tokens, steps, lens,
                                          max_seq, vision)
-            del one
-            self.free()
+                del one
+                self.free()
+                return out, one_ids
+
+            ref_out, one_ids = self.one_card_run(
+                ("path", cfg, B, max_seq, tuple(lens)), one_card,
+                keep=not cfg.n_experts)
             diffs = {k: self.err(mesh_out[k], ref_out[k]) for k in ref_out}
             argmax = all(bool(torch.equal(mesh_out[k].argmax(-1),
                                           ref_out[k].argmax(-1)))
@@ -4520,8 +4608,9 @@ class _TPRun:
             worst = max(diffs.values())
             line = {"model": cfg.name, "layers": cfg.n_layers,
                     "dtype": cfg.dtype, "weights": cfg.param_dtype,
-                    "mesh": list(shape), "batch": B, "max_seq": max_seq,
-                    "prompt_lens": list(lens),
+                    "mesh": list(shape), "variant": variant, "batch": B,
+                    "max_seq": max_seq, "prompt_lens": list(lens),
+                    "prefill_collectives": prefill_calls,
                     "cache": ("by sequence" if sharded else "by kv heads"
                               if model_kv > 1 else "replicated"),
                     "cross_cache_rows_a_card": (
@@ -4700,6 +4789,7 @@ class _TPRun:
         layers, batch, seq, steps = spec
         cfg = cut(get_config(arch), layers)
         mesh = self.mesh_of((2, 2))
+        self.memory(f"before {arch} {layers} layers bf16 train {label}")
         t0 = time.perf_counter()
         fn, _, _, rules, *_ = ST.build_cell(
             cfg, ShapeCase(f"train {label}", "train", seq, batch), "meta",
@@ -4763,13 +4853,15 @@ class _TPRun:
         from repro_torch.configs import get_config
         from repro_torch.launch import dryrun
         records = []
-        for arch, shape, mshape in cells:
+        for arch, shape, mshape, *variant in cells:
+            variant = variant[0] if variant else "baseline"
             cfg = get_config(arch)
-            self.memory(f"before {arch} {shape}")
+            self.memory(f"before {arch} {shape} {variant}")
             t0 = time.perf_counter()
             self.zero()
             rec = dryrun.run_cell(arch, shape, ROOT / "results" /
-                                  "dryrun_torch", mesh=self.mesh_of(mshape))
+                                  "dryrun_torch", mesh=self.mesh_of(mshape),
+                                  variant=variant)
             self.free()
             launches = self.read()
             if arch in not_fitting:
@@ -4793,6 +4885,9 @@ class _TPRun:
                                 rec["decode_steps"],
                                 rec["cache_spec"][2] is not None)
                     records.append((cfg, rec))
+                elif rec["kind"] == "prefill":
+                    self.expect(f"{arch} dry-run {shape} {label}", cfg,
+                                rec["prefill_steps"], 0, False)
                 else:
                     steps = rec["train_steps"] + rec.get("probe_steps", 0)
                     if not (all(map(math.isfinite, rec["losses"]))
@@ -4814,6 +4909,66 @@ class _TPRun:
                      f"{time.perf_counter() - t0:.1f} s")
             self.dist.barrier()
         return records
+
+    # -- sequence parallelism (the sp phases) -------------------------------
+    def sp_phases(self) -> None:
+        """path sp, train sp and dryrun sp (module docstring)."""
+        for name, phase in (("path sp", self.path_sp),
+                            ("train sp", self.train_sp),
+                            ("dryrun sp", self.dryrun_sp)):
+            t = time.perf_counter()
+            phase()
+            self.say(f"phase {name}: {time.perf_counter() - t:.1f} s")
+            self.memory(f"after {name}")
+
+    def path_sp(self) -> None:
+        """qwen2 and granite at full size in fp32 under seqpar on 1x4 and
+        2x2 against card 0."""
+        from repro_torch.configs import get_config
+        B, max_seq, lens = SP_PATH
+        for arch in SP_ARCHS:
+            cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                                      param_dtype="float32")
+            for shape in SP_PATH_MESHES:
+                self._path_gate(cfg, shape, B, max_seq, lens, "path sp",
+                                variant="seqpar")
+
+    def train_sp(self) -> None:
+        """The train sp gates: each arch's first TP_TRAIN_LAYERS layers in
+        fp32 on SP_TRAIN_CASES against one card's steps."""
+        from repro_torch.configs import get_config
+        for arch in SP_ARCHS:
+            base = dataclasses.replace(cut(get_config(arch),
+                                           TP_TRAIN_LAYERS),
+                                       dtype="float32", param_dtype="float32")
+            for shape, variant in SP_TRAIN_CASES:
+                self._train_gate(base, self.mesh_of(shape), shape, variant,
+                                 label="sp")
+
+    def dryrun_sp(self) -> None:
+        """The SP_RECORDS under seqpar (``_mesh_records``' gates)."""
+        self._mesh_records(SP_RECORDS, (), "sp")
+
+    def sp_beside_baseline(self) -> None:
+        """(rank 0, at the end of the run) each seqpar record beside the
+        baseline record of the same cell written earlier in this run: step
+        ms, compute and NCCL ms by rank, peak a card, batch held,
+        collectives; a `dryrun sp vs baseline:` line each."""
+        from repro_torch.launch import dryrun
+        out = ROOT / "results" / "dryrun_torch"
+        keys = ("global_batch", "step_ms", "compute_ms_by_rank",
+                "nccl_ms_by_rank", "peak_mem_gb_by_rank", "peak_mem_gb",
+                "bytes_one_sequence_peak", "bytes_one_row_peak",
+                "collectives")
+        for arch, shape, mshape, variant in SP_RECORDS:
+            name = f"{arch}__{shape}__{dryrun.mesh_name(self.mesh_of(mshape))}"
+            recs = {v: json.loads((out / f"{name}{s}.json").read_text())
+                    for v, s in (("seqpar", f"__{variant}"),
+                                 ("baseline", ""))}
+            self.say("dryrun sp vs baseline: " + json.dumps({
+                "arch": arch, "shape": shape, "mesh": list(mshape),
+                **{k: {v: r.get(k) for v, r in recs.items()} for k in keys},
+                "card": recs["seqpar"].get("card")}))
 
     # -- Mamba and RWKV-6 on the mesh (the rec phases) -------------------
     def rec_phases(self) -> list:

@@ -34,8 +34,11 @@ their place:
     ``reduce_from`` (all-reduce forward, identity backward: the output of
     a row-parallel one), ``gather_from`` (all-gather forward; backward
     this card's slice where the gathered tensor feeds the same work on
-    every card, else a reduce-scatter: an FSDP weight) and
-    ``reduce_scatter`` (backward an all-gather).
+    every card, else a reduce-scatter: an FSDP weight, or the
+    sequence-parallel input of a column-parallel product),
+    ``reduce_scatter`` (backward an all-gather) and ``split_to`` (this
+    card's slice, backward an all-gather: out of a part every card
+    computed whole, to this card's rows of the sequence).
 
 Every call is counted by kind with the per-device link bytes of
 ``repro/launch/hlo_analysis.py::analyze_collectives`` (``collectives()``:
@@ -512,6 +515,18 @@ class _GatherFrom(torch.autograd.Function):
         return g.contiguous(), None, None, None, None
 
 
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, layout, entry, dim):
+        ctx.layout, ctx.entry, ctx.dim = layout, entry, dim
+        return _own_slice(x, layout, entry, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.layout, ctx.entry,
+                          ctx.dim), None, None, None
+
+
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, layout, entry, dim):
@@ -566,6 +581,16 @@ def reduce_scatter(x: torch.Tensor, layout: Optional[Layout], entry,
     if _trivial(layout, entry):
         return x
     return _ReduceScatter.apply(x, layout, entry, dim)
+
+
+def split_to(x: torch.Tensor, layout: Optional[Layout], entry,
+             dim: int) -> torch.Tensor:
+    """This card's slice on ``dim`` of an ``x`` that every card along
+    ``entry``'s axes holds whole; the backward all-gathers the gradient
+    (the cards' slices of it, each whole on its card)."""
+    if _trivial(layout, entry):
+        return x
+    return _SplitTo.apply(x, layout, entry, dim)
 
 
 def gather_whole(x: torch.Tensor, layout: Layout, spec: Spec) -> torch.Tensor:

@@ -482,7 +482,8 @@ def run_cell(arch: str, shape: str, out_dir: Path = DEFAULT_OUT, *,
     if case.kind == "decode":
         variant = "+".join(sorted(ST.variant_tokens(variant)
                                   | {DECODE_VARIANT}))
-    # sharding variants raise on one card, expdata and seqpar on a mesh too
+    # sharding variants raise on one card, seqpar on a mesh too for a
+    # config it does not cut yet
     cfg = ST.apply_variant_config(cfg, variant, mesh)
     dev = T.resolve_device(device)
     S = case.seq_len if seq_len is None else seq_len
@@ -551,9 +552,10 @@ def _not_fitting(out_dir: Path, rec: dict, why: str,
 
 def _cell(cfg, case, variant: str, model, dev, gen):
     """(fn, its inputs on ``dev``) of ``case``'s cell, ``model`` its
-    params (a train cell on a mesh built on the model's layout: its
-    sharding variants run only there)."""
-    lay = model.layout if case.kind == "train" else None
+    params (a train cell, or one of a sharding variant, on a mesh built on
+    the model's layout: those variants run only there)."""
+    sharding = ST.variant_tokens(variant) & set(ST.SHARDING_VARIANTS)
+    lay = model.layout if case.kind == "train" or sharding else None
     fn, kwargs, *_ = ST.build_cell(cfg, case, "meta", variant, mesh=lay,
                                    rules=lay and lay.rules)
     return fn, materialize(cfg, case, kwargs, model, dev, gen)
@@ -898,12 +900,16 @@ def _rows_that_fit(cfg, case, S, model, dev, gen, variant, batch: int,
 
 def _write(out_dir: Path, rec: dict,
            ranks: Optional[_Ranks] = None) -> None:
-    """The record's file (rank 0's on a mesh)."""
+    """The record's file (rank 0's on a mesh), named by the sharding
+    variant too where it has one, so that it sits beside the baseline's."""
     if ranks is not None and ranks.rank != 0:
         return
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    name = f"{rec['arch']}__{rec['shape']}__{rec['mesh']}.json"
+    sharding = sorted(ST.variant_tokens(rec["variant"])
+                      & set(ST.SHARDING_VARIANTS))
+    name = f"{rec['arch']}__{rec['shape']}__{rec['mesh']}" + "".join(
+        f"__{v}" for v in sharding) + ".json"
     (out_dir / name).write_text(json.dumps(rec, indent=1, default=str))
 
 

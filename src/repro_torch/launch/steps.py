@@ -13,9 +13,11 @@ On a mesh ``build_cell`` also returns the rules and the in / out spec
 trees, and every step runs there: prefill, decode and the train step
 (data parallelism over the data axes, tensor parallelism over "model",
 expert parallelism in the MoE layers, ZeRO-1 moments or a sharded
-Adafactor, ``micro8``, ``bf16grad``, ``fsdp`` and ``expdata``). The
-variants that only change sharding rules run only on a mesh; of them
-``seqpar`` still raises ``NotImplementedError`` (ROADMAP A9c item 4).
+Adafactor, ``micro8``, ``bf16grad``, ``fsdp``, ``expdata`` and ``seqpar``).
+The variants that only change sharding rules run only on a mesh; of them
+``seqpar`` runs for the configs whose layers are all attention with a
+dense or MoE MLP, and raises ``NotImplementedError`` for the others
+(``transformer.A9C_SEQPAR``).
 ``lower_cell`` has no counterpart: eager PyTorch lowers nothing; the
 cell's step runs as it is called.
 
@@ -28,7 +30,9 @@ are accumulated in ``grad_dtype`` and averaged over the data axes (in
 ``grad_dtype``); gradients that are a card's part (``transformer.
 is_partial``) are summed over "model" in the same all-reduce; the
 global norm sums each leaf's squares once (``MeshPlan.copies``); then the
-clip and ``optimizer.update`` with its ZeRO-1 slices.
+clip and ``optimizer.update`` with its ZeRO-1 slices. Under ``seqpar`` a
+microbatch whose sequence is cut (``Transformer.seq_plan``) also sums the
+norms' gradients over "model" (``MeshPlan.seq_reduce``).
 """
 from __future__ import annotations
 
@@ -49,8 +53,6 @@ from repro_torch.training import optimizer as OPT
 SHARDING_VARIANTS = ("seqpar", "expdata", "fsdp")
 MULTI_CARD = ("the multi-card slice (build_cell(mesh=), run_cell(mesh=)): "
               "one card has nothing to shard")
-# the sharding variants a mesh does not run yet
-WAITING = {"seqpar": T.A9C_SEQPAR}
 
 
 def variant_tokens(variant: str) -> set[str]:
@@ -70,19 +72,21 @@ def apply_variant_config(cfg: ModelConfig, variant: str,
     (the kernels' walk, the plain path's single step), so there is nothing
     to switch, and it raises as an unknown token does. The sharding-only
     variants raise ``NotImplementedError`` without a ``mesh``, and
-    ``seqpar`` on one too (``WAITING``); ``fsdp`` and ``expdata`` change
-    only ``rules_for``'s rules."""
+    ``seqpar`` on a mesh too for a config with a Mamba, RWKV, cross or
+    codebook layer (``transformer.seqpar_waits``); they change only
+    ``rules_for``'s rules."""
     toks = variant_tokens(variant)
     sharding = sorted(toks & set(SHARDING_VARIANTS))
     if sharding and mesh is None:
         raise NotImplementedError(
             f"variant {'+'.join(sharding)} only changes sharding rules, "
             f"which run on a mesh: {MULTI_CARD}")
-    waiting = [f"{t}: {WAITING[t]}" for t in sharding if t in WAITING]
-    if waiting:
-        raise NotImplementedError(f"variant {'; '.join(waiting)}")
+    if "seqpar" in toks and T.seqpar_waits(cfg):
+        raise NotImplementedError(f"variant seqpar: {cfg.name} has a "
+                                  f"recurrent, cross or codebook layer: "
+                                  f"{T.A9C_SEQPAR}")
     unknown = toks - {"vocabpad", "blockdispatch", "micro8", "bf16grad",
-                      "cacheappend", "fsdp", "expdata"}
+                      "cacheappend", "fsdp", "expdata", "seqpar"}
     if unknown:
         raise ValueError(f"unknown variant tokens {sorted(unknown)}")
     if "vocabpad" in toks:
@@ -181,7 +185,9 @@ class MeshPlan:
     """The train step's plan of a model on its mesh, per parameter name:
     ``reduce``, the mesh axes its gradient is all-reduced over (the data
     axes where the leaf is not sharded over them, "model" where a card's
-    gradient is a part: ``transformer.is_partial``); ``copies``, the cards
+    gradient is a part: ``transformer.is_partial``), and ``seq_reduce``
+    theirs for a microbatch whose sequence ``seqpar`` cuts (the norms' over
+    "model" too); ``copies``, the cards
     holding each shard of the reduced gradient (the global norm divides
     by it); ``zero``, the card's ZeRO-1 slice (``optimizer.ZeroLeaf``) or
     its sharded Adafactor leaf (``optimizer.FactorLeaf``) and
@@ -195,6 +201,7 @@ class MeshPlan:
     opt_shapes: dict
     data: tuple
     dp: int
+    seq_reduce: dict
 
 
 def mesh_plan(model: T.Transformer) -> MeshPlan:
@@ -208,7 +215,11 @@ def mesh_plan(model: T.Transformer) -> MeshPlan:
     full = {n: tuple(p.shape) for n, p in
             T.Transformer(cfg, device="meta").named_parameters()}
     data = tuple(a for a in ("pod", "data") if lay.sizes.get(a, 1) > 1)
-    reduce, copies, zero, shapes = {}, {}, {}, {}
+    # the plan of a pass whose sequence the rules cut (any S they divide)
+    sp = SH.logical_to_spec(lay, ("seq",), None, lay.rules)[0]
+    tp_sp = dataclasses.replace(model.tp, sp=sp if lay.size(sp) > 1
+                                else None)
+    reduce, seq_reduce, copies, zero, shapes = {}, {}, {}, {}, {}
     for name, p in model.named_parameters():
         axes, shape = T._axes_of(cfg, name), full[name]
         spec, ospec = lay.spec(axes, shape), olay.spec(axes, shape)
@@ -216,9 +227,10 @@ def mesh_plan(model: T.Transformer) -> MeshPlan:
         copies[name] = math.prod(n for a, n in lay.sizes.items()
                                  if a not in used)
         red = set(data) - used
-        if T.is_partial(cfg, model.tp, name):
-            red.add("model")
-        reduce[name] = tuple(a for a in lay.sizes if a in red)
+        for plan, out in ((model.tp, reduce), (tp_sp, seq_reduce)):
+            part = red | ({"model"} if T.is_partial(cfg, plan, name)
+                          else set())
+            out[name] = tuple(a for a in lay.sizes if a in part)
         if cfg.optimizer == "adafactor":
             zero[name], shapes[name] = _factor_leaf(lay, olay, axes, shape)
             continue
@@ -226,7 +238,7 @@ def mesh_plan(model: T.Transformer) -> MeshPlan:
         if z is not None:
             zero[name] = z
     plan = MeshPlan(lay, reduce, copies, zero, shapes, data,
-                    SH.mesh_axes_size(lay.sizes, data))
+                    SH.mesh_axes_size(lay.sizes, data), seq_reduce)
     object.__setattr__(model, "_mesh_plan", plan)
     return plan
 
@@ -324,8 +336,9 @@ def value_and_grad(cfg: ModelConfig, model: T.Transformer, batch: dict, *,
     On a mesh ``batch`` is global on every card and each microbatch's rows
     are sharded over the data axes (``Transformer._rows``); the loss,
     metrics and gradients come back averaged over them (the gradients in
-    ``grad_dtype``, parts summed over "model": ``MeshPlan.reduce``), equal
-    on every card that holds them."""
+    ``grad_dtype``, parts summed over "model": ``MeshPlan.reduce``, or
+    ``seq_reduce`` where ``seqpar`` cuts the sequence), equal on every card
+    that holds them."""
     params = dict(model.named_parameters())
     leaves = list(params.values())
     for p in leaves:
@@ -361,19 +374,29 @@ def value_and_grad(cfg: ModelConfig, model: T.Transformer, batch: dict, *,
                    for k in per_micro[0]}
     if model.layout is None:
         return loss, metrics, grads
-    return _reduce_over_mesh(model, loss, metrics, grads)
+    return _reduce_over_mesh(model, loss, metrics, grads,
+                             _seq_cut(model, B // nm,
+                                      batch["tokens"].shape[1]))
+
+
+def _seq_cut(model: T.Transformer, batch: int, seq: int) -> bool:
+    """True when ``seqpar`` cuts the sequence of a microbatch of ``batch``
+    global rows of ``seq`` tokens (``Transformer.seq_plan``)."""
+    return model.seq_plan(batch, seq).sp is not None
 
 
 def _reduce_over_mesh(model: T.Transformer, loss, metrics: dict,
-                      grads: dict):
+                      grads: dict, seq_cut: bool = False):
     """The cards' loss, metrics and gradients averaged over the data axes,
     the gradients' parts summed over "model" (one all-reduce a leaf, in
-    its dtype, and one for the metrics)."""
+    its dtype, and one for the metrics); ``seq_cut``: the parts of a
+    microbatch whose sequence ``seqpar`` cut (``MeshPlan.seq_reduce``)."""
     plan = mesh_plan(model)
     lay = plan.layout
+    reduce = plan.seq_reduce if seq_cut else plan.reduce
     for name, g in grads.items():
-        if plan.reduce[name]:
-            SH.all_reduce(g, lay, plan.reduce[name])
+        if reduce[name]:
+            SH.all_reduce(g, lay, reduce[name])
         if plan.dp > 1:
             g.div_(plan.dp)
     if plan.dp == 1:
@@ -388,12 +411,12 @@ def train_step_collectives(model: T.Transformer, batch_size: int,
                            n_micro: int,
                            seq_len: Optional[int] = None) -> dict:
     """The collectives of one sharded train step of ``batch_size``
-    sequences (of ``seq_len`` tokens: a MoE config needs it), by kind
-    (what ``sharding.collectives()`` counts): ``Transformer``'s
-    ``train_collectives`` for each microbatch, one all-reduce per gradient
-    with axes to reduce, one for the metrics over the data axes, one for
-    the global norm, and the optimizer's (``ZeroLeaf.calls`` /
-    ``FactorLeaf.calls``)."""
+    sequences (of ``seq_len`` tokens: a MoE config, or ``seqpar``, needs
+    it), by kind (what ``sharding.collectives()`` counts):
+    ``Transformer``'s ``train_collectives`` for each microbatch, one
+    all-reduce per gradient with axes to reduce, one for the metrics over
+    the data axes, one for the global norm, and the optimizer's
+    (``ZeroLeaf.calls`` / ``FactorLeaf.calls``)."""
     if model.layout is None:
         return {}
     plan = mesh_plan(model)
@@ -401,8 +424,11 @@ def train_step_collectives(model: T.Transformer, batch_size: int,
         else 1
     n = {k: v * nm for k, v in T.train_collectives(
         model, batch_size // nm, seq_len).items()}
+    reduce = (plan.seq_reduce if seq_len is not None
+              and _seq_cut(model, batch_size // nm, seq_len)
+              else plan.reduce)
     live = [a for a, k in plan.layout.sizes.items() if k > 1]
-    extra = {"all-reduce": sum(bool(r) for r in plan.reduce.values())
+    extra = {"all-reduce": sum(bool(r) for r in reduce.values())
              + (plan.dp > 1) + bool(live)}
     for z in plan.zero.values():
         for k, v in z.calls().items():

@@ -35,6 +35,18 @@ A cross layer is cut the same way: its K/V are projected from the whole
 vision tokens at ``wk``'s kv heads, its output all-reduced after ``wo``,
 and a static cache cut by rows (``TPPlan.cross_seq``) is read through the
 partial mode and the merge, every row valid.
+
+Sequence parallelism (``seqpar``, Megatron's: ``TPPlan.sp``, the residual
+stream's sequence cut over "model" in a prefill or a training pass): the
+residual stream and the norms hold this card's rows of the sequence. A
+layer's sharded part gathers them (``enter``: an all-gather, whose backward
+reduce-scatters the cards' parts of the input gradient) and leaves by a
+reduce-scatter of the partial sums over the sequence (``leave``, backward
+an all-gather) in place of the all-reduce. A layer whose heads or d_ff are
+not cut computes everything on the gathered sequence and keeps its rows
+(``sharding.split_to``); its input gradient is then whole on every card,
+and the gather's backward keeps this card's rows. The norms' gradients are
+a card's part (``transformer.is_partial``).
 """
 from __future__ import annotations
 
@@ -72,7 +84,10 @@ CACHE_AXES = ("batch", "kv_seq", "kv_heads", None)
 class TPPlan:
     """Where this card's part of the attention and dense-MLP layers lives:
     the spec entry of each sharded dim (None: replicated) and the card's
-    range of it. ``seq`` / ``s0`` (the decode cache's row shard and the
+    range of it. ``sp``, the residual stream's sequence entry under
+    ``seqpar`` (None: every card holds the whole sequence), is set per
+    prefill or training pass. ``seq`` / ``s0`` (the decode cache's row
+    shard and the
     global position of its row 0), ``cache_kv`` / ``cache_kv0`` (its kv
     heads) and ``cross_seq`` / ``cross_s0`` (a cross layer's cache rows,
     cut by their own count) are set per decode step from the cache's
@@ -101,6 +116,7 @@ class TPPlan:
     rhl: int = 0
     cross_seq: Any = None
     cross_s0: int = 0
+    sp: Any = None
 
 
 def tp_plan(cfg: ModelConfig, layout: SH.Layout) -> TPPlan:
@@ -189,6 +205,28 @@ def column_parallel(x: torch.Tensor, tp: Optional[TPPlan],
     return SH.copy_to(x, tp.layout, entry)
 
 
+def enter(x: torch.Tensor, tp: Optional[TPPlan], entry) -> torch.Tensor:
+    """The input of a layer's part sharded over ``entry`` (heads, d_ff):
+    with ``tp.sp`` this card's rows of the residual stream gathered over the
+    sequence (backward: the cards' parts of the gradient reduce-scattered
+    where ``entry`` cuts the work, this card's rows where every card did
+    it all), else ``column_parallel``."""
+    if tp is None or tp.sp is None:
+        return column_parallel(x, tp, entry)
+    return SH.gather_from(x, tp.layout, tp.sp, 1, scatter=entry is not None)
+
+
+def leave(out: torch.Tensor, tp: Optional[TPPlan], entry) -> torch.Tensor:
+    """A layer's output back to the residual stream: with ``tp.sp`` the
+    cards' partial sums reduce-scattered over the sequence, or this card's
+    rows where ``entry`` is not cut (``enter``), else ``row_parallel``."""
+    if tp is None or tp.sp is None:
+        return row_parallel(out, tp, entry)
+    if entry is None:
+        return SH.split_to(out, tp.layout, tp.sp, 1)
+    return SH.reduce_scatter(out, tp.layout, tp.sp, 1)
+
+
 def partial_leaves(cfg: ModelConfig, tp: Optional[TPPlan]) -> tuple:
     """The attention leaves whose gradient on a card is a part to be summed
     over "model": ``wk`` / ``wv`` (and their biases) where they are
@@ -271,13 +309,14 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: Params,
                       vision_kv: Optional[torch.Tensor] = None,
                       impl: Optional[str] = None,
                       tp: Optional[TPPlan] = None):
-    """Full-sequence (prefill) attention. x: (B, S, D); positions: (B, S);
+    """Full-sequence (prefill) attention. x: (B, S, D), or this card's
+    rows of the sequence under ``tp.sp``; positions: (B, S);
     vision_kv (B, Nv, D) for cross layers. Returns (out (B, S, D), {"k",
     "v"} of shape (B, S, KVH, Dh), or (B, Nv, KVH, Dh) for a cross layer,
     whose K/V is static across decode). With ``tp`` the heads and the K/V
-    are this card's (``wk``'s kv heads) and ``out`` is all-reduced."""
-    if tp is not None:
-        x = column_parallel(x, tp, tp.heads)
+    are this card's (``wk``'s kv heads) and ``out`` is all-reduced (under
+    ``tp.sp`` reduce-scattered to this card's rows)."""
+    x = enter(x, tp, tp and tp.heads)
     q = _q(p, x)
     cross = spec.attn_type == "cross"
     if cross:
@@ -291,7 +330,7 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: Params,
     out = ops.flash_attention(q, kq.contiguous(), vq.contiguous(),
                               causal=not cross, window=window,
                               softcap=cfg.attn_softcap, impl=impl)
-    return (row_parallel(_out_proj(out, p["wo"]), tp, tp and tp.heads),
+    return (leave(_out_proj(out, p["wo"]), tp, tp and tp.heads),
             {"k": k, "v": v})
 
 
@@ -468,13 +507,13 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 def mlp_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 tp: Optional[TPPlan] = None) -> torch.Tensor:
     """The dense MLP; with ``tp`` at this card's d_ff columns, the output
-    all-reduced."""
+    all-reduced (under ``tp.sp``: on the gathered sequence, the output
+    reduce-scattered to this card's rows)."""
     dt = x.dtype
-    if tp is not None:
-        x = column_parallel(x, tp, tp.ff)
+    x = enter(x, tp, tp and tp.ff)
     h = x @ p["w_up"].to(dt)
     if "w_gate" in p:
         h = _act(cfg.mlp_act, x @ p["w_gate"].to(dt)) * h
     else:
         h = _act(cfg.mlp_act, h)
-    return row_parallel(h @ p["w_down"].to(dt), tp, tp and tp.ff)
+    return leave(h @ p["w_down"].to(dt), tp, tp and tp.ff)

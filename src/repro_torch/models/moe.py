@@ -44,6 +44,14 @@ one-sequence prefill) each card takes its slice of the flat tokens first
 and gathers the output at the end, so the backward is the same as for a
 sharded batch.
 
+Under ``seqpar`` (``TPPlan.sp``: x holds this card's rows of the sequence)
+the layer first gathers the sequence over "model" (before the flatten and
+the token gather, so the global token order, the capacity and the drop
+order are the unsharded model's; backward: this card's rows, the gradient
+being whole over "model" there), and its output leaves by a reduce-scatter
+of the sequence over "model" in place of the all-reduce (by this card's
+rows where the experts are not cut over it).
+
 The router's gradient has two parts: the aux losses', which every card
 computes whole from the global logits, and the combine weights', which each
 card has only for its experts and d_ff slice. The combine weights and the
@@ -207,8 +215,12 @@ class EPPlan:
     the rows came replicated over them (``narrow``); the token axes that
     also shard the experts or their d_ff (``rs``: the combine is
     reduce-scattered over them) or do not (``own``: a card keeps its rows);
-    the other expert axes (``ar``: all-reduced); this card's experts
-    [e0, e0 + el)."""
+    the other expert axes (``ar``: the gradients of the expert path's
+    inputs all-reduced over them, and the output, but over the sequence
+    axes ``seq``); this card's experts [e0, e0 + el). ``seq``: the
+    residual stream's sequence entry under ``seqpar`` (None: whole), whose
+    exit is a reduce-scatter where its axes are in ``ar`` (``seq_sum``),
+    else this card's rows."""
 
     layout: SH.Layout
     ft: tuple
@@ -218,6 +230,19 @@ class EPPlan:
     ar: tuple
     e0: int
     el: int
+    seq: tuple = ()
+    seq_sum: bool = False
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """This card's rows (B, S_l, D) -> the sequence whole (B, S, D)."""
+        return SH.gather_from(x, self.layout, self.seq, 1)
+
+    def leave(self, y: torch.Tensor) -> torch.Tensor:
+        """The tokens' sums (B, S, D), but over ``seq`` -> this card's
+        rows (B, S_l, D)."""
+        if self.seq_sum:
+            return SH.reduce_scatter(y, self.layout, self.seq, 1)
+        return SH.split_to(y, self.layout, self.seq, 1)
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """This card's flat tokens (T_l, D) -> the global (T, D)."""
@@ -237,7 +262,8 @@ class EPPlan:
             y = SH.reduce_scatter(y, self.layout, self.rs, 0)
         elif self.own:
             y = SH._own_slice(y, self.layout, self.own, 0)
-        y = SH.reduce_from(y, self.layout, self.ar)
+        y = SH.reduce_from(y, self.layout, tuple(
+            a for a in self.ar if a not in self.seq))
         if self.narrow:
             y = SH.gather_from(y, self.layout, self.ft, 0, scatter=True)
         return y
@@ -250,8 +276,10 @@ class EPPlan:
         ``recompute_out``."""
         ft, rs, ar, nar = bool(self.ft), bool(self.rs), bool(self.ar), \
             self.narrow
-        head = {"all-gather": ft}
-        tail = {"reduce-scatter": rs, "all-reduce": ar,
+        sq, ssum = bool(self.seq), self.seq_sum
+        head = {"all-gather": ft + sq}
+        tail = {"reduce-scatter": rs + ssum,
+                "all-reduce": any(a not in self.seq for a in self.ar),
                 "all-gather": nar}
         n: dict = {}
 
@@ -262,7 +290,7 @@ class EPPlan:
         add(head, 1 + recompute)
         add(tail, 1 + (recompute if recompute_out else 0))
         if train:
-            add({"reduce-scatter": ft + nar, "all-gather": rs,
+            add({"reduce-scatter": ft + nar, "all-gather": rs + sq,
                  "all-reduce": 2 * ar})
         return {k: v for k, v in n.items() if v}
 
@@ -271,7 +299,8 @@ def ep_plan(cfg: ModelConfig, tp, rows, T: int,
             train: bool = False) -> EPPlan:
     """The ``EPPlan`` of a MoE call over ``T`` global tokens whose rows
     came sharded by spec entry ``rows`` (None: replicated) under the
-    card's ``layers.TPPlan``; ``train``: a differentiable call."""
+    card's ``layers.TPPlan`` (its ``sp``: the sequence under ``seqpar``);
+    ``train``: a differentiable call."""
     lay = tp.layout
 
     def live(entry):
@@ -293,7 +322,12 @@ def ep_plan(cfg: ModelConfig, tp, rows, T: int,
         raise NotImplementedError(
             f"T={T} does not divide over the data axes that shard the "
             "experts: their gradients would be one card's")
-    return EPPlan(lay, ft, bool(ft) and not got, rs, own, ar, tp.e0, tp.el)
+    seq = live(tp.sp)
+    if set(seq) & set(ft):
+        raise NotImplementedError(f"the sequence over {seq} against "
+                                  f"flat_tokens over {ft}")
+    return EPPlan(lay, ft, bool(ft) and not got, rs, own, ar, tp.e0, tp.el,
+                  seq, bool(seq) and set(seq) <= set(ar))
 
 
 def _local_slots(slot_of, token_of_slot, tk_of_slot, e0: int, el: int,
@@ -315,18 +349,22 @@ def moe_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     ``ops.moe_route`` (``ops.moe_gating`` on the dense path). With ``tp``
     (the card's ``layers.TPPlan`` on a mesh) ``x`` is this card's rows,
     sharded by spec entry ``rows`` (None: every card has all of them), and
-    ``p`` its expert shards (module docstring)."""
+    ``p`` its expert shards (module docstring); under ``tp.sp`` ``x`` is
+    this card's rows of the sequence, and so is the output."""
+    if tp is not None and cfg.moe_impl == "dense":
+        raise NotImplementedError("the dense MoE oracle runs on one card")
+    ep = None
+    if tp is not None:
+        S = x.shape[1] * tp.layout.size(tp.sp)
+        ep = ep_plan(cfg, tp, rows, x.shape[0] * S * tp.layout.size(rows),
+                     train=torch.is_grad_enabled() and x.requires_grad)
+        x = ep.enter(x)
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.moe_top_k
     x_flat = x.reshape(B * S, D)
     if cfg.moe_impl == "dense":
-        if tp is not None:
-            raise NotImplementedError("the dense MoE oracle runs on one card")
         return _dense(cfg, p, x_flat, B, S, impl)
-    ep = None
-    if tp is not None:
-        ep = ep_plan(cfg, tp, rows, B * S * tp.layout.size(rows),
-                     train=torch.is_grad_enabled() and x.requires_grad)
+    if ep is not None:
         x_flat = ep.gather(x_flat)
     T = x_flat.shape[0]
     logits = x_flat.float() @ p["router"]                       # (T, E) f32
@@ -353,9 +391,9 @@ def moe_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     y = y.reshape(el, nb, cap, D).transpose(0, 1).reshape(nb, el * cap, D)
     out = _combine(_pad_row(y), weights, slot_of, token_of_slot,
                    tk_of_slot).reshape(T, D)
-    if ep is not None:
-        out = ep.out(out)
-    return out.reshape(B, S, D), aux
+    if ep is None:
+        return out.reshape(B, S, D), aux
+    return ep.leave(ep.out(out).reshape(B, S, D)), aux
 
 
 def _dense(cfg: ModelConfig, p: Params, x_flat: torch.Tensor, B: int,

@@ -130,14 +130,30 @@ def check_trainable(cfg: ModelConfig) -> None:
 
 
 # what still waits on a mesh, by its item of ROADMAP A9c
-A9C_SEQPAR = "ROADMAP A9c item 4 (seqpar)"
+A9C_SEQPAR = ("ROADMAP A9c item 4b (seqpar for the recurrent, "
+              "cross-attention and codebook layers)")
+
+
+def seqpar_waits(cfg: ModelConfig) -> bool:
+    """True when ``cfg`` has a layer that ``seqpar`` does not cut yet: a
+    Mamba or RWKV layer (its scan and token shift read the sequence in
+    order), a cross layer or codebooks (``A9C_SEQPAR``)."""
+    return bool(cfg.n_codebooks) or any(
+        spec.kind != "attn" or spec.attn_type == "cross"
+        for spec in cfg.layer_specs())
 
 
 def is_partial(cfg: ModelConfig, tp, name: str) -> bool:
     """True when a card's gradient of parameter ``name`` is its part, to be
     summed over "model" (``layers.partial_leaves``,
-    ``ssm.partial_leaves``)."""
+    ``ssm.partial_leaves``; under ``seqpar``, ``tp.sp`` set, the norms,
+    which see only this card's rows of the sequence)."""
     parts = name.split(".")
+    if tp is not None and tp.sp is not None and (
+            name == "final_norm" or (len(parts) == 3
+                                     and parts[2].startswith(("norm",
+                                                              "post_norm")))):
+        return True
     if len(parts) != 4 or parts[2] != "mixer":
         return False
     kind = cfg.groups[int(parts[0][1:])][0][int(parts[1])].kind
@@ -398,18 +414,62 @@ class Transformer(nn.Module):
                 for k, v in p.items()}
 
     # -- pieces ----------------------------------------------------------------
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def seq_plan(self, batch: int, seq: int):
+        """The card's plan for a prefill or training pass over a global
+        batch of ``batch`` rows of ``seq`` tokens: the model's ``TPPlan``
+        with ``sp``, the residual stream's sequence entry (the reference's
+        ``("batch", "seq", None)`` resolved under the rules: None on one
+        card, at the default rules, where ``seq`` does not divide the
+        axis, and at decode's S = 1)."""
+        if self.tp is None:
+            return None
+        lay = self.layout
+        sp = lay.spec(("batch", "seq", None), (batch, seq,
+                                               self.cfg.d_model))[1]
+        if lay.size(sp) == 1:
+            return self.tp
+        if seqpar_waits(self.cfg):
+            raise NotImplementedError(f"{self.cfg.name}: {A9C_SEQPAR}")
+        tp = self.tp
+        for what, entry in (("heads", tp.heads), ("ff", tp.ff),
+                            ("vocab", self._embed_vocab[0]),
+                            ("vocab", self._unembed_vocab[0])):
+            if lay.size(entry) > 1 and SH.entry_axes(entry) != \
+                    SH.entry_axes(sp):
+                raise NotImplementedError(
+                    f"{self.cfg.name}: {what} over {entry} against the "
+                    f"sequence over {sp}")
+        return dataclasses.replace(tp, sp=sp)
+
+    def counted_plan(self, batch: Optional[int], seq: Optional[int]):
+        """The plan of a pass of ``batch`` global rows of ``seq`` tokens
+        whose collectives a formula counts (``seq_plan``; the model's own
+        where no shape is given, which rules that cut the sequence
+        need)."""
+        if batch is not None and seq is not None:
+            return self.seq_plan(batch, seq)
+        if self.layout.rules.rules.get("seq"):
+            raise ValueError("under seqpar the collectives of a pass need "
+                             "its batch and seq")
+        return self.tp
+
+    def _embed(self, tokens: torch.Tensor, tp=None) -> torch.Tensor:
         """tokens (B, S), or (B, S, C) with codebooks: the C embeddings
         summed in codebook order. On a mesh with the vocab sharded, a
         masked lookup of this card's rows (of each codebook, summed),
-        all-reduced once."""
+        all-reduced once. Under ``tp.sp`` this card's rows of the sequence:
+        the lookup's sum reduce-scattered over it, or, where the vocab is
+        not cut, every row looked up and this card's kept (``split_to``:
+        the gradient gathered whole, as the unembedding's of a tied
+        table)."""
         emb = self._full("embed", self.embed).to(getattr(torch,
                                                          self.cfg.dtype))
         C = self.cfg.n_codebooks
+        sp = None if tp is None else tp.sp
         if self.tp is None or self._embed_vocab[0] is None:
             if C:
                 return sum(emb[c][tokens[..., c]] for c in range(C))
-            return emb[tokens]
+            return SH.split_to(emb[tokens], self.layout, sp, 1)
         entry, v0, n = self._embed_vocab
 
         def lookup(table, ids):
@@ -420,15 +480,25 @@ class Transformer(nn.Module):
 
         h = (sum(lookup(emb[c], tokens[..., c]) for c in range(C)) if C
              else lookup(emb, tokens))
+        if sp is not None:
+            return SH.reduce_scatter(h.to(emb.dtype), self.layout, sp, 1)
         return SH.reduce_from(h.to(emb.dtype), self.layout, entry)
 
-    def _unembed(self, h: torch.Tensor) -> torch.Tensor:
+    def _unembed(self, h: torch.Tensor, tp=None) -> torch.Tensor:
         """Logits (B, S, Vp), or (B, S, C, Vp) with codebooks; padded vocab
         rows masked to -1e30. On a mesh this card's vocab columns (``h``'s
-        gradient all-reduced over them in the backward)."""
+        gradient all-reduced over them in the backward); under ``tp.sp``
+        ``h`` is this card's rows, all-gathered over the sequence first
+        (backward: reduce-scattered, or this card's rows where the vocab is
+        not cut)."""
         cfg = self.cfg
         if self.tp is not None:
-            h = SH.copy_to(h, self.layout, self._unembed_vocab[0])
+            entry = self._unembed_vocab[0]
+            if tp is not None and tp.sp is not None:
+                h = SH.gather_from(h, self.layout, tp.sp, 1,
+                                   scatter=entry is not None)
+            else:
+                h = SH.copy_to(h, self.layout, entry)
         if cfg.tie_embeddings:
             logits = h @ self._full("embed", self.embed).to(h.dtype).T
         elif cfg.n_codebooks:
@@ -474,14 +544,22 @@ class Transformer(nn.Module):
         ``out_proj``; per RWKV layer the all-reduce after ``wo``, and its
         channel mix's reduce-scatter of v and all-gather of r * v; per
         dense MLP the all-reduce after ``w_down``; per MoE layer its
-        ``moe.EPPlan``'s.
+        ``moe.EPPlan``'s. Under ``seqpar`` (a prefill whose sequence is cut:
+        ``seq_plan``) the embedding's all-reduce is a reduce-scatter (none
+        where the vocab is not cut), each layer's all-reduce a
+        reduce-scatter after an all-gather of its input (only the gather
+        where its heads or d_ff are not cut), and the unembedding gathers
+        the sequence.
         A dim sharded over axes of size 1 is no collective;
         ``gather_logits`` is not part of a step."""
         if self.tp is None:
             return {}
-        tp = self.tp if cache is None else cache.plan(self)[0]
+        tp = (self.counted_plan(batch, seq) if cache is None
+              else cache.plan(self)[0])
         live = lambda entry: self.layout.size(entry) > 1   # noqa: E731
-        n = {"all-reduce": int(live(self._embed_vocab[0])), "all-gather": 0}
+        sp, vocab = live(tp.sp), live(self._embed_vocab[0])
+        n = {"all-reduce": int(vocab and not sp), "all-gather": int(sp),
+             "reduce-scatter": int(vocab and sp)}
         moe = {}
         if self.cfg.n_experts:
             if cache is not None:
@@ -495,7 +573,7 @@ class Transformer(nn.Module):
                               batch * seq).collectives()
         for spec in self.cfg.layer_specs():
             if spec.kind == "attn":
-                n["all-reduce"] += live(tp.heads)
+                _exit(n, sp, live(tp.heads))
                 seq = tp.cross_seq if spec.attn_type == "cross" else tp.seq
                 if cache is not None and live(seq):
                     n["all-gather"] += 1 + live(tp.heads)
@@ -506,7 +584,8 @@ class Transformer(nn.Module):
                 n["all-reduce"] += r
                 n["all-gather"] += r
                 n["reduce-scatter"] = n.get("reduce-scatter", 0) + r
-            n["all-reduce"] += spec.mlp == "dense" and live(tp.ff)
+            if spec.mlp == "dense":
+                _exit(n, sp, live(tp.ff))
             if spec.mlp == "moe":
                 for k, v in moe.items():
                     n[k] = n.get(k, 0) + v
@@ -620,9 +699,11 @@ class Transformer(nn.Module):
         of the logits and its cache (``wk``'s kv heads, every position)."""
         if vision_embeds is not None:
             vision_embeds = self._rows(vision_embeds)
-        tokens = self._rows(tokens)
-        h = self._embed(tokens)
         B, S = tokens.shape[:2]
+        tp = self.seq_plan(B, S)
+        tokens = self._rows(tokens)
+        h = self._embed(tokens, tp)
+        B = tokens.shape[0]
         positions = torch.arange(S, device=h.device).expand(B, S)
         vision_kv = self._vision_kv(vision_embeds, h.dtype)
         caches = {}
@@ -633,7 +714,7 @@ class Transformer(nn.Module):
                     h, new, _ = self._layer(spec, views[li][r], h,
                                             positions=positions,
                                             vision_kv=vision_kv, impl=impl,
-                                            tp=self.tp, prefix=f"g{gi}.{li}")
+                                            tp=tp, prefix=f"g{gi}.{li}")
                     per_pos[li].append(new)
             caches[f"g{gi}"] = tuple(
                 {"mixer": {name: torch.stack([st[name] for st in sts])
@@ -641,7 +722,7 @@ class Transformer(nn.Module):
                 for sts in per_pos)
         h = L.rms_norm(h, self._full("final_norm", self.final_norm),
                        self.cfg.norm_eps)
-        return self._unembed(h), caches
+        return self._unembed(h, tp), caches
 
     def forward(self, tokens: torch.Tensor, *,
                 vision_embeds: Optional[torch.Tensor] = None,
@@ -654,16 +735,17 @@ class Transformer(nn.Module):
 
     def _period(self, period, views: list, h: torch.Tensor,
                 positions: torch.Tensor, vision_kv: Optional[torch.Tensor],
-                impl: Optional[str], gi: int = 0):
+                impl: Optional[str], gi: int = 0, tp=None):
         """One repeat of group ``gi``'s period in training: (h, lb_loss,
         z_loss), the aux losses summed over its MoE layers (the reference's
-        scan body); cross layers attend over ``vision_kv``."""
+        scan body); cross layers attend over ``vision_kv``. ``tp``: the
+        pass's plan (``seq_plan``)."""
         lb = torch.zeros((), dtype=torch.float32, device=h.device)
         z = torch.zeros((), dtype=torch.float32, device=h.device)
         for li, (spec, p) in enumerate(zip(period, views)):
             h, _, aux = self._layer(spec, p, h, positions=positions,
                                     vision_kv=vision_kv, impl=impl,
-                                    tp=self.tp, prefix=f"g{gi}.{li}")
+                                    tp=tp, prefix=f"g{gi}.{li}")
             if aux is not None:
                 lb, z = lb + aux["lb_loss"], z + aux["z_loss"]
         return h, lb, z
@@ -679,11 +761,15 @@ class Transformer(nn.Module):
         layers). Under ``cfg.remat`` every period is recomputed in the
         backward, so each attention and scan layer's kernels run twice a
         step. On a mesh ``tokens`` are this card's batch rows (the train
-        step takes them) and the logits its vocab shard."""
+        step takes them: ``row_entry`` their spec) and the logits its vocab
+        shard; under ``seqpar`` the residual stream holds this card's rows
+        of the sequence (``seq_plan``)."""
         cfg = self.cfg
         check_trainable(cfg)
-        h = self._embed(tokens)
         B, S = tokens.shape[:2]
+        tp = None if self.tp is None else self.seq_plan(
+            B * self.layout.size(self.row_entry), S)
+        h = self._embed(tokens, tp)
         positions = torch.arange(S, device=h.device).expand(B, S)
         vision_kv = self._vision_kv(vision_embeds, h.dtype)
         lb_tot = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -692,7 +778,7 @@ class Transformer(nn.Module):
             lbs, zs = [], []
             for r in range(rep):
                 args = (period, [v[r] for v in views], h, positions,
-                        vision_kv, impl, gi)
+                        vision_kv, impl, gi, tp)
                 if cfg.remat:
                     h, lb, z = checkpoint(self._period, *args,
                                           use_reentrant=False)
@@ -704,7 +790,7 @@ class Transformer(nn.Module):
             z_tot = z_tot + torch.stack(zs).sum()
         h = L.rms_norm(h, self._full("final_norm", self.final_norm),
                        cfg.norm_eps)
-        return self._unembed(h), {"lb_loss": lb_tot, "z_loss": z_tot}
+        return self._unembed(h, tp), {"lb_loss": lb_tot, "z_loss": z_tot}
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor,
@@ -789,6 +875,19 @@ class Transformer(nn.Module):
         h = L.rms_norm(h, self._full("final_norm", self.final_norm),
                        self.cfg.norm_eps)
         return self._unembed(h)[:, 0], cache
+
+
+def _exit(n: dict, sp: bool, cut: bool, gathers: int = 1,
+          sums: int = 1) -> None:
+    """Add a tensor-parallel layer's collectives to ``n``: ``sums``
+    all-reduces where its heads or d_ff are ``cut``; under ``sp``
+    (``seqpar``) ``gathers`` all-gathers of its input or of its output's
+    gradient and, where ``cut``, ``sums`` reduce-scatters instead."""
+    if sp:
+        n["all-gather"] += gathers
+        n["reduce-scatter"] = n.get("reduce-scatter", 0) + sums * cut
+    else:
+        n["all-reduce"] += sums * cut
 
 
 class ShardedCache(dict):
@@ -1089,15 +1188,25 @@ def train_collectives(model: Transformer, batch: Optional[int] = None,
     ``batch`` global rows of ``seq`` tokens (a MoE config needs both);
     under ``fsdp`` an all-gather of every sharded leaf at each use (the
     recompute gathers a period's again) and a reduce-scatter of its
-    gradient."""
+    gradient. Under ``seqpar`` (``seq_plan`` of ``batch`` and ``seq``
+    cuts the sequence) each of those layer all-reduces is a reduce-scatter
+    (the exit's, and its entry's gradient) with an all-gather (the entry's,
+    recomputed as it is, and its exit's gradient), or only the all-gathers
+    where the heads or d_ff are not cut; the embedding's all-reduce a
+    reduce-scatter (none where the vocab is not cut) and its gradient an
+    all-gather; the unembedding's input an all-gather and its gradient a
+    reduce-scatter (none where the vocab is not cut)."""
     if model.tp is None:
         return {}
-    cfg, tp, lay = model.cfg, model.tp, model.layout
+    cfg, lay = model.cfg, model.layout
+    tp = model.counted_plan(batch, seq)
     live = lambda entry: lay.size(entry) > 1     # noqa: E731
-    n = {"all-reduce": int(live(model._embed_vocab[0])),
-         "all-gather": 0, "reduce-scatter": 0}
-    if live(model._unembed_vocab[0]):
-        n["all-reduce"] += 3
+    sp = live(tp.sp)
+    vocab_in = live(model._embed_vocab[0])
+    vocab_out = live(model._unembed_vocab[0])
+    n = {"all-reduce": 2 * vocab_out, "all-gather": 0, "reduce-scatter": 0}
+    _exit(n, sp, vocab_in, gathers=sp)           # the embedding
+    _exit(n, sp, vocab_out, gathers=sp)          # the unembedding's input
     if cfg.n_vision_tokens and live(tp.heads):
         n["all-reduce"] += 1
     top = {"embed": 1 + cfg.tie_embeddings, "final_norm": 1, "lm_head": 1,
@@ -1119,16 +1228,18 @@ def train_collectives(model: Transformer, batch: Optional[int] = None,
             last = li == len(period) - 1
             tail = not (cfg.remat and last and not cfg.use_post_norms)
             if spec.kind == "attn":
-                n["all-reduce"] += rep * (runs + 1) * live(tp.heads)
+                _exit(n, sp, live(tp.heads), rep * (runs + 1),
+                      rep * (runs + 1))
             elif spec.kind == "mamba" and live(tp.inner):
                 n["all-reduce"] += rep * (2 * runs + 2)
             elif spec.kind == "rwkv" and live(tp.rwkv):
                 n["all-reduce"] += rep * (runs + 2)
                 n["reduce-scatter"] += rep * runs
                 n["all-gather"] += rep * (runs - (cfg.remat and last) + 1)
-            if spec.mlp == "dense" and live(tp.ff):
+            if spec.mlp == "dense":
                 recomputed = runs - (not tail)
-                n["all-reduce"] += rep * (recomputed + 1)
+                _exit(n, sp, live(tp.ff), rep * (runs + 1),
+                      rep * (recomputed + 1))
             if spec.mlp == "moe":
                 moe = MOE.ep_plan(
                     cfg, tp, lay.spec(("batch",), (batch,))[0],

@@ -208,11 +208,13 @@ def test_train_cell_specs_match_reference(trees, arch, mesh_name, variant):
 @pytest.mark.parametrize("variant,item", [("expdata", "A9c item 1"),
                                           ("seqpar", "A9c item 4")])
 def test_waiting_sharding_variants_raise_on_a_mesh(variant, item):
-    """The sharding variants a mesh does not run yet raise naming their
-    ROADMAP A9c item, in ``build_cell`` and ``apply_variant_config``:
-    ``seqpar`` (item 4). ``expdata`` (item 1, done) builds on a mesh for a
-    dense and a MoE config, granite's experts over ("data", "model"), and
-    no message of the port names item 1 any more."""
+    """The sharding variants of ROADMAP A9c on a mesh. ``expdata`` (item
+    1, done) builds on a mesh for a dense and a MoE config, granite's
+    experts over ("data", "model"), and no message of the port names item
+    1 any more. ``seqpar`` (item 4, done for the attention configs) builds
+    qwen2's train cell with the residual stream's sequence over "model"
+    (the tokens' spec) at the baseline's shapes, and raises for rwkv6
+    naming item 4b, in ``build_cell`` and ``apply_variant_config``."""
     mesh = _Mesh(2, 2)
     lay = SH.Layout(mesh.shape, {"data": 1, "model": 0}, SH.ShardingRules())
     cfg = get_config("qwen2-1.5b")
@@ -227,12 +229,21 @@ def test_waiting_sharding_variants_raise_on_a_mesh(variant, item):
             None, ("data", "model"), None, None)
         assert kw["params"].g0[0].mlp["w_gate"].shape == (24, 8, 1024, 512)
         assert (kw["params"].tp.e0, kw["params"].tp.el) == (16, 8)
-        assert item not in str(ST.WAITING)
+        assert item not in T.A9C_SEQPAR
         return
-    with pytest.raises(NotImplementedError, match=item):
-        ST.apply_variant_config(cfg, variant, mesh)
-    with pytest.raises(NotImplementedError, match=item):
-        ST.build_cell(cfg, SHAPES["train_4k"], "meta", variant, mesh=lay)
+    assert ST.apply_variant_config(cfg, variant, mesh) == cfg
+    _, kw, _, rules, ins, _ = ST.build_cell(cfg, SHAPES["train_4k"], "meta",
+                                            variant, mesh=lay)
+    assert rules.rules["seq"] == ("model",)
+    assert ins["batch"]["tokens"] == ("data", "model")
+    assert kw["params"].g0[0].mixer["wq"].shape == (28, 1536, 6, 128)
+    assert kw["params"].g0[0].norm1.shape == (28, 1536)
+    assert kw["params"].seq_plan(256, 4096).sp == "model"
+    rwkv = get_config("rwkv6-1.6b")
+    with pytest.raises(NotImplementedError, match=f"{item}b"):
+        ST.apply_variant_config(rwkv, variant, mesh)
+    with pytest.raises(NotImplementedError, match=f"{item}b"):
+        ST.build_cell(rwkv, SHAPES["train_4k"], "meta", variant, mesh=lay)
 
 
 def test_resolver_cases_as_the_reference():
@@ -322,8 +333,8 @@ def test_sharded_cell_on_the_meta_device():
     experts over "model", kimi-k2's Adafactor factors sliced), Jamba and
     rwkv6 build (their channels, heads and states over "model"), vision
     and musicgen too (the cross cache at its vision tokens' rows, the
-    codebook embedding over vocab); the sharding variants that still wait
-    raise naming their ROADMAP A9c item."""
+    codebook embedding over vocab); ``seqpar`` and ``fsdp+seqpar`` build
+    qwen2's train cell, rwkv6's raising naming ROADMAP A9c item 4b."""
     lay = SH.Layout({"data": 1, "model": 4}, {"data": 0, "model": 2},
                     SH.ShardingRules())
     fn, kw, donate, rules, ins, outs = ST.build_cell(
@@ -412,10 +423,19 @@ def test_sharded_cell_on_the_meta_device():
     _, kw, *_ = ST.build_cell(get_config("qwen2-1.5b"), SHAPES["train_4k"],
                               "meta", "expdata", mesh=lay)
     assert kw["params"].g0[0].mixer["wq"].shape == (28, 1536, 3, 128)
-    for variant, item in (("seqpar", "A9c item 4"),
-                          ("fsdp+seqpar", "A9c item 4")):
-        with pytest.raises(NotImplementedError, match=item):
-            ST.build_cell(get_config("qwen2-1.5b"), SHAPES["train_4k"],
+    # seqpar (A9c item 4) builds qwen2's train cell, fsdp's D dim cut too;
+    # rwkv6's waits for item 4b
+    for variant, shape in (("seqpar", (28, 1536, 3, 128)),
+                           ("fsdp+seqpar", (28, 1536, 3, 128))):
+        _, kw, _, rules, ins, _ = ST.build_cell(
+            get_config("qwen2-1.5b"), SHAPES["train_4k"], "meta", variant,
+            mesh=lay)
+        assert rules.rules["seq"] == ("model",)
+        assert ins["batch"]["tokens"] == ("data", "model")
+        assert kw["params"].g0[0].mixer["wq"].shape == shape
+        assert kw["params"].g0[0].mlp["w_up"].shape == (28, 1536, 2240)
+        with pytest.raises(NotImplementedError, match="A9c item 4b"):
+            ST.build_cell(get_config("rwkv6-1.6b"), SHAPES["train_4k"],
                           "meta", variant, mesh=lay)
 
 
