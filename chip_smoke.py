@@ -169,9 +169,18 @@ is the tensor- and expert-parallel mode on four cards of one host (the
 default run above is unchanged). It exits non-zero when fewer than 4 cards are
 visible, builds the kernels once, then starts one process a card
 (`torch.multiprocessing` spawn, NCCL, a 300 s process-group timeout so a
-hung rank fails the run; any rank's failure fails it). On a (data 1,
-model 4) mesh (train tp: also (2, 2) and (4, 1)), under the reference's
-sharding rules:
+hung rank fails the run; any rank's failure fails it).
+
+    python3 chip_smoke.py --cards 4 --phases sp
+
+runs only the named groups of phases (a comma-separated list of sp, rec,
+mod, tp and ep; all of them by default, in that order), kernels tp with
+any of them, and with sp the baseline records of the dryrun sp records
+whose groups are not named (`phase sp baselines:`). The four-card train_4k
+records are cut to their first 2 layers (RECORD_TRAIN_LAYERS; the record
+lists the cut under `reduced`), but vision's, which keeps its 40. On a
+(data 1, model 4) mesh (train tp: also (2, 2) and (4, 1)), under the
+reference's sharding rules:
   path sp     — sequence parallelism (seqpar: the residual stream's
                sequence over "model", each layer's input all-gathered and
                its output reduce-scattered; the sp phases run first,
@@ -181,16 +190,25 @@ sharding rules:
                1x4 and 2x2 against card 0 without a mesh (path tp's prompt
                lengths: 1535 does not divide, and there the rule does
                nothing: the prefill's all-reduces show which way each
-               went); PATH_TOL_FP32, argmax equal, expert choices equal
-               but at near ties, launches exact.
+               went; only Mamba's x_proj all-reduces where it cuts); then
+               the same for rwkv6-1.6b at full size, Jamba's first 4
+               layers (bf16 weights computed in fp32), llama-3.2-vision's
+               first 10 (two cross layers) and musicgen-large at full size
+               (path rec's prompt lengths, each prefilled at its own
+               length: the scans and token shifts over the gathered
+               sequence); PATH_TOL_FP32, argmax equal, expert choices
+               equal but at near ties, launches exact.
   train sp    — the gates of train tp under seqpar, fsdp+seqpar on 2x2:
-               qwen2's and granite's first 2 layers, fp32, on 2x2 and 1x4
-               against one card's step (the norms' gradients summed over
-               "model"), a step's collectives with its reduce-scatters.
-  dryrun sp   — qwen2's prefill_32k on 1x4 and qwen2's and granite's
-               train_4k on 2x2 under seqpar; at the end of the run each
-               beside its baseline record of the same run (`dryrun sp vs
-               baseline:`).
+               qwen2's, granite's and rwkv6's first 2 layers, fp32, on 2x2
+               and 1x4 against one card's step (the norms' gradients summed
+               over "model"), a step's collectives with its
+               reduce-scatters; then Jamba's layer 0 (8 rows), vision's
+               first 5 layers (one cross layer) and musicgen's first 2 on
+               2x2 and 1x4.
+  dryrun sp   — qwen2's prefill_32k on 1x4 and qwen2's, granite's and
+               llama-3.2-vision's train_4k on 2x2 under seqpar; at the end
+               of the run each beside its baseline record of the same run
+               (`dryrun sp vs baseline:`).
   kernels tp  — (card 0) the decode kernel's partial mode (`start`, the
                (m, l, o) partials) against its plain version, and the
                merge of 4 partials by the combine pass against the
@@ -545,22 +563,9 @@ def step_breakdown(prof, DeviceType, wall_ms: float, step_ms: float,
 
 
 def cut(cfg, n):
-    """The first ``n`` layers of a config, group by group: whole periods
-    of a group, then the first layers of one more period (kimi-k2's first
-    2: its dense layer 0 and the first of its 60 MoE layers; Jamba's first
-    25: three periods of 8 and a Mamba + dense layer)."""
-    groups, left = [], n
-    for period, rep in cfg.groups:
-        k = min(left, rep * len(period))
-        if k == 0:
-            break
-        whole, part = divmod(k, len(period))
-        if whole:
-            groups.append((period, whole))
-        if part:
-            groups.append((period[:part], 1))
-        left -= k
-    return dataclasses.replace(cfg, groups=tuple(groups))
+    """The first ``n`` layers of a config (``dryrun.cut_depth``)."""
+    from repro_torch.launch.dryrun import cut_depth
+    return cut_depth(cfg, n)
 
 
 def attention_flops(cfg, B: int, S: int) -> int:
@@ -3136,19 +3141,53 @@ MOD_RECORDS = ((MOD_VISION, "decode_32k", (1, 4)),
                (MOD_MUSIC, "decode_32k", (1, 4)),
                (MOD_VISION, "train_4k", (2, 2)),
                (MOD_MUSIC, "train_4k", (2, 2)))
-# the sequence-parallel (sp) phases: seqpar on the attention configs, dense
-# and MoE (ROADMAP A9c item 4). path sp: qwen2 and granite at full size,
-# fp32, on these meshes at path tp's batch, max_seq and prompt lengths
+# the sequence-parallel (sp) phases: seqpar on every layer kind (ROADMAP
+# A9c items 4 and 4b). path sp: qwen2 and granite at full size, fp32, on
+# these meshes at path tp's batch, max_seq and prompt lengths; then
+# rwkv6 at full size, Jamba's first REC_JAMBA_PATH_LAYERS layers (bf16
+# weights computed in fp32), vision's first MOD_VISION_PATH_LAYERS layers
+# and musicgen at full size, fp32, at path rec's (1535 does not cut)
 SP_ARCHS = ("qwen2-1.5b", EP_ARCH)
 SP_PATH_MESHES = ((1, 4), (2, 2))
 SP_PATH = (4, 2048, (700, 1100, 300, 1535))
-# train sp: the archs' first TP_TRAIN_LAYERS layers, fp32, as train tp
+# train sp: the archs' first TP_TRAIN_LAYERS layers, fp32, as train tp;
+# then rwkv6's first TP_TRAIN_LAYERS (with fsdp+seqpar), Jamba's layer 0
+# (REC_JAMBA_TRAIN_BATCH rows), vision's first MOD_VISION_TRAIN_LAYERS (a
+# cross layer) and musicgen's first TP_TRAIN_LAYERS on SP_REC_TRAIN_CASES
 SP_TRAIN_CASES = (((2, 2), "seqpar"), ((1, 4), "seqpar"),
                   ((2, 2), "fsdp+seqpar"))
+SP_REC_TRAIN_CASES = SP_TRAIN_CASES[:2]
 # dryrun sp: (arch, shape, mesh, variant), each beside its baseline record
 SP_RECORDS = (("qwen2-1.5b", "prefill_32k", (1, 4), "seqpar"),
               ("qwen2-1.5b", "train_4k", (2, 2), "seqpar"),
-              (EP_ARCH, "train_4k", (2, 2), "seqpar"))
+              (EP_ARCH, "train_4k", (2, 2), "seqpar"),
+              (MOD_VISION, "train_4k", (2, 2), "seqpar"))
+# the phase groups of the four-card mode (--phases), in the order they run;
+# kernels tp runs with any of them (the kernels line)
+PHASE_GROUPS = ("sp", "rec", "mod", "tp", "ep")
+# the group whose records include each sp record's baseline
+SP_BASELINE_GROUP = {("qwen2-1.5b", "prefill_32k"): "tp",
+                     ("qwen2-1.5b", "train_4k"): "tp",
+                     (EP_ARCH, "train_4k"): "ep",
+                     (MOD_VISION, "train_4k"): "mod"}
+# the four-card train_4k records' depth (full where not listed): their
+# steps and the meta-device operation count scale with it. vision keeps
+# its 40 layers (the seqpar record's peak beside the baseline's, near a
+# card's memory); gemma2, Jamba and kimi-k2 are reckoned not fitting at
+# full depth before anything is built
+RECORD_TRAIN_LAYERS = {"qwen2-1.5b": 2, "internlm2-1.8b": 2,
+                       "minitron-4b": 2, REC_RWKV: 2, MOD_MUSIC: 2,
+                       EP_ARCH: 2}
+
+
+def record_config(arch: str, shape: str):
+    """(the config of ``arch``'s four-card record at ``shape``, the depth
+    ``run_cell`` cuts it to: RECORD_TRAIN_LAYERS for train_4k, else
+    None)."""
+    from repro_torch.configs import get_config
+    layers = RECORD_TRAIN_LAYERS.get(arch) if shape == "train_4k" else None
+    cfg = get_config(arch)
+    return (cfg if layers is None else cut(cfg, layers)), layers
 
 
 def _free_port() -> int:
@@ -3158,13 +3197,19 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def cards_main(n: int) -> int:
+def cards_main(n: int, phases=PHASE_GROUPS) -> int:
     """The four-card mode (module docstring of the four-card phases): builds
     the kernels, starts one process per card, and prints the kernels line
-    and the last line from rank 0's results."""
+    and the last line from rank 0's results. ``phases``: the groups to run
+    (``PHASE_GROUPS``; kernels tp runs with any)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    unknown = set(phases) - set(PHASE_GROUPS)
+    if unknown or not phases:
+        print(f"chip_smoke --phases: unknown {sorted(unknown)}; the groups "
+              f"are {', '.join(PHASE_GROUPS)}", file=sys.stderr)
         return 1
     if torch.cuda.device_count() < n:
         print(f"chip_smoke --cards {n}: {torch.cuda.device_count()} cards "
@@ -3185,7 +3230,8 @@ def cards_main(n: int) -> int:
     if out.exists():
         out.unlink()
     t0 = time.perf_counter()
-    torch.multiprocessing.spawn(_tp_rank, args=(n, _free_port(), str(out)),
+    torch.multiprocessing.spawn(_tp_rank, args=(n, _free_port(), str(out),
+                                                tuple(phases)),
                                 nprocs=n, join=True)
     res = json.loads(out.read_text())
     print(f"ranks: {time.perf_counter() - t0:.1f} s")
@@ -3197,7 +3243,8 @@ def cards_main(n: int) -> int:
     return 0
 
 
-def _tp_rank(rank: int, n: int, port: int, out: str) -> None:
+def _tp_rank(rank: int, n: int, port: int, out: str,
+             phases=PHASE_GROUPS) -> None:
     import datetime
     import torch
     import torch.distributed as dist
@@ -3211,7 +3258,7 @@ def _tp_rank(rank: int, n: int, port: int, out: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     run = _TPRun(torch, dist, rank, make_mesh(n))
-    res = run.main()
+    res = run.main(phases)
     if rank == 0:
         Path(out).write_text(json.dumps(res))
     dist.barrier()
@@ -3389,44 +3436,61 @@ class _TPRun:
         self.dist.barrier()
 
     # -- phases -------------------------------------------------------------
-    def main(self) -> dict:
+    def main(self, phases=PHASE_GROUPS) -> dict:
+        """The groups of ``phases`` in ``PHASE_GROUPS``' order, kernels tp
+        after sp; with sp but without the group of an sp record's baseline,
+        that baseline record alone (``sp_baselines``)."""
         self.warm_profiler()
         self.memory("start")
-        self.sp_phases()
+        if "sp" in phases:
+            self.sp_phases()
         t = time.perf_counter()
         rows = self.kernels_tp() if self.rank == 0 else None
         self.dist.barrier()
         self.say(f"phase kernels tp: {time.perf_counter() - t:.1f} s")
-        rec_records = self.rec_phases()
-        mod_records = self.mod_phases()
-        t = time.perf_counter()
-        train_err = self.train_tp()
-        self.say(f"phase train tp: {time.perf_counter() - t:.1f} s")
-        self.memory("after train tp")
-        t = time.perf_counter()
-        self.path_tp()
-        self.say(f"phase path tp: {time.perf_counter() - t:.1f} s")
-        self.memory("after path tp")
-        t = time.perf_counter()
-        self.serving_tp()
-        self.say(f"phase serving tp: {time.perf_counter() - t:.1f} s")
-        self.memory("before the records")
-        t = time.perf_counter()
-        records = self.dryrun_tp()
-        self.say(f"phase dryrun tp: {time.perf_counter() - t:.1f} s")
-        records += self.ep_phases() + rec_records + mod_records
+        records, train_err = [], None
+        if "rec" in phases:
+            records += self.rec_phases()
+        if "mod" in phases:
+            records += self.mod_phases()
+        if "tp" in phases:
+            t = time.perf_counter()
+            train_err = self.train_tp()
+            self.say(f"phase train tp: {time.perf_counter() - t:.1f} s")
+            self.memory("after train tp")
+            t = time.perf_counter()
+            self.path_tp()
+            self.say(f"phase path tp: {time.perf_counter() - t:.1f} s")
+            self.memory("after path tp")
+            t = time.perf_counter()
+            self.serving_tp()
+            self.say(f"phase serving tp: {time.perf_counter() - t:.1f} s")
+            self.memory("before the records")
+            t = time.perf_counter()
+            records += self.dryrun_tp()
+            self.say(f"phase dryrun tp: {time.perf_counter() - t:.1f} s")
+        if "ep" in phases:
+            records += self.ep_phases()
+        if "sp" in phases:
+            t = time.perf_counter()
+            self.sp_baselines(phases)
+            self.say(f"phase sp baselines: {time.perf_counter() - t:.1f} s")
         if self.rank != 0:
             return {}
-        self.sp_beside_baseline()
+        if "sp" in phases:
+            self.sp_beside_baseline()
         self.profile_tp(records)
-        rows[0]["train_lse_err"] = train_err["max_abs_err"]
-        rows[0]["train_shape"] = train_err
+        if train_err is not None:
+            rows[0]["train_lse_err"] = train_err["max_abs_err"]
+            rows[0]["train_shape"] = train_err
+        # the sp phases, as the whole mode, run every kernel's layers
+        every = "sp" in phases or set(phases) == set(PHASE_GROUPS)
         for row in rows:
             row["launches_by_path"] = {
                 path: counts[row["counter"]]
                 for path, counts in self.launches_by_path.items()}
             row["launches"] = sum(row["launches_by_path"].values())
-            if not row["launches"]:
+            if every and not row["launches"]:
                 raise AssertionError(f"{row['name']} was never launched on "
                                      "the four-card paths")
         self.say(f"four-card phases: {time.perf_counter() - self.t_start:.1f}"
@@ -4394,14 +4458,13 @@ class _TPRun:
         launches exact (the probe step at one row a card included), the
         batch cut from 256; the not-fitting ones reckoned before anything
         is built."""
-        from repro_torch.configs import get_config
         from repro_torch.launch import dryrun
         for arch in TP_TRAIN_RECORDS:
-            cfg = get_config(arch)
+            cfg, layers = record_config(arch, "train_4k")
             t0 = time.perf_counter()
             self.zero()
             rec = dryrun.run_cell(arch, "train_4k", ROOT / "results" /
-                                  "dryrun_torch", mesh=mesh)
+                                  "dryrun_torch", mesh=mesh, layers=layers)
             self.free()
             launches = self.read()
             if arch in TP_TRAIN_NOT_FITTING:
@@ -4534,11 +4597,12 @@ class _TPRun:
         ``path_sp``): the logits within PATH_TOL_FP32 and argmax equal
         where ``gate``, every expert choice equal but at near ties, which
         card 0 takes from the mesh (``follow``). Under seqpar a prefill
-        all-reduces nothing exactly where its length cuts over "model"
-        (``Transformer.seq_plan``). Card 0's outputs of a config without
-        experts serve the next case of the same inputs (``one_card_run``;
-        with experts it follows the mesh's near ties, so it is the
-        mesh's own)."""
+        all-reduces nothing but Mamba's ``x_proj`` exactly where its
+        length cuts over "model" (``Transformer.seq_plan``), which must
+        happen for some prompts and not for others. Card 0's outputs of a
+        config without experts serve the next case of the same inputs
+        (``one_card_run``; with experts it follows the mesh's near ties,
+        so it is the mesh's own)."""
         torch = self.torch
         from repro_torch.configs.shapes import ShapeCase
         from repro_torch.launch import steps as ST
@@ -4565,9 +4629,12 @@ class _TPRun:
         cuts = [model.seq_plan(1, L).sp is not None for L in lens]
         what = (f"{cfg.name} {cfg.n_layers} layers {shape[0]}x{shape[1]} "
                 f"B={B} max_seq={max_seq} {cfg.dtype} {label}")
+        # a cut prefill's only all-reduces are Mamba's x_proj ones
+        x_proj = [s.kind for s in cfg.layer_specs()].count("mamba") * (
+            model.layout.size(model.tp.inner) > 1)
         if "seqpar" in variant and (
-                [("all-reduce" not in c) for c in prefill_calls] != cuts
-                or not any(cuts)):
+                [c.get("all-reduce", 0) == x_proj for c in prefill_calls]
+                != cuts or all(cuts) or not any(cuts)):
             raise AssertionError(f"{what}: the sequence cut at {cuts}, "
                                  f"prefill collectives {prefill_calls}")
         meta = T.init_cache(cfg, B, max_seq, device="meta",
@@ -4850,18 +4917,17 @@ class _TPRun:
         logged), finite train losses; the archs of ``not_fitting``
         not fitting, reckoned before anything is built, logged with why.
         Returns the decode records for profile tp."""
-        from repro_torch.configs import get_config
         from repro_torch.launch import dryrun
         records = []
         for arch, shape, mshape, *variant in cells:
             variant = variant[0] if variant else "baseline"
-            cfg = get_config(arch)
+            cfg, layers = record_config(arch, shape)
             self.memory(f"before {arch} {shape} {variant}")
             t0 = time.perf_counter()
             self.zero()
             rec = dryrun.run_cell(arch, shape, ROOT / "results" /
                                   "dryrun_torch", mesh=self.mesh_of(mshape),
-                                  variant=variant)
+                                  variant=variant, layers=layers)
             self.free()
             launches = self.read()
             if arch in not_fitting:
@@ -4923,7 +4989,9 @@ class _TPRun:
 
     def path_sp(self) -> None:
         """qwen2 and granite at full size in fp32 under seqpar on 1x4 and
-        2x2 against card 0."""
+        2x2 against card 0; then rwkv6 at full size, Jamba's first 4
+        layers, vision's first 10 (two cross layers) and musicgen at full
+        size, the same way."""
         from repro_torch.configs import get_config
         B, max_seq, lens = SP_PATH
         for arch in SP_ARCHS:
@@ -4932,31 +5000,72 @@ class _TPRun:
             for shape in SP_PATH_MESHES:
                 self._path_gate(cfg, shape, B, max_seq, lens, "path sp",
                                 variant="seqpar")
+        for cfg in self.rec_mod_paths():
+            for shape in SP_PATH_MESHES:
+                self._path_gate(cfg, shape, *REC_PATH, "path sp",
+                                variant="seqpar")
+
+    def rec_mod_paths(self) -> list:
+        """The fp32 path configs of the rec and mod phases: rwkv6 at full
+        size, Jamba's first REC_JAMBA_PATH_LAYERS layers (bf16 weights
+        computed in fp32), vision's first MOD_VISION_PATH_LAYERS layers,
+        musicgen at full size."""
+        from repro_torch.configs import get_config
+        f32 = {"dtype": "float32", "param_dtype": "float32"}
+        return [dataclasses.replace(get_config(REC_RWKV), **f32),
+                dataclasses.replace(cut(get_config(REC_JAMBA),
+                                        REC_JAMBA_PATH_LAYERS),
+                                    dtype="float32"),
+                dataclasses.replace(cut(get_config(MOD_VISION),
+                                        MOD_VISION_PATH_LAYERS), **f32),
+                dataclasses.replace(get_config(MOD_MUSIC), **f32)]
 
     def train_sp(self) -> None:
         """The train sp gates: each arch's first TP_TRAIN_LAYERS layers in
-        fp32 on SP_TRAIN_CASES against one card's steps."""
+        fp32 on SP_TRAIN_CASES against one card's steps; then rwkv6's
+        first TP_TRAIN_LAYERS on SP_TRAIN_CASES, Jamba's layer 0 (Mamba +
+        dense), vision's first MOD_VISION_TRAIN_LAYERS (one cross layer)
+        and musicgen's first TP_TRAIN_LAYERS on SP_REC_TRAIN_CASES."""
         from repro_torch.configs import get_config
-        for arch in SP_ARCHS:
-            base = dataclasses.replace(cut(get_config(arch),
-                                           TP_TRAIN_LAYERS),
+
+        def fp32(arch, layers):
+            return dataclasses.replace(cut(get_config(arch), layers),
                                        dtype="float32", param_dtype="float32")
+
+        for arch in SP_ARCHS + (REC_RWKV,):
             for shape, variant in SP_TRAIN_CASES:
-                self._train_gate(base, self.mesh_of(shape), shape, variant,
+                self._train_gate(fp32(arch, TP_TRAIN_LAYERS),
+                                 self.mesh_of(shape), shape, variant,
                                  label="sp")
+        for arch, layers, batch in (
+                (REC_JAMBA, 1, REC_JAMBA_TRAIN_BATCH),
+                (MOD_VISION, MOD_VISION_TRAIN_LAYERS, TP_TRAIN_BATCH),
+                (MOD_MUSIC, TP_TRAIN_LAYERS, TP_TRAIN_BATCH)):
+            for shape, variant in SP_REC_TRAIN_CASES:
+                self._train_gate(fp32(arch, layers), self.mesh_of(shape),
+                                 shape, variant, label="sp", batch=batch)
 
     def dryrun_sp(self) -> None:
         """The SP_RECORDS under seqpar (``_mesh_records``' gates)."""
         self._mesh_records(SP_RECORDS, (), "sp")
 
+    def sp_baselines(self, phases) -> None:
+        """The baseline records of the SP_RECORDS whose group
+        (``SP_BASELINE_GROUP``) is not among ``phases``."""
+        cells = tuple((arch, shape, mshape) for arch, shape, mshape, _ in
+                      SP_RECORDS
+                      if SP_BASELINE_GROUP[(arch, shape)] not in phases)
+        self._mesh_records(cells, (), "sp baseline")
+
     def sp_beside_baseline(self) -> None:
         """(rank 0, at the end of the run) each seqpar record beside the
         baseline record of the same cell written earlier in this run: step
-        ms, compute and NCCL ms by rank, peak a card, batch held,
-        collectives; a `dryrun sp vs baseline:` line each."""
+        ms, compute and NCCL ms by rank, peak a card, batch held and cuts,
+        collectives and their link bytes; a `dryrun sp vs baseline:` line
+        each."""
         from repro_torch.launch import dryrun
         out = ROOT / "results" / "dryrun_torch"
-        keys = ("global_batch", "step_ms", "compute_ms_by_rank",
+        keys = ("global_batch", "reduced", "step_ms", "compute_ms_by_rank",
                 "nccl_ms_by_rank", "peak_mem_gb_by_rank", "peak_mem_gb",
                 "bytes_one_sequence_peak", "bytes_one_row_peak",
                 "collectives")
@@ -4995,13 +5104,7 @@ class _TPRun:
         equal, Jamba's expert choices equal but at near ties, launches
         exact (every recurrent layer's scan), collectives as
         ``step_collectives``."""
-        from repro_torch.configs import get_config
-        rwkv = dataclasses.replace(get_config(REC_RWKV), dtype="float32",
-                                   param_dtype="float32")
-        jamba = dataclasses.replace(cut(get_config(REC_JAMBA),
-                                        REC_JAMBA_PATH_LAYERS),
-                                    dtype="float32")
-        for cfg in (rwkv, jamba):
+        for cfg in self.rec_mod_paths()[:2]:
             for shape in REC_PATH_MESHES:
                 self._path_gate(cfg, shape, *REC_PATH, "path rec")
 
@@ -5053,12 +5156,7 @@ class _TPRun:
         and musicgen at full size on meshes 1x4 and 2x2, vision at batch 1
         on 1x4 (every cache cut by rows); PATH_TOL_FP32, argmax equal,
         launches exact, collectives as ``step_collectives``."""
-        from repro_torch.configs import get_config
-        vision = dataclasses.replace(
-            cut(get_config(MOD_VISION), MOD_VISION_PATH_LAYERS),
-            dtype="float32", param_dtype="float32")
-        music = dataclasses.replace(get_config(MOD_MUSIC), dtype="float32",
-                                    param_dtype="float32")
+        vision, music = self.rec_mod_paths()[2:]
         for cfg in (vision, music):
             for shape in REC_PATH_MESHES:
                 self._path_gate(cfg, shape, *REC_PATH, "path mod")
@@ -5166,4 +5264,12 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description="drive the port on the card")
     ap.add_argument("--cards", type=int, default=1, choices=(1, 4),
                     help="4: the tensor-parallel mode on four cards")
-    sys.exit(main() if ap.parse_args().cards == 1 else cards_main(4))
+    ap.add_argument("--phases", default=",".join(PHASE_GROUPS),
+                    help="--cards 4: the phase groups to run, a "
+                    f"comma-separated list of {', '.join(PHASE_GROUPS)} "
+                    "(kernels tp runs with any; sp adds the baseline "
+                    "records of its own records)")
+    args = ap.parse_args()
+    if args.cards == 1:
+        sys.exit(main())
+    sys.exit(cards_main(4, tuple(p for p in args.phases.split(",") if p)))

@@ -466,24 +466,47 @@ class _Ranks:
             dist.barrier()
 
 
+def cut_depth(cfg, n: int):
+    """The first ``n`` layers of a config, group by group: whole periods
+    of a group, then the first layers of one more period (kimi-k2's first
+    2: its dense layer 0 and the first of its 60 MoE layers; Jamba's first
+    25: three periods of 8 and a Mamba + dense layer)."""
+    groups, left = [], n
+    for period, rep in cfg.groups:
+        k = min(left, rep * len(period))
+        if k == 0:
+            break
+        whole, part = divmod(k, len(period))
+        if whole:
+            groups.append((period, whole))
+        if part:
+            groups.append((period[:part], 1))
+        left -= k
+    return dataclasses.replace(cfg, groups=tuple(groups))
+
+
 def run_cell(arch: str, shape: str, out_dir: Path = DEFAULT_OUT, *,
              device="cuda", reduced: bool = False,
              seq_len: Optional[int] = None,
-             variant: str = "baseline", mesh=None) -> dict:
+             variant: str = "baseline", mesh=None,
+             layers: Optional[int] = None) -> dict:
     """Run ``arch``'s step at ``shape`` on one device and write its record.
-    ``seq_len`` overrides the case's length (a CPU run's cut); ``variant``
-    as ``steps.apply_variant_config`` (a decode record adds
+    ``seq_len`` overrides the case's length (a CPU run's cut); ``layers``
+    cuts the depth to the first ``layers`` layers (``cut_depth``);
+    ``variant`` as ``steps.apply_variant_config`` (a decode record adds
     ``cacheappend``). ``mesh``: run it sharded, every rank of the
     ``DeviceMesh`` calling with the same arguments (module docstring)."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    depth = cfg.n_layers
+    if layers is not None:
+        cfg = cut_depth(cfg, layers)
     case = get_shape(shape)
     if case.kind == "decode":
         variant = "+".join(sorted(ST.variant_tokens(variant)
                                   | {DECODE_VARIANT}))
-    # sharding variants raise on one card, seqpar on a mesh too for a
-    # config it does not cut yet
+    # sharding variants raise on one card
     cfg = ST.apply_variant_config(cfg, variant, mesh)
     dev = T.resolve_device(device)
     S = case.seq_len if seq_len is None else seq_len
@@ -505,6 +528,8 @@ def run_cell(arch: str, shape: str, out_dir: Path = DEFAULT_OUT, *,
     if case.kind == "decode":
         rec["decode_mode"] = "append"
     _cut(rec, "seq_len", case.seq_len, S, "seq_len override (--seq-len)")
+    _cut(rec, "n_layers", depth, cfg.n_layers,
+         "depth cut to the first layers (run_cell's layers)")
     ok, reason = applicable(cfg, case)
     if not ok:
         rec["skipped"] = reason

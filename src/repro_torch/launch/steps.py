@@ -14,10 +14,9 @@ trees, and every step runs there: prefill, decode and the train step
 (data parallelism over the data axes, tensor parallelism over "model",
 expert parallelism in the MoE layers, ZeRO-1 moments or a sharded
 Adafactor, ``micro8``, ``bf16grad``, ``fsdp``, ``expdata`` and ``seqpar``).
-The variants that only change sharding rules run only on a mesh; of them
-``seqpar`` runs for the configs whose layers are all attention with a
-dense or MoE MLP, and raises ``NotImplementedError`` for the others
-(``transformer.A9C_SEQPAR``).
+The variants that only change sharding rules run only on a mesh, for
+every config (``seqpar`` through every layer kind: attention, cross,
+Mamba, RWKV, dense and MoE MLPs, codebooks).
 ``lower_cell`` has no counterpart: eager PyTorch lowers nothing; the
 cell's step runs as it is called.
 
@@ -71,20 +70,14 @@ def apply_variant_config(cfg: ModelConfig, variant: str,
     counterpart: the port's scans always take their one-step path at T = 1
     (the kernels' walk, the plain path's single step), so there is nothing
     to switch, and it raises as an unknown token does. The sharding-only
-    variants raise ``NotImplementedError`` without a ``mesh``, and
-    ``seqpar`` on a mesh too for a config with a Mamba, RWKV, cross or
-    codebook layer (``transformer.seqpar_waits``); they change only
-    ``rules_for``'s rules."""
+    variants raise ``NotImplementedError`` without a ``mesh``; they
+    change only ``rules_for``'s rules."""
     toks = variant_tokens(variant)
     sharding = sorted(toks & set(SHARDING_VARIANTS))
     if sharding and mesh is None:
         raise NotImplementedError(
             f"variant {'+'.join(sharding)} only changes sharding rules, "
             f"which run on a mesh: {MULTI_CARD}")
-    if "seqpar" in toks and T.seqpar_waits(cfg):
-        raise NotImplementedError(f"variant seqpar: {cfg.name} has a "
-                                  f"recurrent, cross or codebook layer: "
-                                  f"{T.A9C_SEQPAR}")
     unknown = toks - {"vocabpad", "blockdispatch", "micro8", "bf16grad",
                       "cacheappend", "fsdp", "expdata", "seqpar"}
     if unknown:

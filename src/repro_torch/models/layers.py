@@ -46,7 +46,9 @@ an all-gather) in place of the all-reduce. A layer whose heads or d_ff are
 not cut computes everything on the gathered sequence and keeps its rows
 (``sharding.split_to``); its input gradient is then whole on every card,
 and the gather's backward keeps this card's rows. The norms' gradients are
-a card's part (``transformer.is_partial``).
+a card's part (``transformer.is_partial``). Mamba and RWKV-6 mixers
+(``ssm.py``) and cross layers enter and leave the same way; a cross
+layer's vision tokens are a second sequence, whole on the card.
 """
 from __future__ import annotations
 

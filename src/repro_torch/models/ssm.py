@@ -35,6 +35,16 @@ or heads, with the collectives the reference's GSPMD inserts written out
     leaves (``PARTIAL_RWKV``) feed only the card's heads or columns, so a
     card's gradient of them is its part: the train step sums them over
     "model" (``partial_leaves``).
+
+Under ``seqpar`` (``tp.sp``: the residual stream holds the card's rows of
+the sequence) each mixer gathers the sequence on entry and leaves by a
+reduce-scatter over it (``layers.enter`` / ``leave``), so the conv, the
+token shifts and both scans run over the whole sequence on the card's
+channels or heads and no state passes between cards: a prefill's states
+are the baseline's. ``x_proj``'s all-reduce stays one over ``d_inner`` on
+the gathered rows. The channel mix keeps its cut of D on the gathered
+sequence (its r * v whole on every card) and then keeps the card's rows
+(``sharding.split_to``).
 """
 from __future__ import annotations
 
@@ -47,7 +57,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
-from repro_torch.models.layers import column_parallel, row_parallel
+from repro_torch.models.layers import (column_parallel, enter, leave,
+                                       row_parallel)
 
 Params = dict
 
@@ -168,12 +179,13 @@ def mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict,
     {"h": final h fp32, "conv": new conv state}). ``in_place``: the scan
     writes the final h into ``state["h"]`` and returns that tensor. With
     ``tp`` the leaves and the state are the card's channels (module
-    docstring) and ``out`` is all-reduced."""
+    docstring) and ``out`` is all-reduced (under ``tp.sp`` ``x`` and
+    ``out`` are the card's rows of the sequence)."""
     dt_ = x.dtype
     N, R = cfg.mamba_d_state, cfg.dt_rank
     Din = p["in_proj"].shape[-1] // 2          # the card's channels
     entry = None if tp is None else tp.inner
-    x = column_parallel(x, tp, entry)
+    x = enter(x, tp, entry)
     x_in, z = (x @ p["in_proj"].to(dt_)).split(Din, dim=-1)
     conv_out, conv_new = _mamba_conv(p, x_in, state["conv"])
     xc = F.silu(conv_out)
@@ -186,8 +198,7 @@ def mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict,
     y, h_fin = ops.ssm_scan(xc, dt, A, Bm, Cm, p["Dskip"], state["h"],
                             impl=impl,
                             state_out=state["h"] if in_place else None)
-    out = row_parallel((y * F.silu(z)) @ p["out_proj"].to(dt_), tp,
-                       entry)
+    out = leave((y * F.silu(z)) @ p["out_proj"].to(dt_), tp, entry)
     return out, {"h": h_fin, "conv": conv_new}
 
 
@@ -248,15 +259,16 @@ def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict,
     scan writes the final state into ``state["wkv"]`` and returns that
     tensor (the kernel takes it where S fits one chunk, as at decode).
     With ``tp`` the heads, their leaves and ``wkv`` are the card's (module
-    docstring) and ``out`` is all-reduced."""
-    B, S, D = x.shape
+    docstring) and ``out`` is all-reduced (under ``tp.sp`` ``x`` and
+    ``out`` are the card's rows; ``shift_tm`` the gathered x's last)."""
     K = cfg.rwkv_head_dim
     H = p["u"].shape[0]                        # the card's heads
-    cols = slice(0, D) if tp is None else slice(tp.rh0 * K,
-                                                (tp.rh0 + H) * K)
     entry = None if tp is None else tp.rwkv
     dt = x.dtype
-    x = column_parallel(x, tp, entry)
+    x = enter(x, tp, entry)
+    B, S, D = x.shape
+    cols = slice(0, D) if tp is None else slice(tp.rh0 * K,
+                                                (tp.rh0 + H) * K)
     dx = _token_shift(x, state["shift_tm"].to(dt)) - x
     x_base = x + dx * p["mu_x"].to(dt)
     deltas = torch.tanh(x_base @ p["maa_w1"].to(dt)).reshape(
@@ -283,7 +295,7 @@ def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict,
     of = (of - mean) * torch.rsqrt(var + 64e-5)
     of = of.reshape(B, S, H * K) * p["ln_x_scale"][cols] \
         + p["ln_x_bias"][cols]
-    out = row_parallel((of.to(dt) * g) @ p["wo"].to(dt), tp, entry)
+    out = leave((of.to(dt) * g) @ p["wo"].to(dt), tp, entry)
     return out, {"wkv": s_new, "shift_tm": x[:, -1]}
 
 
@@ -292,19 +304,21 @@ def rwkv_channel_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """x: (B, S, D) pre-normed; state {"shift_cm"}. Returns (out,
     {"shift_cm": x[:, -1]}). With ``tp``: d_ff and r's D columns are the
     card's, v is reduce-scattered over D and r * v all-gathered (module
-    docstring)."""
+    docstring); under ``tp.sp`` over the gathered sequence, the card's
+    rows kept."""
     dt = x.dtype
     entry = None if tp is None else tp.rwkv
     live = entry is not None and tp.layout.size(entry) > 1
-    x = column_parallel(x, tp, entry)
+    x = enter(x, tp, entry)
     dx = _token_shift(x, state["shift_cm"].to(dt)) - x
     xk = x + dx * p["mu_k_c"].to(dt)
     xr = x + dx * p["mu_r_c"].to(dt)
     k = torch.relu(xk @ p["wk_c"].to(dt)) ** 2
     v = k @ p["wv_c"].to(dt)
     r = torch.sigmoid(xr @ p["wr_c"].to(dt))
-    if not live:
-        return r * v, {"shift_cm": x[:, -1]}
-    v = SH.reduce_scatter(v, tp.layout, entry, v.dim() - 1)
-    out = SH.gather_from(r * v, tp.layout, entry, v.dim() - 1)
-    return out, {"shift_cm": x[:, -1]}
+    if live:
+        v = SH.reduce_scatter(v, tp.layout, entry, v.dim() - 1)
+        out = SH.gather_from(r * v, tp.layout, entry, v.dim() - 1)
+    else:
+        out = r * v
+    return leave(out, tp, None), {"shift_cm": x[:, -1]}

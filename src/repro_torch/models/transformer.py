@@ -77,7 +77,11 @@ reduces them over "model" into the logsumexp, so no card holds the full
 logits. Under ``fsdp`` (``model_d`` over "data") each weight's D dim is
 gathered over "data" just before its layer uses it (inside the remat
 region, so the recompute gathers again) and its gradient reduce-scattered
-back (``sharding.gather_from(..., scatter=True)``).
+back (``sharding.gather_from(..., scatter=True)``). Under ``seqpar``
+(``seq_plan``) a prefill or training pass keeps the card's rows of the
+sequence in the residual stream through every layer kind; each layer
+gathers them on entry and reduce-scatters its output (``layers.enter`` /
+``leave``).
 """
 from __future__ import annotations
 
@@ -127,20 +131,6 @@ def check_trainable(cfg: ModelConfig) -> None:
     whose layers it runs (``check_supported``), recurrent, vision and
     codebook ones included."""
     check_supported(cfg)
-
-
-# what still waits on a mesh, by its item of ROADMAP A9c
-A9C_SEQPAR = ("ROADMAP A9c item 4b (seqpar for the recurrent, "
-              "cross-attention and codebook layers)")
-
-
-def seqpar_waits(cfg: ModelConfig) -> bool:
-    """True when ``cfg`` has a layer that ``seqpar`` does not cut yet: a
-    Mamba or RWKV layer (its scan and token shift read the sequence in
-    order), a cross layer or codebooks (``A9C_SEQPAR``)."""
-    return bool(cfg.n_codebooks) or any(
-        spec.kind != "attn" or spec.attn_type == "cross"
-        for spec in cfg.layer_specs())
 
 
 def is_partial(cfg: ModelConfig, tp, name: str) -> bool:
@@ -420,7 +410,9 @@ class Transformer(nn.Module):
         with ``sp``, the residual stream's sequence entry (the reference's
         ``("batch", "seq", None)`` resolved under the rules: None on one
         card, at the default rules, where ``seq`` does not divide the
-        axis, and at decode's S = 1)."""
+        axis, and at decode's S = 1). The heads, d_ff, d_inner, RWKV heads
+        and vocab must be cut over the sequence's axes where they are
+        cut."""
         if self.tp is None:
             return None
         lay = self.layout
@@ -428,10 +420,9 @@ class Transformer(nn.Module):
                                                self.cfg.d_model))[1]
         if lay.size(sp) == 1:
             return self.tp
-        if seqpar_waits(self.cfg):
-            raise NotImplementedError(f"{self.cfg.name}: {A9C_SEQPAR}")
         tp = self.tp
         for what, entry in (("heads", tp.heads), ("ff", tp.ff),
+                            ("d_inner", tp.inner), ("rwkv_heads", tp.rwkv),
                             ("vocab", self._embed_vocab[0]),
                             ("vocab", self._unembed_vocab[0])):
             if lay.size(entry) > 1 and SH.entry_axes(entry) != \
@@ -459,17 +450,17 @@ class Transformer(nn.Module):
         masked lookup of this card's rows (of each codebook, summed),
         all-reduced once. Under ``tp.sp`` this card's rows of the sequence:
         the lookup's sum reduce-scattered over it, or, where the vocab is
-        not cut, every row looked up and this card's kept (``split_to``:
-        the gradient gathered whole, as the unembedding's of a tied
-        table)."""
+        not cut, every row looked up (the codebooks' summed) and this
+        card's kept (``split_to``: the gradient gathered whole, as the
+        unembedding's of a tied table)."""
         emb = self._full("embed", self.embed).to(getattr(torch,
                                                          self.cfg.dtype))
         C = self.cfg.n_codebooks
         sp = None if tp is None else tp.sp
         if self.tp is None or self._embed_vocab[0] is None:
-            if C:
-                return sum(emb[c][tokens[..., c]] for c in range(C))
-            return SH.split_to(emb[tokens], self.layout, sp, 1)
+            h = (sum(emb[c][tokens[..., c]] for c in range(C)) if C
+                 else emb[tokens])
+            return SH.split_to(h, self.layout, sp, 1)
         entry, v0, n = self._embed_vocab
 
         def lookup(table, ids):
@@ -548,8 +539,10 @@ class Transformer(nn.Module):
         ``seq_plan``) the embedding's all-reduce is a reduce-scatter (none
         where the vocab is not cut), each layer's all-reduce a
         reduce-scatter after an all-gather of its input (only the gather
-        where its heads or d_ff are not cut), and the unembedding gathers
-        the sequence.
+        where its heads, d_ff, channels or RWKV heads are not cut; Mamba's
+        ``x_proj`` all-reduce stays; the RWKV channel mix's is an
+        all-gather of its input, its cut over D as before and its rows
+        kept), and the unembedding gathers the sequence.
         A dim sharded over axes of size 1 is no collective;
         ``gather_logits`` is not part of a step."""
         if self.tp is None:
@@ -578,10 +571,13 @@ class Transformer(nn.Module):
                 if cache is not None and live(seq):
                     n["all-gather"] += 1 + live(tp.heads)
             elif spec.kind == "mamba":
-                n["all-reduce"] += 2 * live(tp.inner)
+                c = live(tp.inner)
+                _exit(n, sp, c)
+                n["all-reduce"] += c             # x_proj's (dt, B, C)
             else:
                 r = int(live(tp.rwkv))
-                n["all-reduce"] += r
+                _exit(n, sp, r)                  # the time mix
+                _exit(n, sp, False)              # the channel mix's rows
                 n["all-gather"] += r
                 n["reduce-scatter"] = n.get("reduce-scatter", 0) + r
             if spec.mlp == "dense":
@@ -1192,10 +1188,13 @@ def train_collectives(model: Transformer, batch: Optional[int] = None,
     cuts the sequence) each of those layer all-reduces is a reduce-scatter
     (the exit's, and its entry's gradient) with an all-gather (the entry's,
     recomputed as it is, and its exit's gradient), or only the all-gathers
-    where the heads or d_ff are not cut; the embedding's all-reduce a
-    reduce-scatter (none where the vocab is not cut) and its gradient an
-    all-gather; the unembedding's input an all-gather and its gradient a
-    reduce-scatter (none where the vocab is not cut)."""
+    where the heads, d_ff, Mamba channels or RWKV heads are not cut (an
+    RWKV channel mix: the gathers of its input and of its output's
+    gradient and its input gradient's reduce-scatter, beside its cut over
+    D as before; Mamba's ``x_proj`` all-reduces stay); the embedding's
+    all-reduce a reduce-scatter (none where the vocab is not cut) and its
+    gradient an all-gather; the unembedding's input an all-gather and its
+    gradient a reduce-scatter (none where the vocab is not cut)."""
     if model.tp is None:
         return {}
     cfg, lay = model.cfg, model.layout
@@ -1230,12 +1229,17 @@ def train_collectives(model: Transformer, batch: Optional[int] = None,
             if spec.kind == "attn":
                 _exit(n, sp, live(tp.heads), rep * (runs + 1),
                       rep * (runs + 1))
-            elif spec.kind == "mamba" and live(tp.inner):
-                n["all-reduce"] += rep * (2 * runs + 2)
-            elif spec.kind == "rwkv" and live(tp.rwkv):
-                n["all-reduce"] += rep * (runs + 2)
-                n["reduce-scatter"] += rep * runs
-                n["all-gather"] += rep * (runs - (cfg.remat and last) + 1)
+            elif spec.kind == "mamba":
+                c = live(tp.inner)
+                _exit(n, sp, c, rep * (runs + 1), rep * (runs + 1))
+                n["all-reduce"] += rep * (runs + 1) * c     # x_proj's
+            elif spec.kind == "rwkv":
+                c = live(tp.rwkv)
+                _exit(n, sp, c, rep * (runs + 1), rep * (runs + 1))
+                _exit(n, sp, c, rep * (runs + 1), rep)   # the channel mix
+                n["reduce-scatter"] += rep * runs * c
+                n["all-gather"] += rep * (runs - (cfg.remat and last)
+                                          + 1) * c
             if spec.mlp == "dense":
                 recomputed = runs - (not tail)
                 _exit(n, sp, live(tp.ff), rep * (runs + 1),

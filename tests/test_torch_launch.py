@@ -278,6 +278,22 @@ def test_run_cell_train_variants(tmp_path):
     assert rec["variant"] == "cacheappend" and rec["decode_mode"] == "append"
 
 
+def test_run_cell_depth_cut(tmp_path):
+    """``run_cell(..., layers=)`` records the first layers only (the cut
+    under ``reduced``); ``cut_depth`` keeps whole periods, then part of
+    one (Jamba's first 25: three periods of 8 and one Mamba layer)."""
+    rec = dryrun.run_cell("qwen2-1.5b", "decode_32k", tmp_path,
+                          device="cpu", reduced=True, seq_len=16, layers=1)
+    cfg = dryrun.cut_depth(get_config("qwen2-1.5b").reduced(), 1)
+    assert rec["ok"] is True and rec["reduced"]["n_layers"] == [2, 1]
+    assert rec["n_params"] == cfg.param_count()
+    full = get_config("jamba-1.5-large-398b")
+    jamba = dryrun.cut_depth(full, 25)
+    (period, rep), = full.groups
+    assert jamba.groups == ((period, 3), (period[:1], 1))
+    assert jamba.n_layers == 25
+
+
 def test_decode_step_modes():
     """build_decode_step's append mode (variant cacheappend) gives the
     committed step's logits and cache, fp32 within 1e-5 (the two compute

@@ -20,12 +20,18 @@ and reduced musicgen (2 layers, C = 4 codebooks, vocab 128), weights cut by
     heads cut); vision also at batch 1 on 2x2, every cache cut by rows
     over all 4 cards; the collectives of every step equal to
     ``Transformer.step_collectives``;
+  * under ``seqpar`` (the residual stream's sequence over "model") on
+    1x4 and 2x2: the prefill at 24 tokens (cut) and 23 (not cut) and 3
+    committed decode steps from the cut prefill's caches; musicgen at
+    vocab 130 on 1x4 (the codebook tables whole on every card: the
+    lookups' sum keeps the card's rows), its prefill and gradients;
   * every leaf's gradient (``vision_proj`` and the ``(C, V, D)`` /
     ``(C, D, V)`` leaves included) of one whole-batch ``value_and_grad``
     and two train steps (n_micro 4, from count 99) on meshes 2x2, 4x1 and
-    1x4, and vision's under ``fsdp`` on 2x2: the metrics, every parameter
-    and AdamW moment gathered whole; the collectives of each step equal
-    to ``steps.train_step_collectives``;
+    1x4, and vision's under ``fsdp`` on 2x2, and under ``seqpar`` on 2x2
+    and 1x4 (vision's under ``fsdp+seqpar`` on 2x2): the metrics, every
+    parameter and AdamW moment gathered whole; the collectives of each
+    step equal to ``steps.train_step_collectives``;
   * reduced dry-run records at seq 64: vision decode_32k on 1x4 (the
     bytes of its card's rows of the cross caches) and musicgen train_4k
     on 2x2;
@@ -69,7 +75,13 @@ SERVE = (("1x4", 1, B), ("2x2", 2, B))
 SERVE_B1 = ("2x2b1", 2, 1)
 TB, TS, COUNT, N_MICRO, TSTEPS = 8, 32, 99, 4, 2
 TRAIN = (("2x2", 2, "baseline"), ("4x1", 4, "baseline"),
-         ("1x4", 1, "baseline"), ("2x2", 2, "fsdp"))
+         ("1x4", 1, "baseline"), ("2x2", 2, "fsdp"),
+         ("2x2", 2, "seqpar"), ("1x4", 1, "seqpar"),
+         ("2x2", 2, "fsdp+seqpar"))
+# seqpar prompts: P cuts the sequence on both meshes, P - 1 on none
+SP_PROMPTS = (P, P - 1)
+# musicgen at a vocabulary that does not cut over "model" (1x4)
+MUSIC_UNCUT = 130
 METRICS = ("loss", "grad_norm", "lr", "ce", "z", "lb_loss", "z_loss")
 RECORDS = ((VISION, "decode_32k", 1), (MUSIC, "train_4k", 2))
 CKPT = MUSIC
@@ -85,7 +97,11 @@ def _serve_cases(arch):
 
 def _train_cases(arch):
     return [(m, d, v) for m, d, v in TRAIN
-            if v == "baseline" or arch == VISION]
+            if "fsdp" not in v or arch == VISION]
+
+
+def _music_uncut():
+    return get_config(MUSIC).reduced(vocab=MUSIC_UNCUT)
 
 
 def _inputs(cfg, seed=1):
@@ -144,6 +160,77 @@ def _serve(cfg, weights, mesh, batch, out, counts, key):
                                            model.step_collectives(cache)]
             out[f"{key}/{mode}/{i}"] = model.gather_logits(lg, batch)
             lengths = lengths + 1
+
+
+def _serve_sp(cfg, weights, mesh, out, counts, key):
+    """Under ``seqpar``: the batch's prefill at both ``SP_PROMPTS`` (causal:
+    the shorter one's logits are the longer one's first rows), then 3
+    committed decode steps from slot caches filled from the rows of the
+    P-token prefill's cache (the sequence cut), each cut to its row's
+    length by ``cache_insert``: gathered logits into ``out``, each step's
+    collectives, formula and whether the sequence was cut into
+    ``counts``."""
+    tokens, vision, steps, _ = _inputs(cfg)
+    tokens = torch.from_numpy(tokens)
+    vision = None if vision is None else torch.from_numpy(vision)
+    rules = ST.rules_for(cfg, ShapeCase("t", "decode", MAX_SEQ, B), mesh,
+                         "seqpar")
+    model = T.from_jax_params(cfg, weights, device="cpu", mesh=mesh,
+                              rules=rules)
+    for S in SP_PROMPTS[::-1]:            # the decode cache: P's rows
+        SH.reset_collectives()
+        lt, pf = model.prefill(tokens[:, :S], vision_embeds=vision)
+        counts[f"{key}/prefill{S}"] = [
+            SH.collectives()["calls"], model.step_collectives(batch=B, seq=S),
+            model.seq_plan(B, S).sp is not None]
+        out[f"{key}/prefill{S}"] = model.gather_logits(lt, B)
+    cache = T.init_cache(cfg, B, MAX_SEQ, device="cpu", mesh=mesh,
+                         rules=rules)
+    (b0, bl), = model.layout.ranges(("batch",), (B,))
+    for b in range(B):
+        j = b - b0 if b0 <= b < b0 + bl else 0     # another card's: unread
+        row = {g: tuple({"mixer": {k: v[:, j:j + 1] for k, v in
+                                   layer["mixer"].items()}}
+                        for layer in layers) for g, layers in pf.items()}
+        T.cache_insert(cfg, cache, row, b, LENS[b])
+    lengths = np.array(LENS)
+    for i in range(STEPS):
+        SH.reset_collectives()
+        lg, cache = model.decode_step(cache, torch.from_numpy(steps[i]),
+                                      torch.from_numpy(lengths))
+        counts[f"{key}/committed/{i}"] = [SH.collectives()["calls"],
+                                          model.step_collectives(cache)]
+        out[f"{key}/committed/{i}"] = model.gather_logits(lg, B)
+        lengths = lengths + 1
+
+
+def _music_uncut_case(weights, rank, mesh, out, counts):
+    """musicgen at vocab 130 on 1x4 under ``seqpar``: the codebook
+    embedding and head whole on every card (130 does not cut over 4), the
+    C lookups' sum kept at the card's rows; prefill logits and one
+    whole-batch ``value_and_grad`` (every gradient gathered on rank 0),
+    with their collectives and formulas."""
+    cfg = _music_uncut()
+    tokens, _, _, batches = _inputs(cfg)
+    model, _, _, p_specs, _ = _build(cfg, "seqpar", weights, mesh)
+    assert model._embed_vocab[0] is None
+    SH.reset_collectives()
+    lt, _ = model.prefill(torch.from_numpy(tokens))
+    counts["uncut/prefill"] = [SH.collectives()["calls"],
+                               model.step_collectives(batch=B, seq=P)]
+    out["uncut/prefill"] = model.gather_logits(lt, B)
+    SH.reset_collectives()
+    _, metrics, grads = ST.value_and_grad(cfg, model, _t(batches[0]))
+    want = T.train_collectives(model, TB, TS)
+    want["all-reduce"] = want.get("all-reduce", 0) + sum(
+        bool(r) for r in ST.mesh_plan(model).seq_reduce.values())
+    counts["uncut/grads"] = [SH.collectives()["calls"], want]
+    out["uncut/vg"] = np.array([float(metrics[k]) for k in
+                                ("ce", "z", "lb_loss", "z_loss")])
+    for n, g in grads.items():
+        whole = SH.gather_whole(g, model.layout, _spec(p_specs, n))
+        if rank == 0:
+            out[f"uncut/g/{n}"] = whole.numpy().copy()
 
 
 def _train(cfg, weights, rank, mesh, variant, batches, out, counts, key):
@@ -211,6 +298,9 @@ def _rank(rank, store_path, out_dir, weights):
         for mname, d, batch in _serve_cases(arch):
             _serve(cfg, weights[arch], meshes[d], batch, out, counts,
                    f"serve/{arch}/{mname}")
+        for mname, d, _ in SERVE:
+            _serve_sp(cfg, weights[arch], meshes[d], out, counts,
+                      f"sp/{arch}/{mname}")
         batches = _inputs(cfg)[3]
         for mname, d, variant in _train_cases(arch):
             _train(cfg, weights[arch], rank, meshes[d], variant, batches,
@@ -221,6 +311,7 @@ def _rank(rank, store_path, out_dir, weights):
                         mesh=meshes[d])
     _checkpoint(rank, out, out_dir, meshes, weights[CKPT],
                 _inputs(_cfg(CKPT))[3])
+    _music_uncut_case(weights["uncut"], rank, meshes[1], out, counts)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
              **{k: np.asarray(v) for k, v in out.items()})
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -243,6 +334,7 @@ def runs(tmp_path_factory):
 
     weights = {arch: _weights(_cfg(arch), seed)
                for seed, arch in enumerate(ARCHS)}
+    weights["uncut"] = _weights(_music_uncut(), 7)
     out_dir = tmp_path_factory.mktemp("ranks")
     ranks_run = torch.multiprocessing.spawn(
         _rank, args=(str(out_dir / "store"), str(out_dir), weights),
@@ -298,6 +390,17 @@ def runs(tmp_path_factory):
         ref[(arch, "s")] = named(jax.tree.map(
             np.asarray, {k: st[k] for k in ("m", "v")}))
         ref[(arch, "count")] = int(st["count"])
+    cfg_j = jax_get_config(MUSIC).reduced(vocab=MUSIC_UNCUT)
+    params = jax.tree.map(jnp.asarray, weights["uncut"])
+    tokens, _, _, batches = _inputs(_music_uncut())
+    ref["uncut/prefill"] = np.asarray(j_prefill(
+        cfg_j, params, jnp.asarray(tokens), None)[0])
+    (_, m), g = jax.jit(jax.value_and_grad(
+        lambda p, b: JT.loss_fn(cfg_j, p, b), has_aux=True))(
+        params, jax.tree.map(jnp.asarray, batches[0]))
+    ref["uncut/vg"] = np.array(
+        [float(m[k]) for k in ("ce", "z", "lb_loss", "z_loss")])
+    ref["uncut/g"] = named(jax.tree.map(np.asarray, g))
     while not ranks_run.join():
         pass
     records = {(r["arch"], r["shape"]): r for r in (
@@ -358,6 +461,52 @@ def test_serving_collectives_follow_the_formula(runs, arch):
     # the embedding, then wo and w_down a layer; the query heads and the
     # partials a layer
     assert got == {"all-reduce": 1 + 2 * n_attn, "all-gather": 2 * n_attn}
+
+
+@pytest.mark.parametrize("arch,mesh", [(a, m) for a in ARCHS
+                                       for m, _, _ in SERVE])
+def test_seqpar_prefill_and_decode_match_jax(runs, arch, mesh):
+    """Under ``seqpar``: the prefill at P tokens (the sequence cut; a
+    cross layer's queries over the gathered rows, its K/V the card's batch
+    rows of the vision tokens, whole) and at P - 1 (not cut), and 3
+    committed decode steps from one-row seqpar prefills' caches, against
+    JAX: gathered logits on every rank; every step's collectives the
+    formula's, the cut prefill's without an all-reduce."""
+    ref, ranks, *_ = runs
+    key = f"sp/{arch}/{mesh}"
+    for out, counts in ranks:
+        for S in SP_PROMPTS:
+            assert _close(out[f"{key}/prefill{S}"],
+                          ref[f"{arch}/{B}/prefill"][:, :S]), S
+            got, want, cut = counts[f"{key}/prefill{S}"]
+            assert got == want and cut == (S == P), S
+        assert "all-reduce" not in counts[f"{key}/prefill{P}"][0]
+        for i in range(STEPS):
+            k = f"{key}/committed/{i}"
+            assert _close(out[k], ref[f"{arch}/{B}/committed/{i}"]), i
+            got, want = counts[k]
+            assert got == want, k
+
+
+def test_codebooks_keep_their_rows_where_the_vocab_is_whole(runs):
+    """musicgen at vocab 130 on 1x4 under ``seqpar``: the (C, V, D)
+    embedding is whole on every card, so the C lookups' sum is computed
+    for every row and the card keeps its rows of the sequence; prefill
+    logits, the loss terms and every gradient against JAX, the
+    collectives the formula's."""
+    ref, ranks, *_ = runs
+    for out, counts in ranks:
+        assert out["uncut/prefill"].shape == ref["uncut/prefill"].shape
+        assert _close(out["uncut/prefill"], ref["uncut/prefill"])
+        assert _close(out["uncut/vg"], ref["uncut/vg"])
+        for what in ("prefill", "grads"):
+            got, want = counts[f"uncut/{what}"]
+            assert got == want, what
+    out = ranks[0][0]
+    assert {k.split("/g/", 1)[1] for k in out
+            if k.startswith("uncut/g/")} == set(ref["uncut/g"])
+    for name, g in ref["uncut/g"].items():
+        assert _close(out[f"uncut/g/{name}"], g), name
 
 
 TRAIN_CASES = [(a, m, v) for a in ARCHS for m, _, v in _train_cases(a)]

@@ -19,12 +19,17 @@ mesh=)``:
     1x4 and 2x2, from slot caches filled by ``cache_insert`` of one-row
     prefills at each prompt's exact length; the collectives of every step
     equal to ``Transformer.step_collectives``;
+  * under ``seqpar`` (the residual stream's sequence over "model"): the
+    batch's prefill at 24 tokens and one-row prefills at 24 (the sequence
+    cut) and 17 (not cut), and 3 committed decode steps from their states,
+    on 1x4 and 2x2;
   * every leaf's gradient of one whole-batch ``value_and_grad`` and two
     train steps (n_micro 4, from count 99) on meshes 2x2, 4x1 and 1x4 (and
-    rwkv6's under ``fsdp`` on 2x2): the metrics, every parameter and the
-    optimizer state (AdamW's moments, Adafactor's factors with ``vc`` of
-    the paired ``in_proj``) gathered whole; the collectives of each step
-    equal to ``steps.train_step_collectives``;
+    rwkv6's under ``fsdp`` on 2x2), and under ``seqpar`` on 2x2 and 1x4
+    (rwkv6's under ``fsdp+seqpar`` on 2x2): the metrics, every parameter
+    and the optimizer state (AdamW's moments, Adafactor's factors with
+    ``vc`` of the paired ``in_proj``) gathered whole; the collectives of
+    each step equal to ``steps.train_step_collectives``;
   * the engine on 1x4 (and rwkv6's on 2x2): greedy tokens equal to the
     one-process port engine's on every rank;
   * reduced dry-run records (rwkv6 decode_32k and long_500k on 1x4,
@@ -68,7 +73,9 @@ B, LENS, MAX_SEQ, STEPS = 4, (24, 17, 24, 17), 64, 3
 SERVE = (("1x4", 1), ("2x2", 2))
 TB, TS, COUNT, N_MICRO, TSTEPS = 8, 32, 99, 4, 2
 TRAIN = (("2x2", 2, "baseline"), ("4x1", 4, "baseline"),
-         ("1x4", 1, "baseline"), ("2x2", 2, "fsdp"))
+         ("1x4", 1, "baseline"), ("2x2", 2, "fsdp"),
+         ("2x2", 2, "seqpar"), ("1x4", 1, "seqpar"),
+         ("2x2", 2, "fsdp+seqpar"))
 METRICS = ("loss", "grad_norm", "lr", "ce", "z", "lb_loss", "z_loss")
 ECFG = EngineConfig(max_batch=4, max_seq=64)
 PROMPTS = (30, 9, 21, 17, 12)
@@ -93,7 +100,7 @@ def _cfg(arch):
 
 def _train_cases(arch):
     return [(m, d, v) for m, d, v in TRAIN
-            if v == "baseline" or arch.startswith("rwkv")]
+            if "fsdp" not in v or arch.startswith("rwkv")]
 
 
 def _inputs(cfg, seed=1):
@@ -167,6 +174,46 @@ def _serve(cfg, weights, mesh, tokens, steps, out, counts, key):
                                            model.step_collectives(cache)]
             out[f"{key}/{mode}/{i}"] = model.gather_logits(lg, B)
             lengths = lengths + 1
+
+
+def _serve_sp(cfg, weights, mesh, tokens, steps, out, counts, key):
+    """Under ``seqpar``: the batch's prefill at 24 tokens and the one-row
+    prefills at each prompt's exact length (24 cuts the sequence on both
+    meshes, 17 on none), then 3 committed decode steps from slot caches
+    filled from the one-row prefills: gathered logits into ``out``, each
+    step's collectives and formula into ``counts``."""
+    rules = ST.rules_for(cfg, ShapeCase("t", "decode", MAX_SEQ, B), mesh,
+                         "seqpar")
+    model = T.from_jax_params(cfg, weights, device="cpu", mesh=mesh,
+                              rules=rules)
+    SH.reset_collectives()
+    lt, _ = model.prefill(torch.from_numpy(tokens))
+    counts[f"{key}/prefill"] = [SH.collectives()["calls"],
+                                model.step_collectives(
+                                    batch=B, seq=tokens.shape[1])]
+    out[f"{key}/prefill"] = model.gather_logits(lt, B)
+    rows = []
+    for b, n in enumerate(LENS):
+        SH.reset_collectives()
+        lr, row = model.prefill(torch.from_numpy(tokens[b:b + 1, :n]))
+        counts[f"{key}/row{b}"] = [SH.collectives()["calls"],
+                                   model.step_collectives(batch=1, seq=n),
+                                   model.seq_plan(1, n).sp is not None]
+        out[f"{key}/row{b}"] = model.gather_logits(lr, 1)
+        rows.append(row)
+    cache = T.init_cache(cfg, B, MAX_SEQ, device="cpu", mesh=mesh,
+                         rules=rules)
+    for b, n in enumerate(LENS):
+        T.cache_insert(cfg, cache, rows[b], b, n)
+    lengths = np.array(LENS)
+    for i in range(STEPS):
+        SH.reset_collectives()
+        lg, cache = model.decode_step(cache, torch.from_numpy(steps[i]),
+                                      torch.from_numpy(lengths))
+        counts[f"{key}/committed/{i}"] = [SH.collectives()["calls"],
+                                          model.step_collectives(cache)]
+        out[f"{key}/committed/{i}"] = model.gather_logits(lg, B)
+        lengths = lengths + 1
 
 
 def _train(cfg, weights, rank, mesh, variant, batches, out, counts, key):
@@ -270,6 +317,8 @@ def _rank(rank, store_path, out_dir, weights):
         for mname, d in SERVE:
             _serve(cfg, weights[arch], meshes[d], tokens, steps, out,
                    counts, f"serve/{arch}/{mname}")
+            _serve_sp(cfg, weights[arch], meshes[d], tokens, steps, out,
+                      counts, f"sp/{arch}/{mname}")
         for mname, d, variant in _train_cases(arch):
             _train(cfg, weights[arch], rank, meshes[d], variant, batches,
                    out, counts, f"{arch}/{mname}/{variant}")
@@ -342,8 +391,12 @@ def runs(tmp_path_factory):
         tokens, steps, batches, _ = _inputs(cfg)
         logits, _ = j_prefill(cfg_j, params, jnp.asarray(tokens))
         ref[f"{arch}/prefill"] = np.asarray(logits)
-        rows = [j_prefill(cfg_j, params, jnp.asarray(tokens[b:b + 1, :n]))[1]
-                for b, n in enumerate(LENS)]
+        rows = []
+        for b, n in enumerate(LENS):
+            lr, row = j_prefill(cfg_j, params,
+                                jnp.asarray(tokens[b:b + 1, :n]))
+            ref[f"{arch}/row{b}"] = np.asarray(lr)
+            rows.append(row)
         for mode in ("committed", "append"):
             cache, _ = JT.init_cache(cfg_j, B, MAX_SEQ)
             for b, n in enumerate(LENS):
@@ -448,6 +501,37 @@ def test_serving_collectives_follow_the_formula(runs, arch):
         assert got["reduce-scatter"] == kinds.count("rwkv")
     else:
         assert got["all-reduce"] >= 2 * kinds.count("mamba")
+
+
+@pytest.mark.parametrize("arch,mesh", SERVE_CASES)
+def test_seqpar_prefill_and_decode_match_jax(runs, arch, mesh):
+    """Under ``seqpar``: the batch's prefill at 24 tokens and the one-row
+    prefills at 24 (the sequence cut) and 17 (not cut) against JAX's
+    prefills, and 3 committed decode steps from the one-row prefills'
+    states (the scans and shifts ran over the gathered sequence, so the
+    states are the baseline's) against JAX's decode_step: gathered logits
+    on every rank; every step's collectives the formula's, the cut
+    prefill's without an all-reduce but Mamba's ``x_proj``."""
+    ref, ranks, *_ = runs
+    key = f"sp/{arch}/{mesh}"
+    n_mamba = [s.kind for s in _cfg(arch).layer_specs()].count("mamba")
+    for out, counts in ranks:
+        assert _close(out[f"{key}/prefill"], ref[f"{arch}/prefill"])
+        for b in range(B):
+            assert _close(out[f"{key}/row{b}"], ref[f"{arch}/row{b}"]), b
+        for i in range(STEPS):
+            assert _close(out[f"{key}/committed/{i}"],
+                          ref[f"{arch}/committed/{i}"]), i
+        keys = [k for k in counts if k.startswith(f"{key}/")]
+        assert len(keys) == 1 + B + STEPS
+        for k in keys:
+            got, want, *_ = counts[k]
+            assert got == want, k
+        assert [counts[f"{key}/row{b}"][2] for b in range(B)] == [
+            n % 2 == 0 for n in LENS]
+        got = counts[f"{key}/prefill"][0]
+        assert got.get("all-reduce", 0) == n_mamba
+        assert got["reduce-scatter"] > 0
 
 
 TRAIN_CASES = [(a, m, v) for a in ARCHS for m, _, v in _train_cases(a)]

@@ -30,7 +30,9 @@ Reduced qwen2-1.5b (tied embeddings, biases, 4 / 2 heads), gemma2-27b
     4 cards (qwen2 at 6 heads, d_ff 130, vocab 130 on 1x4: every card
     computes them whole and keeps its rows) against the one-process port;
   * qwen2's reduced train_4k record under ``seqpar`` on 2x2;
-  * rwkv6, Jamba, vision and musicgen raising "ROADMAP A9c item 4b".
+  * rwkv6, Jamba, vision and musicgen building their seqpar train cells
+    (their layers on a mesh: tests/test_torch_recurrent_parallel.py and
+    tests/test_torch_modality_parallel.py).
 
 Tolerance: fp32's 2e-5 and, under ``bf16grad``, bf16's 2e-2
 (tests/test_kernels.py::_tol) of the reference's magnitude where it
@@ -70,7 +72,7 @@ TRAIN = {arch: (("2x2", "seqpar"), ("1x4", "seqpar"),
 TRAIN["qwen2-1.5b"] += (("2x2", "micro8+bf16grad+seqpar"),)
 TRAIN["granite-moe-1b-a400m"] += (("2x2", "expdata+seqpar"),)
 METRICS = ("loss", "grad_norm", "lr", "ce", "z")
-WAITING = ("rwkv6-1.6b", "jamba-1.5-large-398b", "llama-3.2-vision-11b",
+ITEM_4B = ("rwkv6-1.6b", "jamba-1.5-large-398b", "llama-3.2-vision-11b",
            "musicgen-large")
 
 
@@ -496,21 +498,23 @@ def test_seqpar_record(runs):
     assert rec["flops"] > 0 and np.isfinite(rec["losses"]).all()
 
 
-@pytest.mark.parametrize("arch", WAITING)
+@pytest.mark.parametrize("arch", ITEM_4B)
 def test_recurrent_and_modality_configs_wait_for_item_4b(arch):
-    """seqpar on a config with a Mamba, RWKV, cross or codebook layer
-    raises naming ROADMAP A9c item 4b: the variant, the cell, and a model
-    built with the rule whose pass would cut the sequence."""
+    """ROADMAP A9c item 4b, done: seqpar on a config with a Mamba, RWKV,
+    cross or codebook layer builds its train_4k cell on the meta device
+    (the tokens' spec ("data", "model"): the sequence over "model"), and
+    a model built with the rule cuts a pass of 32 tokens over 4 cards and
+    not one of 31."""
     sizes = {"data": 1, "model": 4}
     lay = SH.Layout(sizes, {"data": 0, "model": 0}, SH.ShardingRules())
     cfg = get_config(arch)
-    with pytest.raises(NotImplementedError, match="A9c item 4b"):
-        ST.apply_variant_config(cfg, "seqpar", lay)
-    with pytest.raises(NotImplementedError, match="A9c item 4b"):
-        ST.build_cell(cfg, SHAPES["train_4k"], "meta", "seqpar", mesh=lay)
+    assert ST.apply_variant_config(cfg, "seqpar", lay) == cfg
+    _, _, _, rules, ins, _ = ST.build_cell(cfg, SHAPES["train_4k"], "meta",
+                                           "seqpar", mesh=lay)
+    assert rules.rules["seq"] == ("model",)
+    assert ins["batch"]["tokens"][:2] == ("data", "model")
     rules = ST.rules_for(cfg, SHAPES["prefill_32k"], lay, "seqpar")
     model = T.Transformer(cfg.reduced(), device="meta",
                           mesh=lay.with_rules(rules))
-    assert model.seq_plan(1, 31) is model.tp       # not cut: nothing waits
-    with pytest.raises(NotImplementedError, match="A9c item 4b"):
-        model.seq_plan(1, 32)
+    assert model.seq_plan(1, 31) is model.tp
+    assert model.seq_plan(1, 32).sp == "model"

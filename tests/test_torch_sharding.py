@@ -205,16 +205,58 @@ def test_train_cell_specs_match_reference(trees, arch, mesh_name, variant):
                                    zip(spec, o_shapes[k])), k
 
 
+ITEM_4B = ("rwkv6-1.6b", "jamba-1.5-large-398b", "llama-3.2-vision-11b",
+           "musicgen-large")
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch", ITEM_4B)
+def test_seqpar_cell_specs_match_reference(trees, arch, mesh_name):
+    """``build_cell(mesh=)``'s train cell under ``seqpar`` for the configs
+    with Mamba, RWKV, cross or codebook layers: its rules, and its batch
+    (the sequence over "model" where it divides), parameter and
+    optimizer-state spec trees, equal the reference's ``rules_for`` /
+    ``opt_rules`` over its own axes trees; a prefill case's batch specs
+    too (the tokens' sequence over "model", a vision config's embeddings
+    not: they are not the residual stream)."""
+    cfg, cfg_j, model, p_axes_j, _ = trees[arch]
+    mesh = _Mesh(*MESHES[mesh_name])
+    lay = SH.Layout(mesh.shape, {"data": 0, "model": 0}, SH.ShardingRules())
+    _, _, _, rules, ins, _ = ST.build_cell(cfg, SHAPES["train_4k"], "meta",
+                                           "seqpar", mesh=lay)
+    rules_j = JS.rules_for(cfg_j, jax_get_shape("train_4k"), mesh, "seqpar")
+    assert dict(rules.rules) == dict(rules_j.rules)
+    assert rules.rules["seq"] == ("model",)
+    params = T.param_tree(model)
+    assert _specs(ins["params"]) == _ref(mesh, p_axes_j, _shapes(params),
+                                         rules_j)
+    named = dict(model.named_parameters())
+    o_shapes = _shapes(OPT.state_to_tree(OPT.init(named, cfg.optimizer),
+                                         cfg.optimizer))
+    o_axes_j = JOPT.state_axes(params, p_axes_j, cfg_j.optimizer)
+    assert _specs(OPT.state_to_tree(ins["opt_state"], cfg.optimizer)) == \
+        _ref(mesh, o_axes_j, o_shapes, JS.opt_rules(rules_j))
+    for shape in ("train_4k", "prefill_32k"):
+        case = SHAPES[shape]
+        rules = ST.rules_for(cfg, case, mesh, "seqpar")
+        rules_j = JS.rules_for(cfg_j, jax_get_shape(shape), mesh, "seqpar")
+        batch = ST.abstract_batch(cfg, case)
+        got = _specs(ST.shardings_of(mesh, ST.batch_axes(cfg, case.kind),
+                                     batch, rules))
+        assert got == _ref(mesh, JS.batch_axes(cfg_j, case.kind),
+                           _shapes(batch), rules_j), shape
+        assert got["['tokens']"][1] == "model", shape
+
+
 @pytest.mark.parametrize("variant,item", [("expdata", "A9c item 1"),
                                           ("seqpar", "A9c item 4")])
 def test_waiting_sharding_variants_raise_on_a_mesh(variant, item):
     """The sharding variants of ROADMAP A9c on a mesh. ``expdata`` (item
     1, done) builds on a mesh for a dense and a MoE config, granite's
-    experts over ("data", "model"), and no message of the port names item
-    1 any more. ``seqpar`` (item 4, done for the attention configs) builds
-    qwen2's train cell with the residual stream's sequence over "model"
-    (the tokens' spec) at the baseline's shapes, and raises for rwkv6
-    naming item 4b, in ``build_cell`` and ``apply_variant_config``."""
+    experts over ("data", "model"), and nothing of the port waits on an
+    item any more. ``seqpar`` (items 4 and 4b, done) builds qwen2's and
+    rwkv6's train cells with the residual stream's sequence over "model"
+    (the tokens' spec) at the baseline's shapes."""
     mesh = _Mesh(2, 2)
     lay = SH.Layout(mesh.shape, {"data": 1, "model": 0}, SH.ShardingRules())
     cfg = get_config("qwen2-1.5b")
@@ -229,7 +271,7 @@ def test_waiting_sharding_variants_raise_on_a_mesh(variant, item):
             None, ("data", "model"), None, None)
         assert kw["params"].g0[0].mlp["w_gate"].shape == (24, 8, 1024, 512)
         assert (kw["params"].tp.e0, kw["params"].tp.el) == (16, 8)
-        assert item not in T.A9C_SEQPAR
+        assert not hasattr(T, "A9C_SEQPAR")       # nothing waits
         return
     assert ST.apply_variant_config(cfg, variant, mesh) == cfg
     _, kw, _, rules, ins, _ = ST.build_cell(cfg, SHAPES["train_4k"], "meta",
@@ -239,11 +281,12 @@ def test_waiting_sharding_variants_raise_on_a_mesh(variant, item):
     assert kw["params"].g0[0].mixer["wq"].shape == (28, 1536, 6, 128)
     assert kw["params"].g0[0].norm1.shape == (28, 1536)
     assert kw["params"].seq_plan(256, 4096).sp == "model"
-    rwkv = get_config("rwkv6-1.6b")
-    with pytest.raises(NotImplementedError, match=f"{item}b"):
-        ST.apply_variant_config(rwkv, variant, mesh)
-    with pytest.raises(NotImplementedError, match=f"{item}b"):
-        ST.build_cell(rwkv, SHAPES["train_4k"], "meta", variant, mesh=lay)
+    rwkv = get_config("rwkv6-1.6b")           # item 4b, done
+    assert ST.apply_variant_config(rwkv, variant, mesh) == rwkv
+    _, kw, _, rules, ins, _ = ST.build_cell(rwkv, SHAPES["train_4k"], "meta",
+                                            variant, mesh=lay)
+    assert ins["batch"]["tokens"] == ("data", "model")
+    assert kw["params"].seq_plan(256, 4096).sp == "model"
 
 
 def test_resolver_cases_as_the_reference():
@@ -423,8 +466,8 @@ def test_sharded_cell_on_the_meta_device():
     _, kw, *_ = ST.build_cell(get_config("qwen2-1.5b"), SHAPES["train_4k"],
                               "meta", "expdata", mesh=lay)
     assert kw["params"].g0[0].mixer["wq"].shape == (28, 1536, 3, 128)
-    # seqpar (A9c item 4) builds qwen2's train cell, fsdp's D dim cut too;
-    # rwkv6's waits for item 4b
+    # seqpar (A9c item 4) builds qwen2's train cell, fsdp's D dim cut too,
+    # and rwkv6's (item 4b)
     for variant, shape in (("seqpar", (28, 1536, 3, 128)),
                            ("fsdp+seqpar", (28, 1536, 3, 128))):
         _, kw, _, rules, ins, _ = ST.build_cell(
@@ -434,9 +477,12 @@ def test_sharded_cell_on_the_meta_device():
         assert ins["batch"]["tokens"] == ("data", "model")
         assert kw["params"].g0[0].mixer["wq"].shape == shape
         assert kw["params"].g0[0].mlp["w_up"].shape == (28, 1536, 2240)
-        with pytest.raises(NotImplementedError, match="A9c item 4b"):
-            ST.build_cell(get_config("rwkv6-1.6b"), SHAPES["train_4k"],
-                          "meta", variant, mesh=lay)
+        _, kw, _, rules, ins, _ = ST.build_cell(
+            get_config("rwkv6-1.6b"), SHAPES["train_4k"], "meta", variant,
+            mesh=lay)
+        assert rules.rules["seq"] == ("model",)
+        assert ins["batch"]["tokens"] == ("data", "model")
+        assert kw["params"].g0[0].mixer["wr"].shape == (24, 2048, 512)
 
 
 def test_import_creates_no_process_group():
