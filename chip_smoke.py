@@ -104,10 +104,27 @@ Phases, each of which raises on failure (nothing is caught):
                gemma2-27b's long_500k, jamba and kimi-k2 at full depth
                logged as not fitting one card, with why. Each record
                prints its seconds.
-  7. cluster — qwen2-1.5b behind ServingCluster with {"H100": 2} (two
+  7. cluster — qwen2-1.5b behind ServingCluster (the serving example
+               twin's data_plane) with {"H100": 2} (two
                engines sharing one model on the card) under phase 6's
                profile: phase 3's 8 requests, each of whose tokens must
                equal the single engine's, exact launch counts.
+  7b. control — the port's own Mélange control plane, through the
+               functions of examples/serve_heterogeneous_torch.py: Melange
+               over PAPER_GPUS for qwen2-1.5b (the analytic profile with
+               phase 6's record-derived H100 row) allocates arena traffic
+               at CONTROL_RATE req/s, which must hold at least 2 instances
+               (the analytic profile's allocation printed beside it);
+               phase 3's 8 requests through a ServingCluster of that
+               allocation's counts, every instance sharing phase 7's bf16
+               model, gated as phase 7; then the port's simulator on the
+               allocation (attainment, TPOT p50 / p99), on a control: line.
+  7c. twins  — examples/serve_heterogeneous_torch.py (--requests 8
+               --sim-requests 200) and examples/train_small_torch.py
+               (--steps 4) in subprocesses with --device cuda, each wrapped
+               to list the modules it loaded: exit 0, their lines printed,
+               completed plus rejected equal to the requests, finite
+               losses, no jax or repro module loaded (a twins: line).
   8. training — the flash kernel's lse output against
                ref.blockwise_fwd_lse (qwen2's and granite's heads, S = 1024,
                window and softcap, a case with fully masked rows; fp32 2e-5,
@@ -345,6 +362,12 @@ reference's sharding rules:
                musicgen's too) H100x4
                MaxTput row beside the analytic H100x4 and H100 rows, the
                engine model's step beside the measured one.
+  dryrun cli  — with tp, after the ranks have joined: `python -m
+               repro_torch.launch.dryrun --cards 4 --mesh 1x4` for qwen2's
+               decode_32k (its own four NCCL ranks) into
+               results/dryrun_cli, held to dryrun tp's record of the cell
+               (batch, operations, bytes, mesh, collective calls and link
+               bytes by kind equal; both step times printed).
 It ends with a {"kernels": [...]} line, the cards' names and power limits,
 and the same last line with "count": 4.
 """
@@ -1244,7 +1267,7 @@ def main() -> int:
     from repro_torch.models import transformer as T
     from repro_torch.models.moe import capacity
     from repro_torch.serving import (EngineConfig, LatencyStats, Request,
-                                     ServingCluster, ServingEngine)
+                                     ServingEngine)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2854,49 +2877,99 @@ def main() -> int:
     print(f"phase 6 records: {time.perf_counter() - t_phase:.1f} s")
 
     # -- 7. cluster: qwen2-1.5b behind ServingCluster, two H100 instances
-    # sharing one model on the card, routed under phase 6's profile --------
+    # sharing one model on the card, routed under phase 6's profile, through
+    # the serving example twin's data plane --------------------------------
+    twin = load_example("serve_heterogeneous_torch")
     model = build(cfg)
-    cluster = ServingCluster(cfg, model, {"H100": 2}, h100_profile,
-                             EngineConfig(max_batch=8, max_seq=S_D))
-    torch.cuda.synchronize()
-    zero_launches()
+
+    def cluster_run(label, counts, profile, extra=None):
+        """Phase 3's 8 requests through ``twin.data_plane``: a
+        ServingCluster of ``counts`` instances sharing ``model`` under
+        ``profile``; every request completed, launches exact (counted from
+        0 over exactly this run), tokens equal to phase 3's single engine.
+        A ``label:`` line with ``extra``."""
+        requests = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                    for i, p in enumerate(serving_prompts(cfg))]
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        cluster, stats = twin.data_plane(
+            cfg, model, counts, profile, requests,
+            EngineConfig(max_batch=B_D, max_seq=S_D), dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        prefills = sum(e.prefills for e in cluster.engines)
+        decodes = sum(e.decodes for e in cluster.engines)
+        expected = expected_launches(cfg, prefills, decodes)
+        done = [r for e in cluster.engines for r in e.finished]
+        tokens = {r.rid: list(r.generated) for r in done}
+        differing = sorted(rid for rid in qwen2_tokens
+                           if tokens.get(rid) != qwen2_tokens[rid])
+        print(f"{label}: " + json.dumps({
+            "model": cfg.name, "allocation": counts,
+            "instances": [ref.gpu for ref in cluster.lb.instances],
+            "routed": cluster.routed, "per_instance": stats.per_instance,
+            "completed": stats.completed, "rejected": stats.rejected,
+            "mean_tokens": stats.mean_tokens, "prefills": prefills,
+            "decode_steps": decodes, "launches": launches, "wall_s": wall,
+            "output_tok_per_s": N_REQUESTS * NEW_TOKENS / wall,
+            **latency(done),
+            "requests_with_tokens_as_single_engine":
+                N_REQUESTS - len(differing), **(extra or {})}))
+        if stats.completed != N_REQUESTS or stats.rejected or \
+                sum(stats.per_instance.values()) != N_REQUESTS:
+            raise AssertionError(f"{label}: {stats}")
+        if prefills != N_REQUESTS or launches != expected:
+            raise AssertionError(f"{label}: launches {launches} for "
+                                 f"{prefills} prefills and {decodes} decode "
+                                 f"steps, expected {expected}")
+        if differing:
+            raise AssertionError(f"{label}: requests {differing} generated "
+                                 "other tokens than the single engine of "
+                                 "phase 3")
+        launches_by_path[f"{cfg.name} {label}"] = launches
+
+    cluster_run("cluster", {"H100": 2}, h100_profile)
+
+    # -- 7b. control: the port's own Mélange control plane (the serving
+    # twin's functions) at full width: Melange over PAPER_GPUS with phase
+    # 6's record-derived H100 row allocates arena traffic at CONTROL_RATE,
+    # the allocation is served (cluster_run) and simulated -------------
+    perf = ModelPerf.from_config(cfg)
+    catalog = profile_catalog(PAPER_GPUS, bucket_grid(), perf, SLO_TPOT_S)
+    catalog.max_tput["H100"] = h100_profile.max_tput["H100"]
     t0 = time.perf_counter()
-    for i, p in enumerate(serving_prompts(cfg)):
-        cluster.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
-    stats = cluster.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_launches()
-    prefills = sum(e.prefills for e in cluster.engines)
-    decodes = sum(e.decodes for e in cluster.engines)
-    expected = expected_launches(cfg, prefills, decodes)
-    done = [r for e in cluster.engines for r in e.finished]
-    tokens = {r.rid: list(r.generated) for r in done}
-    differing = sorted(rid for rid in qwen2_tokens
-                       if tokens.get(rid) != qwen2_tokens[rid])
-    print("cluster: " + json.dumps({
-        "model": cfg.name, "allocation": {"H100": 2},
-        "routed": cluster.routed, "per_instance": stats.per_instance,
-        "completed": stats.completed, "rejected": stats.rejected,
-        "mean_tokens": stats.mean_tokens, "prefills": prefills,
-        "decode_steps": decodes, "launches": launches, "wall_s": wall,
-        "output_tok_per_s": N_REQUESTS * NEW_TOKENS / wall,
-        **latency(done),
-        "requests_with_tokens_as_single_engine":
-            N_REQUESTS - len(differing)}))
-    if stats.completed != N_REQUESTS or stats.rejected or \
-            sum(stats.per_instance.values()) != N_REQUESTS:
-        raise AssertionError(f"cluster: {stats}")
-    if prefills != N_REQUESTS or launches != expected:
-        raise AssertionError(f"cluster: launches {launches} for {prefills} "
-                             f"prefills and {decodes} decode steps, "
-                             f"expected {expected}")
-    if differing:
-        raise AssertionError(f"cluster: requests {differing} generated other "
-                             "tokens than the single engine of phase 3")
-    launches_by_path[f"{cfg.name} cluster"] = launches
-    del model, cluster
+    mel, alloc = twin.control_plane(CONTROL_RATE, perf, profile=catalog)
+    alloc_s = time.perf_counter() - t0
+    _, alloc_a = twin.control_plane(CONTROL_RATE, perf)
+    if alloc is None or sum(alloc.counts.values()) < 2:
+        raise AssertionError(f"control: allocation {alloc and alloc.counts} "
+                             f"at {CONTROL_RATE} req/s holds fewer than 2 "
+                             "instances")
+    t0 = time.perf_counter()
+    res = twin.slo_evaluation(alloc.counts, mel.profile, perf, CONTROL_RATE,
+                              CONTROL_SIM_REQUESTS)
+    sim_s = time.perf_counter() - t0
+    pct = res.tpot_percentiles((50, 99))
+    if not (0.0 <= res.slo_attainment <= 1.0 and pct
+            and len(res.requests) == CONTROL_SIM_REQUESTS):
+        raise AssertionError(f"control: simulation {res.slo_attainment}, "
+                             f"{len(res.requests)} requests")
+    cluster_run("control", alloc.counts, mel.profile, {
+        "rate_req_s": CONTROL_RATE, "dataset": "arena",
+        "slo_tpot_s": SLO_TPOT_S, "cost_per_hour": alloc.cost_per_hour,
+        "optimal": alloc.solution.optimal, "allocate_s": alloc_s,
+        "allocation_analytic": alloc_a.counts,
+        "cost_per_hour_analytic": alloc_a.cost_per_hour,
+        "sim_requests": CONTROL_SIM_REQUESTS,
+        "sim_slo_attainment": res.slo_attainment,
+        "sim_tpot_p50_s": pct[50], "sim_tpot_p99_s": pct[99],
+        "sim_cost": res.cost, "sim_duration_s": res.duration_s,
+        "simulate_s": sim_s})
+    del model
     free()
+    twins_phase()
 
     # -- 8. training: the lse kernel and the attention gradient, kernel vs
     # plain train step, qwen2 and granite at full size, resume -------------
@@ -3035,6 +3108,78 @@ def main() -> int:
 # ===========================================================================
 # chip_smoke.py --cards 4: the tensor-parallel serving path on four cards
 # ===========================================================================
+CONTROL_RATE = 32.0     # req/s of arena traffic: the allocation holds 2
+CONTROL_SIM_REQUESTS = 2000
+TWIN_ARGS = {"serve_heterogeneous_torch": ("--requests", "8",
+                                           "--sim-requests", "200"),
+             "train_small_torch": ("--steps", "4")}
+# runs a script as __main__ with the arguments after it, then lists the
+# jax / repro modules it loaded
+TWIN_WRAP = ("import json, runpy, sys\n"
+             "sys.argv = sys.argv[1:]\n"
+             "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+             "print('loaded: ' + json.dumps(sorted(n for n in sys.modules if "
+             "n.split('.')[0] in ('jax', 'jaxlib', 'repro'))))\n")
+
+
+def load_example(name: str):
+    """examples/<name>.py as a module (its main not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def twins_phase() -> None:
+    """Phase 7c: both example twins in subprocesses on the card (TWIN_ARGS,
+    ``--device cuda``), each wrapped to list the jax / repro modules it
+    loaded: exit 0, their lines printed, completed plus rejected equal to
+    the requests sent, finite losses, nothing of jax or repro loaded. A
+    twins: line with each one's wall time and lines."""
+    ckpt = ROOT / "results" / "train_small_torch_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    for name, args in TWIN_ARGS.items():
+        args = args + ("--device", "cuda") + ((
+            "--ckpt-dir", str(ckpt)) if name == "train_small_torch" else ())
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", TWIN_WRAP,
+             str(ROOT / "examples" / f"{name}.py"), *args],
+            capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        out[name] = {"wall_s": wall, "rc": proc.returncode, "lines": lines}
+        if proc.returncode or not lines or lines[-1] != "loaded: []":
+            raise AssertionError(f"twin {name}: rc {proc.returncode}, "
+                                 f"stdout {lines}, stderr "
+                                 f"{proc.stderr[-3000:]}")
+        lines = lines[:-1]
+        if name == "serve_heterogeneous_torch":
+            heads = ("[alloc] ", "[serve] completed=",
+                     "[serve] per-instance", "[slo]   attainment=")
+            if len(lines) != 4 or not all(
+                    l.startswith(h) for l, h in zip(lines, heads)):
+                raise AssertionError(f"twin {name}: lines {lines}")
+            fields = dict(kv.split("=") for kv in lines[1].split()[1:3])
+            if int(fields["completed"]) + int(fields["rejected"]) != \
+                    int(args[1]):
+                raise AssertionError(f"twin {name}: {lines[1]}")
+        else:
+            if len(lines) != 2 or not lines[0].startswith("training ") or \
+                    not lines[1].startswith("loss "):
+                raise AssertionError(f"twin {name}: lines {lines}")
+            first, _, last = lines[1].split(" (")[0].split()[1:]
+            if not (math.isfinite(float(first))
+                    and math.isfinite(float(last))):
+                raise AssertionError(f"twin {name}: {lines[1]}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print("twins: " + json.dumps(out))
+
+
 TP_TIMEOUT_S = 300      # process-group timeout: a hung rank fails the run
 # path tp: gemma2-27b at full width on its first 2 layers (one local and
 # one global layer, embedding and head: ~14 GB in fp32)
@@ -3235,12 +3380,65 @@ def cards_main(n: int, phases=PHASE_GROUPS) -> int:
                                 nprocs=n, join=True)
     res = json.loads(out.read_text())
     print(f"ranks: {time.perf_counter() - t0:.1f} s")
+    if "tp" in phases:
+        cli_beside_records(n)
     print(json.dumps({"kernels": res["kernels"]}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# the dry-run CLI's mesh mode (--cards), beside dryrun tp's record of the
+# same cell: the fields that must be equal
+CLI_CELL = TP_RECORDS[0]
+CLI_EQUAL = ("global_batch", "seq_len", "flops", "bytes_accessed", "mesh",
+             "devices", "variant", "reduced", "cache_spec")
+
+
+def cli_beside_records(n: int) -> None:
+    """After the ranks joined: ``python -m repro_torch.launch.dryrun --cards
+    n --mesh 1xn`` for CLI_CELL into results/dryrun_cli, its record held to
+    dryrun tp's ``run_cell(mesh=)`` record of the same cell in
+    results/dryrun_torch (CLI_EQUAL, collective calls and link bytes by
+    kind); both step times on a dryrun cli: line."""
+    arch, shape = CLI_CELL
+    cli_out = ROOT / "results" / "dryrun_cli"
+    shutil.rmtree(cli_out, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--cards",
+         str(n), "--mesh", f"1x{n}", "--arch", arch, "--shape", shape,
+         "--out", str(cli_out)], capture_output=True, text=True,
+        timeout=900, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    wall = time.perf_counter() - t0
+    files = sorted(cli_out.glob("*.json")) if cli_out.exists() else []
+    if proc.returncode or len(files) != 1:
+        raise AssertionError(f"dryrun cli: rc {proc.returncode}, files "
+                             f"{files}, stdout {proc.stdout[-3000:]}, "
+                             f"stderr {proc.stderr[-3000:]}")
+    ref_file = ROOT / "results" / "dryrun_torch" / files[0].name
+    got = json.loads(files[0].read_text())
+    want = json.loads(ref_file.read_text())
+    differ = [k for k in CLI_EQUAL if got.get(k) != want.get(k)]
+    for k in ("calls", "per_op"):
+        if got["collectives"][k] != want["collectives"][k]:
+            differ.append(f"collectives.{k}")
+    print("dryrun cli: " + json.dumps({
+        "cell": f"{arch} {shape}", "file": files[0].name, "wall_s": wall,
+        "step_ms": {"cli": got.get("step_ms"),
+                    "chip_smoke": want.get("step_ms")},
+        "device_busy_ms_by_rank": {
+            "cli": got.get("device_busy_ms_by_rank"),
+            "chip_smoke": want.get("device_busy_ms_by_rank")},
+        **{k: got.get(k) for k in CLI_EQUAL},
+        "collectives": got["collectives"], "differing": differ,
+        "stdout": proc.stdout.splitlines()}))
+    if differ or not got["ok"]:
+        raise AssertionError(f"dryrun cli: {differ} differ from "
+                             f"{ref_file.name}")
 
 
 def _tp_rank(rank: int, n: int, port: int, out: str,

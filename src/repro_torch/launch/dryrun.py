@@ -47,7 +47,9 @@ repository root, with ``PYTHONPATH=src``, as
     python -m repro_torch.launch.dryrun --arch all --shape all
 
 (on the card), or on the CPU at a reduced size with ``--device cpu
---reduced --seq-len 256``.
+--reduced --seq-len 256``. ``--cards 4 --mesh 1x4`` (or ``2x2``) spawns one
+rank a card and records on that mesh (NCCL; gloo ranks on the CPU with
+``--device cpu``); ``--layers`` cuts the depth.
 
 On a mesh (``run_cell(..., mesh=)``, every rank of a ``DeviceMesh`` calling
 it with the same arguments) the prefill and decode steps run sharded under
@@ -938,8 +940,64 @@ def _write(out_dir: Path, rec: dict,
     (out_dir / name).write_text(json.dumps(rec, indent=1, default=str))
 
 
+def _run_cells(args, mesh=None, rank: int = 0) -> None:
+    """``run_cell`` for every cell of the command line (on ``mesh`` where
+    given, every rank calling it alike); rank 0 prints a line a cell."""
+    archs = list_archs() if args.arch == "all" else args.arch.split(",")
+    shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
+    cells = [(arch, shape) for arch in archs for shape in shapes]
+    for i, (arch, shape) in enumerate(cells):
+        rec = run_cell(arch, shape, Path(args.out), device=args.device,
+                       reduced=args.reduced, seq_len=args.seq_len,
+                       variant=args.variant, mesh=mesh, layers=args.layers)
+        status = ("SKIP" if "skipped" in rec else "NOFIT"
+                  if "not_fitting" in rec else "OK")
+        if rank == 0:
+            print(f"[{status}] {arch} x {shape}"
+                  + ("" if mesh is None else f" on {rec['mesh']}") + ": "
+                  + json.dumps({k: rec[k] for k in (
+                      "global_batch", "seq_len", "flops", "bytes_accessed",
+                      "step_ms", "device_busy_ms", "skipped", "not_fitting",
+                      "reduced") if k in rec}))
+        if i + 1 < len(cells):
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+        sys.stdout.flush()
+
+
+def _mesh_rank(rank: int, n: int, data: int, port: int, args) -> None:
+    """One rank of ``--cards``: NCCL on its card (gloo on the CPU with
+    ``--device cpu``), the (data, n // data) mesh, every cell."""
+    import os
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    cpu = torch.device(args.device).type == "cpu"
+    if not cpu:
+        torch.cuda.set_device(rank)
+    # the host's cores shared by the ranks
+    torch.set_num_threads(max(1, (os.cpu_count() or n) // n))
+    dist.init_process_group("gloo" if cpu else "nccl",
+                            init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=n)
+    try:
+        mesh = make_mesh(n, data, device="cpu" if cpu else "cuda")
+        _run_cells(args, mesh, rank)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description="one-card dry-run")
+    ap = argparse.ArgumentParser(description="dry-run records on one card, "
+                                 "or on a mesh of cards with --cards")
     ap.add_argument("--arch", default="qwen2-1.5b",
                     help="architecture id, a comma-separated list, or 'all'")
     ap.add_argument("--shape", default="decode_32k",
@@ -950,26 +1008,35 @@ def main(argv=None) -> None:
                     help="reduced configs (CPU sanity)")
     ap.add_argument("--seq-len", type=int, default=None,
                     help="override the case's length")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to the first LAYERS layers")
+    ap.add_argument("--cards", type=int, default=None,
+                    help="spawn one rank a card and record on a mesh of "
+                    "CARDS cards (NCCL; gloo ranks with --device cpu)")
+    ap.add_argument("--mesh", default=None,
+                    help="with --cards: the mesh as DATAxMODEL (1x4, 2x2); "
+                    "default 1xCARDS")
     ap.add_argument("--out", default=str(DEFAULT_OUT))
     args = ap.parse_args(argv)
-    archs = list_archs() if args.arch == "all" else args.arch.split(",")
-    shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
-    for arch in archs:
-        for shape in shapes:
-            rec = run_cell(arch, shape, Path(args.out), device=args.device,
-                           reduced=args.reduced, seq_len=args.seq_len,
-                           variant=args.variant)
-            status = ("SKIP" if "skipped" in rec else "NOFIT"
-                      if "not_fitting" in rec else "OK")
-            print(f"[{status}] {arch} x {shape}: "
-                  + json.dumps({k: rec[k] for k in (
-                      "global_batch", "seq_len", "flops", "bytes_accessed",
-                      "step_ms", "device_busy_ms", "skipped", "not_fitting",
-                      "reduced") if k in rec}))
-            if arch != archs[-1] or shape != shapes[-1]:
-                if torch.cuda.is_available():
-                    torch.cuda.empty_cache()
-            sys.stdout.flush()
+    if args.cards is None:
+        if args.mesh is not None:
+            ap.error("--mesh needs --cards")
+        _run_cells(args)
+        return
+    shape = args.mesh or f"1x{args.cards}"
+    try:
+        data, model = (int(x) for x in shape.split("x"))
+    except ValueError:
+        ap.error(f"--mesh {shape}: expected DATAxMODEL, e.g. 1x4")
+    if args.cards < 1 or data * model != args.cards:
+        ap.error(f"--mesh {shape} does not hold --cards {args.cards}")
+    if T.resolve_device(args.device).type == "cuda" and \
+            torch.cuda.device_count() < args.cards:
+        raise RuntimeError(f"--cards {args.cards}: "
+                           f"{torch.cuda.device_count()} cards visible")
+    torch.multiprocessing.spawn(_mesh_rank, args=(args.cards, data,
+                                                  _free_port(), args),
+                                nprocs=args.cards, join=True)
 
 
 if __name__ == "__main__":

@@ -16,18 +16,28 @@ import numpy as np
 import pytest
 
 import repro.core.accelerators as j_acc
+import repro.core.allocator as j_alloc
 import repro.core.balancer as j_bal
+import repro.core.dominance as j_dom
 import repro.core.engine_model as j_em
+import repro.core.ilp as j_ilp
+import repro.core.loadmatrix as j_lm
 import repro.core.profiler as j_prof
+import repro.core.simulator as j_sim
 import repro.core.workload as j_wl
 import repro.configs.shapes as j_shapes
 from repro.configs import get_config as jax_get_config
 from repro_torch.configs import get_config, list_archs
 import repro_torch.configs.shapes as p_shapes
 import repro_torch.core.accelerators as p_acc
+import repro_torch.core.allocator as p_alloc
 import repro_torch.core.balancer as p_bal
+import repro_torch.core.dominance as p_dom
 import repro_torch.core.engine_model as p_em
+import repro_torch.core.ilp as p_ilp
+import repro_torch.core.loadmatrix as p_lm
 import repro_torch.core.profiler as p_prof
+import repro_torch.core.simulator as p_sim
 import repro_torch.core.workload as p_wl
 from repro_torch.launch import dryrun
 from repro_torch.models import transformer as T
@@ -35,7 +45,10 @@ from repro_torch.models import transformer as T
 SLO = 0.12
 COPIES = {"accelerators": (j_acc, p_acc), "workload": (j_wl, p_wl),
           "engine_model": (j_em, p_em), "profiler": (j_prof, p_prof),
-          "balancer": (j_bal, p_bal), "shapes": (j_shapes, p_shapes)}
+          "balancer": (j_bal, p_bal), "shapes": (j_shapes, p_shapes),
+          "ilp": (j_ilp, p_ilp), "dominance": (j_dom, p_dom),
+          "loadmatrix": (j_lm, p_lm), "allocator": (j_alloc, p_alloc),
+          "simulator": (j_sim, p_sim)}
 
 
 def _code(module) -> str:

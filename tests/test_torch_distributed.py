@@ -29,6 +29,9 @@ on every rank.
 """
 import json
 import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -57,6 +60,9 @@ NEW = 6
 # dry-run records on mesh 1x4 (reduced, seq 64): the four-card cells
 RECORDS = (("qwen2-1.5b", "decode_32k"), ("qwen2-1.5b", "prefill_32k"),
            ("gemma2-27b", "decode_32k"), ("gemma2-27b", "long_500k"))
+# the cell the dry-run CLI records on its own 4 gloo ranks (--cards 4)
+CLI_CELL = RECORDS[0]
+SRC = Path(__file__).resolve().parents[1] / "src"
 
 
 def _weights(cfg, seed):
@@ -170,7 +176,27 @@ def _rank(rank, store_path, out_dir, weights):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def cli(tmp_path_factory):
+    """``python -m repro_torch.launch.dryrun --cards 4 --mesh 1x4 --device
+    cpu`` for CLI_CELL, reduced at seq 64, started before ``runs``' spawn
+    so that the two overlap: (its output directory, the process)."""
+    out = tmp_path_factory.mktemp("cli")
+    arch, shape = CLI_CELL
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--cards",
+         str(WORLD), "--mesh", f"1x{WORLD}", "--device", "cpu", "--reduced",
+         "--seq-len", "64", "--arch", arch, "--shape", shape, "--out",
+         str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
+    yield out, proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, cli):
     """(the JAX references and the one-process engine's tokens, each
     rank's results)."""
     import jax
@@ -324,3 +350,23 @@ def test_mesh_records(runs, arch, shape):
     if shape == "long_500k":
         assert rec["rules"]["kv_seq"] == ["pod", "data", "model"]
         assert "kv_heads" not in rec["rules"]         # replicated
+
+
+def test_cli_mesh_record_equals_run_cell(runs, cli, tmp_path):
+    """The CLI's mesh mode writes one record, under the name and with the
+    fields (batch, collectives, operations, bytes, mesh: every field, as
+    nothing is timed on the CPU) of the spawn's ``run_cell(mesh=)``."""
+    out, proc = cli
+    stdout, stderr = proc.communicate(timeout=600)
+    assert proc.returncode == 0, stderr[-3000:]
+    *_, records = runs
+    want = records[CLI_CELL]
+    dryrun._write(tmp_path, want)
+    assert [f.name for f in out.iterdir()] == \
+        [f.name for f in tmp_path.iterdir()]
+    got = json.loads(next(out.iterdir()).read_text())
+    assert got == want
+    assert got["mesh"] == f"cpu_1x{WORLD}" and got["devices"] == WORLD
+    arch, shape = CLI_CELL
+    assert stdout.startswith(f"[OK] {arch} x {shape} on cpu_1x{WORLD}: ")
+    assert len(stdout.splitlines()) == 1          # rank 0 prints

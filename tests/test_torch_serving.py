@@ -259,10 +259,16 @@ def test_block_manager_matches_jax_copy(seed):
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
+    """Every module of the port and the two example twins (their top
+    level, not their main) load no jax and nothing of repro."""
+    twins = [str(SRC.parent / "examples" / f) for f in (
+        "serve_heterogeneous_torch.py", "train_small_torch.py")]
     code = (
-        "import pkgutil, sys, importlib, repro_torch\n"
+        "import pkgutil, runpy, sys, importlib, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"for path in {twins!r}:\n"
+        "    assert 'main' in runpy.run_path(path)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -277,6 +283,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.kernels.ssm_scan", "repro_torch.serving.cluster",
             "repro_torch.launch.dryrun", "repro_torch.core.balancer",
             "repro_torch.core.profiler", "repro_torch.configs.shapes",
+            "repro_torch.core.allocator", "repro_torch.core.ilp",
+            "repro_torch.core.dominance", "repro_torch.core.loadmatrix",
+            "repro_torch.core.simulator",
             "repro_torch.training.data", "repro_torch.training.optimizer",
             "repro_torch.training.train_loop", "repro_torch.launch.steps",
             "repro_torch.checkpoint.checkpoint",
